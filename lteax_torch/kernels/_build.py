@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile, with plain C entry points, into ONE
+shared library by ``nvcc -gencode arch=compute_90a,code=sm_90a``, loaded
+with ctypes.  The library lands in ``build/lteax_torch/`` at the repository
+root, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once.
+
+``-fmad=false``: every kernel is adds, multiplies, maxes and mins in f32,
+and with no contraction into fused multiply-adds each one equals its plain
+torch version bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lteax_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (pointers and the stream as void*)
+SIGNATURES = {
+    "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, path: Path, build_s: float, ptxas_log: str):
+        self.path = path
+        self.build_s = build_s          # 0.0 when loaded from a prior build
+        self.ptxas_log = ptxas_log
+        self.lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Launch on PyTorch's current stream; raise on a launch error."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+@lru_cache(maxsize=None)
+def library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"liblteax_kernels_{h.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        return KernelLibrary(out, 0.0, log_path.read_text()
+                             if log_path.exists() else "")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                          *map(str, sources)],
+                         capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    log_path.write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return KernelLibrary(out, build_s, res.stdout + res.stderr)
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as an int."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
+    for t in tensors:
+        if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
+            raise ValueError(f"{name}: needs contiguous float32 CUDA tensors, "
+                             f"got {t.dtype} on {t.device}")
