@@ -2,7 +2,8 @@
 
 All ``csrc/*.cu`` sources compile, with plain C entry points, into ONE
 shared library by ``nvcc -gencode arch=compute_90a,code=sm_90a``, loaded
-with ctypes.  The library lands in ``build/lteax_torch/`` at the repository
+with ctypes: one ``nvcc -c`` per source, all started together, then one
+link.  The library lands in ``build/lteax_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
@@ -27,8 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lteax_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,9 @@ SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
+    "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
+    "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lteax_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -86,16 +89,35 @@ def library() -> KernelLibrary:
         return KernelLibrary(out, 0.0, log_path.read_text()
                              if log_path.exists() else "")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                          *map(str, sources)],
-                         capture_output=True, text=True)
+    nvcc = _nvcc()
+    objs = [out.with_suffix(f".{s.stem}.{os.getpid()}.o") for s in sources]
+    procs, t0 = [], time.perf_counter()
+    try:
+        for s, o in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    finally:
+        for p in procs:             # an interrupted build stops every nvcc
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    log_path.write_text(res.stdout + res.stderr)
+    log = "".join(logs)
+    log_path.write_text(log)
     os.replace(tmp, out)
-    return KernelLibrary(out, build_s, res.stdout + res.stderr)
+    return KernelLibrary(out, build_s, log)
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -1,1 +1,1 @@
-"""Physical channel codecs (PDSCH)."""
+"""Physical channel codecs (PDSCH, PBCH)."""

@@ -1,14 +1,17 @@
-"""CRS channel estimation and noise estimate (port 0, LS + 2-D linear
-interpolation), counterpart of ``lteax.phy.chest``.
+"""CRS channel estimation (ports 0-3, LS + 2-D linear interpolation),
+noise estimate, SISO / SFBC / SFBC+FSTD equalisation and the matching
+transmit precoders; counterpart of ``lteax.phy.chest``.
 
 The interpolation matrices and CRS reference values are numpy copies of the
 reference's host plan code (the tests hold them equal); the interpolation
 runs as real-decomposed float32 matmuls, as in the reference, in full
-float32 (``lteax_torch.phy.fec.crc.exact_f32_matmul``).
+float32 (``lteax_torch.phy.fec.crc.exact_f32_matmul``).  The equalisers
+and precoders are the reference's elementwise formulas in the same order.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -117,3 +120,93 @@ def estimate_noise_var(grid: torch.Tensor, cfg: PhyConfig, n_cell_id: int,
     d = h_ls[..., :n_half, :] - h_ls[..., n_half:2 * n_half, :]
     nv = torch.mean(d.abs() ** 2, dim=(-2, -1)) / 2.0
     return torch.clamp_min(nv, 1e-6)
+
+
+SQRT2 = math.sqrt(2.0)
+
+
+def _guard(p: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(p, 1e-12)
+
+
+def equalize_siso(grid: torch.Tensor, h: torch.Tensor, noise_var):
+    """MMSE single-port equaliser with bias correction.  Returns (x_hat,
+    eff_noise_var = noise_var / |h|^2)."""
+    p = torch.abs(h) ** 2
+    x = grid * torch.conj(h) / (p + noise_var)
+    scale = p / (p + noise_var)
+    x = x / _guard(scale)
+    return x, noise_var / _guard(p)
+
+
+def combine_sfbc(y: torch.Tensor, h0: torch.Tensor, h1: torch.Tensor,
+                 noise_var):
+    """Alamouti (SFBC, 2 TX ports, 36.211 §6.3.4.3) combining of RE pairs
+    (2i, 2i+1).  y, h0, h1 (..., n_re), n_re even -> (x_hat, eff_nv)."""
+    y0, y1 = y[..., 0::2], y[..., 1::2]
+    g0, g1 = h0[..., 0::2], h1[..., 0::2]
+    p = torch.abs(g0) ** 2 + torch.abs(g1) ** 2
+    x0 = (torch.conj(g0) * y0 + g1 * torch.conj(y1)) / _guard(p)
+    x1 = (torch.conj(g0) * y1 - g1 * torch.conj(y0)) / _guard(p)
+    x = torch.stack([x0, x1], dim=-1).reshape(*y.shape[:-1], -1)
+    eff = noise_var / _guard(p)
+    eff_nv = torch.stack([eff, eff], dim=-1).reshape(*y.shape[:-1], -1)
+    return x * SQRT2, eff_nv * 2.0
+
+
+def equalize_res(y: torch.Tensor, h0: torch.Tensor, h1, noise_var,
+                 n_ant: int):
+    """Equalise gathered REs (channel-mapping order): SISO or 2-port SFBC."""
+    if n_ant == 1:
+        return equalize_siso(y, h0, noise_var)
+    return combine_sfbc(y, h0, h1, noise_var)
+
+
+def combine_sfbc_fstd(y: torch.Tensor, h0, h1, h2, h3, noise_var):
+    """4-port SFBC+FSTD combining.  y, h* (..., n), n % 4 == 0: ports
+    (0, 2) carry the Alamouti pair on REs (0, 1) of each quadruplet, ports
+    (1, 3) on REs (2, 3)."""
+    lead = y.shape[:-1]
+    q = y.reshape(*lead, -1, 4)
+    g0 = h0.reshape(*lead, -1, 4)[..., 0]
+    g2 = h2.reshape(*lead, -1, 4)[..., 0]
+    g1 = h1.reshape(*lead, -1, 4)[..., 2]
+    g3 = h3.reshape(*lead, -1, 4)[..., 2]
+    pa = torch.abs(g0) ** 2 + torch.abs(g2) ** 2
+    pb = torch.abs(g1) ** 2 + torch.abs(g3) ** 2
+    x0 = (torch.conj(g0) * q[..., 0] + g2 * torch.conj(q[..., 1])) / _guard(pa)
+    x1 = (torch.conj(g0) * q[..., 1] - g2 * torch.conj(q[..., 0])) / _guard(pa)
+    x2 = (torch.conj(g1) * q[..., 2] + g3 * torch.conj(q[..., 3])) / _guard(pb)
+    x3 = (torch.conj(g1) * q[..., 3] - g3 * torch.conj(q[..., 2])) / _guard(pb)
+    x = torch.stack([x0, x1, x2, x3], dim=-1).reshape(*lead, -1)
+    ea = noise_var / _guard(pa)
+    eb = noise_var / _guard(pb)
+    eff = torch.stack([ea, ea, eb, eb], dim=-1).reshape(*lead, -1)
+    return x * SQRT2, eff * 2.0
+
+
+def precode_sfbc(x: torch.Tensor):
+    """TX: symbol pairs onto 2 ports (36.211 §6.3.4.3).  x (..., n), n
+    even -> (port 0 [x0, x1]/sqrt2, port 1 [-x1*, x0*]/sqrt2)."""
+    x0, x1 = x[..., 0::2], x[..., 1::2]
+    s = 1.0 / SQRT2
+    p0 = torch.stack([x0, x1], dim=-1).reshape(*x.shape[:-1], -1) * s
+    p1 = torch.stack([-torch.conj(x1), torch.conj(x0)],
+                     dim=-1).reshape(*x.shape[:-1], -1) * s
+    return p0, p1
+
+
+def precode_sfbc_fstd(x: torch.Tensor):
+    """TX: 4-port SFBC+FSTD (36.211 §6.3.4.3).  x (..., n), n % 4 == 0
+    -> the 4 ports' symbols (port order 0, 1, 2, 3)."""
+    s = 1.0 / SQRT2
+    q = x.reshape(*x.shape[:-1], -1, 4)
+    z = torch.zeros_like(q[..., 0])
+    p0 = torch.stack([q[..., 0], q[..., 1], z, z], dim=-1)
+    p2 = torch.stack([-torch.conj(q[..., 1]), torch.conj(q[..., 0]), z, z],
+                     dim=-1)
+    p1 = torch.stack([z, z, q[..., 2], q[..., 3]], dim=-1)
+    p3 = torch.stack([z, z, -torch.conj(q[..., 3]), torch.conj(q[..., 2])],
+                     dim=-1)
+    flat = lambda p: p.reshape(*x.shape[:-1], -1) * s
+    return flat(p0), flat(p1), flat(p2), flat(p3)

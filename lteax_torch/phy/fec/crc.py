@@ -43,10 +43,13 @@ def crc_matrix(n_bits: int, kind: str) -> np.ndarray:
     return rems
 
 
-def attach_crc_np(bits: np.ndarray, kind: str) -> np.ndarray:
-    """Host CRC attach: (..., N) -> (..., N + L) int64."""
+def attach_crc_np(bits: np.ndarray, kind: str, mask_bits=None) -> np.ndarray:
+    """Host CRC attach: (..., N) -> (..., N + L) int64.  ``mask_bits``
+    (L,) XORs the parity (the PBCH antenna mask, 36.212 §5.3.1.1)."""
     m = crc_matrix(bits.shape[-1], kind).astype(np.int64)
     p = (bits.astype(np.int64) @ m) % 2
+    if mask_bits is not None:
+        p = (p + np.asarray(mask_bits, dtype=np.int64)) % 2
     return np.concatenate([bits.astype(np.int64), p], axis=-1)
 
 
@@ -65,16 +68,22 @@ def crc_parity_ok(bits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 
 def check_crc(bits_with_crc: torch.Tensor, kind: str,
-              m: torch.Tensor | None = None):
+              m: torch.Tensor | None = None, mask_bits=None):
     """Split and verify.  Returns (payload, ok (...,) bool).
 
     ``m`` is the float32 (N - L, L) contribution matrix on the bits' device;
-    callers that check the same length repeatedly pass it in."""
+    callers that check the same length repeatedly pass it in.
+    ``mask_bits`` (..., L) 0/1, broadcast against the batch, XORs the
+    computed parity before the comparison (PBCH antenna masks)."""
     L, _ = CRC_POLYS[kind]
     payload, rx_par = bits_with_crc[..., :-L], bits_with_crc[..., -L:]
     if m is None:
         m = torch.as_tensor(crc_matrix(payload.shape[-1], kind),
                             dtype=torch.float32, device=payload.device)
     p = torch.remainder(payload.to(torch.float32) @ m, 2.0)
+    if mask_bits is not None:
+        mask = torch.as_tensor(mask_bits, dtype=torch.float32,
+                               device=payload.device)
+        p = torch.remainder(p + mask, 2.0)
     ok = torch.all(p == rx_par.to(torch.float32), dim=-1)
     return payload, ok

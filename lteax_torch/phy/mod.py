@@ -1,10 +1,11 @@
-"""Modulation tables and mapper (36.211 §7.1).
+"""Modulation tables, mapper and max-log soft demapper (36.211 §7.1).
 
 Numpy copies of ``lteax.phy.mod.constellation`` and ``_pam_axis``; the
-tests hold them equal to the originals.  The soft demapper is the demap
-kernel (``lteax_torch.kernels.demap``): for the Gray square QAM schemes the
-max-log subset minimum factorizes per axis into an L-level PAM problem,
-which ``_pam_axis`` describes.
+tests hold them equal to the originals.  For the Gray square QAM schemes
+the max-log subset minimum factorizes per axis into an L-level PAM
+problem, which ``_pam_axis`` describes.  The PDSCH's full-grid demap is
+the demap kernel (``lteax_torch.kernels.demap``); the short control and
+broadcast channels (PBCH: 240 QPSK symbols) use :func:`demodulate_maxlog`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 BITS_PER_SYM = {"bpsk": 1, "qpsk": 2, "16qam": 4, "64qam": 6}
 
@@ -67,3 +69,36 @@ def modulate(bits: np.ndarray, scheme: str) -> np.ndarray:
     groups = np.asarray(bits).reshape(*np.shape(bits)[:-1], -1, m).astype(np.int64)
     weights = np.asarray([1 << (m - 1 - i) for i in range(m)], dtype=np.int64)
     return constellation(scheme)[groups @ weights]
+
+
+def _axis_llr(y: torch.Tensor, scheme: str) -> torch.Tensor:
+    """min_{bit=1} (y-s)^2 - min_{bit=0} (y-s)^2 per axis bit:
+    (..., N) real -> (..., N, m/2)."""
+    pam, bit1 = _pam_axis(scheme)
+    d = [(y - float(s)) ** 2 for s in pam]
+    out = []
+    for row in bit1:
+        d0 = d1 = None
+        for i, one in enumerate(row):
+            if one:
+                d1 = d[i] if d1 is None else torch.minimum(d1, d[i])
+            else:
+                d0 = d[i] if d0 is None else torch.minimum(d0, d[i])
+        out.append(d1 - d0)
+    return torch.stack(out, dim=-1)
+
+
+def demodulate_maxlog(symbols: torch.Tensor, scheme: str,
+                      noise_var=None) -> torch.Tensor:
+    """Exact max-log LLRs.  symbols (..., N) complex -> (..., N*m) float32,
+    bit order per symbol (b0|I, b1|Q, b2|I, ...); positive => bit 0.
+    ``noise_var``: scalar or per-symbol (..., N) effective noise."""
+    if scheme not in ("qpsk", "16qam", "64qam"):
+        raise ValueError(f"demodulate_maxlog supports QPSK/16QAM/64QAM, "
+                         f"not {scheme}")
+    llr = torch.stack([_axis_llr(symbols.real, scheme),
+                       _axis_llr(symbols.imag, scheme)], dim=-1)
+    llr = llr.reshape(*symbols.shape, -1)                # (..., N, m)
+    if noise_var is not None:
+        llr = llr / torch.as_tensor(noise_var, device=llr.device)[..., None]
+    return llr.reshape(*symbols.shape[:-1], -1)

@@ -1,9 +1,10 @@
-"""Gold scrambling sequence and CRS values (36.211 §7.2, §6.10.1).
+"""Gold scrambling sequence, CRS values, PSS and SSS (36.211 §7.2,
+§6.10.1, §6.11).
 
 Numpy copies of the host plan code in ``lteax.phy.seq`` (which imports jax
-at load time); the tests hold each copy equal to its original.  The DL
-receive chain needs only the host forms: the scrambling signs are
-batch-invariant, so they are computed once per decoder.
+at load time); the tests hold each copy equal to its original.  The
+receive chains need only the host forms: the scrambling signs and the
+sync sequences are capture-invariant, so they are computed once.
 """
 
 from __future__ import annotations
@@ -69,3 +70,73 @@ def crs_values(n_cell_id: int, ns: int, l: int, n_rb_dl: int,
     r = ((1 - 2 * c[2 * m]) + 1j * (1 - 2 * c[2 * m + 1])) / np.sqrt(2)
     mp0 = N_RB_MAX - n_rb_dl
     return r[mp0:mp0 + 2 * n_rb_dl].astype(np.complex64)
+
+
+# ---------------------------------------------------------------------------
+# PSS — Zadoff-Chu length 63, roots 25/29/34 (36.211 §6.11.1)
+# ---------------------------------------------------------------------------
+
+PSS_ROOTS = (25, 29, 34)  # N_id_2 = 0, 1, 2
+
+
+@lru_cache(maxsize=None)
+def pss_sequence(n_id_2: int) -> np.ndarray:
+    """(62,) complex64 frequency-domain PSS."""
+    u = PSS_ROOTS[n_id_2]
+    n = np.arange(62)
+    d = np.where(
+        n < 31,
+        np.exp(-1j * np.pi * u * n * (n + 1) / 63.0),
+        np.exp(-1j * np.pi * u * (n + 1) * (n + 2) / 63.0),
+    )
+    return d.astype(np.complex64)
+
+
+# ---------------------------------------------------------------------------
+# SSS — interleaved m-sequences (36.211 §6.11.2)
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _m_seq(taps: tuple[int, ...]) -> np.ndarray:
+    """Length-31 BPSK m-sequence: x(i+5) = xor of x(i+t) for t in taps,
+    x(4) = 1 and x(0..3) = 0."""
+    x = np.zeros(31, dtype=np.int64)
+    x[4] = 1
+    for i in range(26):
+        x[i + 5] = np.bitwise_xor.reduce([x[i + t] for t in taps])
+    return 1 - 2 * x
+
+
+@lru_cache(maxsize=None)
+def sss_m0_m1(n_id_1: int) -> tuple[int, int]:
+    qp = n_id_1 // 30
+    q = (n_id_1 + qp * (qp + 1) // 2) // 30
+    mp = n_id_1 + q * (q + 1) // 2
+    m0 = mp % 31
+    m1 = (m0 + mp // 31 + 1) % 31
+    return m0, m1
+
+
+@lru_cache(maxsize=None)
+def sss_sequence(n_id_1: int, n_id_2: int, subframe5: bool) -> np.ndarray:
+    """(62,) float32 (BPSK) SSS for subframe 0 (False) or 5 (True)."""
+    m0, m1 = sss_m0_m1(n_id_1)
+    n = np.arange(31)
+    s, c, z = _m_seq((2, 0)), _m_seq((3, 0)), _m_seq((4, 2, 1, 0))
+    s0, s1 = s[(n + m0) % 31], s[(n + m1) % 31]
+    c0, c1 = c[(n + n_id_2) % 31], c[(n + n_id_2 + 3) % 31]
+    z1m0, z1m1 = z[(n + (m0 % 8)) % 31], z[(n + (m1 % 8)) % 31]
+    d = np.zeros(62, dtype=np.float32)
+    if not subframe5:
+        d[0::2] = s0 * c0
+        d[1::2] = s1 * c1 * z1m0
+    else:
+        d[0::2] = s1 * c0
+        d[1::2] = s0 * c1 * z1m1
+    return d
+
+
+@lru_cache(maxsize=None)
+def sss_bank(n_id_2: int, subframe5: bool) -> np.ndarray:
+    """(168, 62) float32 correlation bank over all N_id_1 hypotheses."""
+    return np.stack([sss_sequence(i, n_id_2, subframe5) for i in range(168)])

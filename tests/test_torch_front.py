@@ -15,6 +15,7 @@ import torch
 
 from lteax.phy import chest as chest_ref
 from lteax.phy.channels import pdsch as pdsch_ref
+from lteax.phy.config import PhyConfig
 from lteax.phy.ofdm import samples_to_subframe as s2s_ref
 from lteax.phy.tuning import DecoderTuning as RefTuning
 from lteax.shard.pipeline import _pdsch_stages
@@ -81,3 +82,50 @@ def test_dematched_llrs_match_reference_front(signal, monkeypatch):
     np.testing.assert_array_equal(got == 0, ref == 0)
     np.testing.assert_allclose(got, ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("port", [0, 1, 2, 3])
+def test_chest_every_port(port):
+    """The CRS estimate of each antenna port (ports 2/3 have 2 pilot
+    symbols, 0/1 have 4) and the port-0 noise estimate, on one grid."""
+    cfg = PhyConfig(n_rb_dl=15)
+    rng = np.random.default_rng(port)
+    g = (rng.standard_normal((2, cfg.n_sym_subframe, cfg.n_sc))
+         + 1j * rng.standard_normal((2, cfg.n_sym_subframe, cfg.n_sc))
+         ).astype(np.complex64)
+    for cid, sf in ((301, 0), (7, 5)):
+        h = chest.estimate_channel(torch.from_numpy(g), cfg, cid, sf, port)
+        h_r = chest_ref.estimate_channel(jnp.asarray(g), cfg, cid, sf, port)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **TOL)
+    nv = chest.estimate_noise_var(torch.from_numpy(g), cfg, 301, 0)
+    nv_r = chest_ref.estimate_noise_var(jnp.asarray(g), cfg, 301, 0)
+    np.testing.assert_allclose(nv.numpy(), np.asarray(nv_r), **TOL)
+
+
+def test_equalisers_and_precoders():
+    """SISO, SFBC and SFBC+FSTD combining and the two transmit precoders,
+    against the reference's elementwise formulas."""
+    rng = np.random.default_rng(11)
+    c = lambda *s: (rng.standard_normal(s) + 1j * rng.standard_normal(s)
+                    ).astype(np.complex64)
+    y, h0, h1, h2, h3 = (c(3, 240) for _ in range(5))
+    nv = np.float32(0.07)
+    t = lambda a: torch.from_numpy(a)
+    pairs = [
+        (chest.equalize_res(t(y), t(h0), t(h1), nv, 1),
+         chest_ref.equalize_res(jnp.asarray(y), jnp.asarray(h0),
+                                jnp.asarray(h1), nv, 1)),
+        (chest.equalize_res(t(y), t(h0), t(h1), nv, 2),
+         chest_ref.equalize_res(jnp.asarray(y), jnp.asarray(h0),
+                                jnp.asarray(h1), nv, 2)),
+        (chest.combine_sfbc_fstd(*map(t, (y, h0, h1, h2, h3)), nv),
+         chest_ref.combine_sfbc_fstd(*map(jnp.asarray, (y, h0, h1, h2, h3)),
+                                     nv)),
+        (chest.precode_sfbc(t(y)), chest_ref.precode_sfbc(jnp.asarray(y))),
+        (chest.precode_sfbc_fstd(t(y)),
+         chest_ref.precode_sfbc_fstd(jnp.asarray(y))),
+    ]
+    for got, ref in pairs:
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)

@@ -192,3 +192,64 @@ def test_check_crc_matches_reference(kind, n):
     np.testing.assert_array_equal(pay.numpy(), np.asarray(pay_r))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_r))
     assert ok.tolist() == [True, False, True, True]
+
+
+# -- the scanner slice's plans: sync sequences and filters, resampler bank,
+#    convolutional code, PBCH masks, CRC16 --------------------------------
+
+@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: f"{c.n_rb_dl}prb")
+def test_pss_time_filters(cfg):
+    from lteax.phy import sync as sync_ref
+    from lteax_torch.phy import sync
+    got, ref = sync.pss_time_filters(cfg), sync_ref.pss_time_filters(cfg)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n_id_2", [0, 1, 2])
+def test_pss_sequence_and_sss_bank(n_id_2):
+    np.testing.assert_array_equal(seq.pss_sequence(n_id_2),
+                                  seq_ref.pss_sequence(n_id_2))
+    for half in (False, True):
+        got, ref = seq.sss_bank(n_id_2, half), seq_ref.sss_bank(n_id_2, half)
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    assert [seq.sss_m0_m1(i) for i in range(168)] == \
+        [seq_ref.sss_m0_m1(i) for i in range(168)]
+
+
+@pytest.mark.parametrize("p,q", [(192, 125), (2, 3), (25, 24), (1, 10),
+                                 (2, 1), (5, 4), (125, 192)])
+def test_polyphase_bank_and_frame_weight(p, q):
+    from lteax.kernels import polyphase as poly_ref
+    from lteax_torch.kernels import polyphase
+    np.testing.assert_array_equal(polyphase.design_polyphase(p, q),
+                                  poly_ref.design_polyphase(p, q))
+    np.testing.assert_array_equal(polyphase._frame_weight(p, q, 12),
+                                  poly_ref._frame_weight(p, q, 12))
+
+
+def test_conv_trellis_tables():
+    from lteax.phy.fec import conv as conv_ref
+    from lteax_torch.phy.fec import conv
+    np.testing.assert_array_equal(conv._taps(), conv_ref._taps())
+    for a, b in zip(conv.trellis_tables(), conv_ref.trellis_tables()):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("d_len,e_len", [(40, 1920), (40, 1728), (40, 480),
+                                         (73, 216), (57, 144)])
+def test_conv_rm_indices(d_len, e_len):
+    np.testing.assert_array_equal(ratematch.conv_rm_indices(d_len, e_len),
+                                  rm_ref.conv_rm_indices(d_len, e_len))
+
+
+def test_pbch_ant_masks_and_crc16():
+    from lteax.phy.channels import pbch as pbch_ref
+    from lteax_torch.phy.channels import pbch
+    assert pbch.ANT_MASKS.keys() == pbch_ref.ANT_MASKS.keys()
+    for k in pbch.ANT_MASKS:
+        np.testing.assert_array_equal(pbch.ANT_MASKS[k], pbch_ref.ANT_MASKS[k])
+    np.testing.assert_array_equal(crc.crc_matrix(24, "16"),
+                                  crc_ref.crc_matrix(24, "16"))
