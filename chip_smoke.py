@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-three paths, each with the launch counters set to 0 just before it and
+six paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -24,11 +24,28 @@ read just after:
 3. The PSS band sweep (``lteax_torch.bench.scan_throughput.detect``, the
    fused detect kernel) over 128 carriers x 20 subframes of 20 MHz: every
    carrier must give root 1 at the inserted index.
+4. UL-SCH decode through ``lteax_torch.pipeline.make_pusch_batch_decoder``
+   at the ``bench/ul_throughput.py`` configuration (100 PRB, TBS 75376,
+   64QAM, cell 214, subframe 4, RNTI 0x3D) on 256 gridded subframes at
+   25 dB from ``lteax_torch.sim.ul_gen`` (seed 0): every transport block
+   must decode to the bits sent, and a small slice as on the CPU.
+5. HARQ incremental redundancy through
+   ``lteax_torch.pipeline.make_batch_harq_decoder`` at the
+   ``bench/harq_throughput.py`` configuration (20 MHz, MCS 28, subframes
+   (1, 2), rv (0, 2)) on 64 transport blocks at ``HARQ_SNR_DB``, where the
+   rv 0 transmission alone must decode none of them and the combination all
+   of them; then both decoders are timed at 25 dB.
+6. The ACS op-mix probe through ``lteax_torch.bench.acs_probe.run`` (f32 and
+   packed bf16, 2 097 152 elements, 512 rounds).
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
 device; the one before it lists the kernels with their launch counts,
-errors and times.
+errors, times and bounds.  A kernel's bound is the least time the card
+could take for the same work: the larger of its bytes (each input read
+once, each output written once) over the memory rate and its operations
+over the peak rate of their type, from the published peaks of the H100 SXM
+below.
 """
 
 from __future__ import annotations
@@ -44,25 +61,47 @@ import torch
 
 import lteax_torch.apps.file_scan as file_scan
 import lteax_torch.apps.scanner as scanner
+import lteax_torch.kernels.acs_probe as acs_mod
 import lteax_torch.kernels.demap as demap_mod
 import lteax_torch.kernels.polyphase as poly_mod
 import lteax_torch.kernels.pss as pss_mod
 import lteax_torch.kernels.turbo_mlm as turbo_mod
-from lteax.io.iq import write_iq
 from lteax_torch import host
-from lteax.phy.config import PhyConfig
-from lteax_torch.bench import scan_throughput
+from lteax_torch.bench import acs_probe, scan_throughput
+from lteax_torch.io.iq import read_iq, write_iq
 from lteax_torch.kernels._build import library
-from lteax_torch.pipeline import dl_demap_plans, make_batch_decoder
 from lteax_torch.phy import seq
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.sync import pss_time_filters
+from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
+                                  make_batch_harq_decoder,
+                                  make_pusch_batch_decoder)
 from lteax_torch.sim import cell_gen
-from lteax_torch.sim.dl_gen import DlCell, dl_subframes
+from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
+                                    harq_transmissions)
+from lteax_torch.sim.ul_gen import UlCell, ul_subframes
 
 BATCH = 256
 SNR_DB = 25.0
 SEED = 0
 DECODE_REPS = 110     # median and p90 each with >= 10 samples beyond
+UL_REPS = 20
+HARQ_BATCH = 64
+HARQ_SUBFRAMES, HARQ_RVS = (1, 2), (0, 2)
+HARQ_SNR_DB = 15.0    # rv 0 alone decodes 0/64 here, rv 0 + rv 2 64/64
+HARQ_REPS = 30
+PROBE_ROUNDS = (8, 64, 512)
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet and the Hopper
+# white paper): device memory, f32 outside the tensor cores counted as
+# NVIDIA does (a fused multiply-add is 2), and the same pipes' instruction
+# rate for adds, maxes and mins, which cannot fuse: one per lane and clock,
+# half the flop figure.  Packed bf16 pairs run two lanes per instruction
+# (the white paper's 133.8 TFLOP/s outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+F32_OPS_PER_S = 33.5e12
+BF16X2_OPS_PER_S = 67e12
 
 SCAN_CFG = PhyConfig(n_rb_dl=100)
 SDR_RATE = 20e6       # the captures' rate; the scanner resamples 192/125
@@ -84,6 +123,8 @@ SOURCES = {
                    "lteax/kernels/pss.py:134"),
     "resample_poly": ("lteax_torch/kernels/csrc/polyphase.cu",
                       "lteax/kernels/polyphase.py:60"),
+    "acs_probe": ("lteax_torch/kernels/csrc/acs_probe.cu",
+                  "bench/vpu_bf16_probe.py:39"),
 }
 
 
@@ -112,32 +153,76 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def check_demap(cell: DlCell, dev) -> dict:
-    """Demap kernel vs plain at the main path's shape: (256, 16800) 64QAM
-    with the headline cell's sign planes (zeros off the PDSCH)."""
-    cfg, geom = cell.cfg, cell.geom
-    sgn, _ = dl_demap_plans(cfg, cell.re_idx, geom, seq.pdsch_c_init(
-        cell.rnti, cell.subframe, cell.n_cell_id))
-    n = cfg.n_sym_subframe * cfg.n_sc
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over their peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def check_demap(name: str, sgn: np.ndarray, n: int, scheme: str, dev) -> dict:
+    """Demap kernel vs plain on (256, n) columns with the sign planes
+    ``sgn`` (m, npad) of a main path."""
+    m, npad = sgn.shape
     rng = np.random.default_rng(SEED)
     t = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
     xr = t(rng.standard_normal((BATCH, n)) * 0.7)
     xi = t(rng.standard_normal((BATCH, n)) * 0.7)
     inv_nv = t(rng.uniform(10.0, 1000.0, (BATCH, n)))
     sgn = t(sgn)
-    got = demap_mod.demap_planar(xr, xi, inv_nv, sgn, cell.scheme)
-    ref = demap_mod.demap_planar_plain(xr, xi, inv_nv, sgn, cell.scheme)
+    got = demap_mod.demap_planar(xr, xi, inv_nv, sgn, scheme)
+    ref = demap_mod.demap_planar_plain(xr, xi, inv_nv, sgn, scheme)
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError(f"demap kernel != plain: max |err| "
+    if got.shape != (BATCH, m, npad) or not torch.equal(got, ref):
+        raise AssertionError(f"{name} kernel != plain: max |err| "
                              f"{max_abs_err(got, ref)}")
     ms = cuda_time_ms(lambda: demap_mod.demap_planar(xr, xi, inv_nv, sgn,
-                                                     cell.scheme), 50)
+                                                     scheme), 50)
     plain_ms = cuda_time_ms(lambda: demap_mod.demap_planar_plain(
-        xr, xi, inv_nv, sgn, cell.scheme), 10)
-    return {"name": "demap", "shape": [BATCH, n, geom.qm],
+        xr, xi, inv_nv, sgn, scheme), 10)
+    # per column and axis: L distances (sub, mul), m/2 bits of L-2 mins,
+    # and sub, mul, mul per LLR
+    lv = 2 ** (m // 2)
+    ops = BATCH * npad * 2 * (2 * lv + (m // 2) * (lv - 2 + 3))
+    return {"name": name, "shape": [BATCH, n, m, npad],
             "max_abs_err": max_abs_err(got, ref), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": None,
+            **bound(4 * (3 * BATCH * n + m * npad + BATCH * m * npad), ops,
+                    F32_OPS_PER_S)}
+
+
+def check_acs_probe(dev) -> dict:
+    """ACS chain kernel vs plain, f32 and packed bf16, at the probe's
+    2 097 152 elements and 8, 64 and 512 rounds, ``torch.equal``; times and
+    rates at 512 rounds."""
+    out = {"name": "acs_probe", "library_ms": None, "max_abs_err": 0.0}
+    for name, dt in acs_probe.DTYPES.items():
+        x = acs_probe.probe_input(64, dt, dev)
+        for rounds in PROBE_ROUNDS:
+            got = acs_mod.acs_chain(x, rounds)
+            ref = acs_mod.acs_chain_plain(x, rounds)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad = got != ref
+                raise AssertionError(
+                    f"acs_probe {name} kernel != plain at {rounds} rounds: "
+                    f"{int(bad.sum())} elements differ")
+        n, rounds = x.numel(), PROBE_ROUNDS[-1]
+        ms = cuda_time_ms(lambda: acs_mod.acs_chain(x, rounds), 20)
+        plain_ms = cuda_time_ms(lambda: acs_mod.acs_chain_plain(x, rounds), 2)
+        b = bound(2 * n * x.element_size(), 4 * rounds * n,
+                  F32_OPS_PER_S if name == "f32" else BF16X2_OPS_PER_S)
+        tops = 4 * rounds * n / (ms * 1e-3) / 1e12
+        pre = "" if name == "f32" else "bf16_"
+        out.update({pre + "ms": ms, pre + "plain_ms": plain_ms,
+                    pre + "tops": tops,
+                    **{pre + k: v for k, v in b.items()}})
+        out["shape"] = [n, rounds]
+    out["bf16_over_f32"] = out["bf16_tops"] / out["tops"]
+    return out
 
 
 def check_turbo(cell: DlCell, dev) -> dict:
@@ -164,8 +249,15 @@ def check_turbo(cell: DlCell, dev) -> dict:
                                                            win, acq), 20)
     plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
         u, v, a0, b0, win, acq), 3)
+    # bytes: u, v in and L out, the boundary metrics in and out; operations
+    # per trellis position: 30 (alpha step) + 30 (beta step) + 39 (combine)
+    # adds, maxes and halvings, plus the 2 * acq acquisition steps of each
+    # window
+    n_bytes = 4 * (3 * c * n + 4 * c * n_w * 8)
+    ops = c * n * 99 + c * n_w * acq * 60
     return {"name": "turbo_half_iteration", "shape": [c, n, win, acq],
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bound(n_bytes, ops, F32_OPS_PER_S)}
 
 
 def _complex_noise(shape, seed: int, dev) -> torch.Tensor:
@@ -187,9 +279,34 @@ def check_resample(dev) -> dict:
     ms = cuda_time_ms(lambda: poly_mod.resample_poly(x, 192, 125), 20)
     plain_ms = cuda_time_ms(lambda: poly_mod.resample_poly_plain(x, 192,
                                                                  125), 5)
+    # 12 real taps times a complex sample per output: 24 mul + 22 add
     return {"name": "resample_poly", "shape": [*RESAMPLE_CHECK_SHAPE, 192,
                                                 125],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            **bound(8 * (x.numel() + got.numel()) + 4 * 192 * 12,
+                    got.numel() * 46, F32_FLOP_PER_S)}
+
+
+def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray) -> float:
+    """The one PyTorch call nearest to the PSS correlator:
+    ``torch.nn.functional.conv1d`` of the zero-padded complex streams with
+    the conjugate replicas, in full f32 (TF32 off).  It gives the complex
+    correlation of the same (C, 3, L) outputs and leaves out the kernel's
+    |.|^2, so it is a yardstick that does a little less.  Used nowhere in
+    the port."""
+    w = torch.as_tensor(np.conj(filt), device=x.device)[:, None, :]
+    xp = torch.nn.functional.pad(x, (0, filt.shape[1] - 1))[:, None, :]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = torch.nn.functional.conv1d(xp, w)
+        if y.shape != (x.shape[0], 3, x.shape[1]):
+            raise AssertionError(f"conv1d yardstick shape {tuple(y.shape)}")
+        del y
+        return cuda_time_ms(lambda: torch.nn.functional.conv1d(xp, w), 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def check_pss(dev) -> list[dict]:
@@ -201,6 +318,10 @@ def check_pss(dev) -> list[dict]:
         x[c, 5000 + 7919 * c:5000 + 7919 * c + filt.shape[1]] += \
             30.0 * torch.as_tensor(filt[c % 3], device=dev)
     out = []
+    # a complex multiply-add per (output, root, tap): 4 mul + 4 add; the
+    # magnitude's 3 flop per output vanish beside them
+    flop = x.numel() * 3 * filt.shape[1] * 8
+    in_bytes = 8 * (x.numel() + filt.size)
     got = pss_mod.pss_corr_mag(x, filt)
     ref = pss_mod.pss_corr_mag_plain(x, filt)
     torch.cuda.synchronize()
@@ -213,7 +334,9 @@ def check_pss(dev) -> list[dict]:
                 "max_abs_err": err,
                 "ms": cuda_time_ms(lambda: pss_mod.pss_corr_mag(x, filt), 5),
                 "plain_ms": cuda_time_ms(
-                    lambda: pss_mod.pss_corr_mag_plain(x, filt), 1, 0)})
+                    lambda: pss_mod.pss_corr_mag_plain(x, filt), 1, 0),
+                "library_ms": library_conv1d_ms(x, filt),
+                **bound(in_bytes + 4 * 3 * x.numel(), flop, F32_FLOP_PER_S)})
     got = pss_mod.pss_detect(x, filt)[:3]
     ref = pss_mod.pss_detect_plain(x, filt)
     torch.cuda.synchronize()
@@ -232,7 +355,10 @@ def check_pss(dev) -> list[dict]:
                 "max_abs_err": max(errs),
                 "ms": cuda_time_ms(lambda: pss_mod.pss_detect(x, filt), 5),
                 "plain_ms": cuda_time_ms(
-                    lambda: pss_mod.pss_detect_plain(x, filt), 1, 0)})
+                    lambda: pss_mod.pss_detect_plain(x, filt), 1, 0),
+                "library_ms": None,
+                **bound(in_bytes + sum(4 * g.numel() for g in got), flop,
+                        F32_FLOP_PER_S)})
     return out
 
 
@@ -296,7 +422,6 @@ def check_scan_reports(reports: list, caps: list) -> None:
 
 def scan_card_vs_cpu(chan, dev, card: str) -> dict:
     """One capture scanned on the card and on the CPU (plain versions)."""
-    from lteax.io.iq import read_iq
     x = torch.from_numpy(read_iq(chan.path))
     res = {}
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -417,6 +542,186 @@ def run_sweep(dev, card: str) -> dict:
             "exact_idx": exact}
 
 
+def decode_counted(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
+                   want_ok: int) -> dict:
+    """One decode with the demap and turbo launch counts set to 0 just
+    before it and read just after; ``want_ok`` transport blocks must pass
+    their CRC, and when that is all of them the bits must equal the sent."""
+    torch.cuda.reset_peak_memory_stats()
+    demap_mod.LAUNCHES = 0
+    turbo_mod.LAUNCHES = 0
+    bits, ok, n_iter = dec(x)
+    torch.cuda.synchronize()
+    launches = {"demap": demap_mod.LAUNCHES,
+                "turbo_half_iteration": turbo_mod.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = dec.last_stats
+    n_ok, n = int(ok.sum()), len(tb_ref)
+    bits_ok = bool(np.array_equal(bits.cpu().numpy(), tb_ref))
+    print(f"[{name}] crc ok {n_ok}/{n}, bits equal sent: {bits_ok}, n_iter "
+          f"{n_iter}/{dec.n_iter}, host syncs {stats.syncs}, compacted "
+          f"retries {stats.retries}, launches {launches}")
+    if bits.shape != tb_ref.shape or bits.dtype != torch.int8:
+        raise AssertionError(f"{name}: tb_bits {tuple(bits.shape)} "
+                             f"{bits.dtype}")
+    if n_ok != want_ok or (want_ok == n and not bits_ok):
+        raise AssertionError(f"{name}: {n_ok}/{n} transport blocks decoded, "
+                             f"{want_ok} expected (bits equal: {bits_ok})")
+    for kernel, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"the {name} path never launched {kernel}")
+    return {"launches": launches, "n_iter": n_iter, "syncs": stats.syncs,
+            "retries": stats.retries, "peak_gb": peak_gb}
+
+
+def card_vs_cpu(name: str, dec, dec_cpu, x_small: torch.Tensor) -> None:
+    """The card's decode of a small slice equals the CPU's (plain
+    versions): bits, CRC flags and n_iter equal, the de-matched LLRs within
+    1e-4 of the largest (FFT rounding)."""
+    d_gpu, d_cpu = dec.front(x_small), dec_cpu.front(x_small.cpu())
+    out_gpu, out_cpu = dec.turbo(d_gpu), dec_cpu.turbo(d_cpu)
+    front_err = max_abs_err(d_gpu.cpu(), d_cpu)
+    front_scale = float(d_cpu.abs().max())
+    print(f"[{name}-cpu-vs-card] {out_cpu[0].shape[0]} transport blocks: "
+          f"de-matched LLR max |diff| {front_err:.3e} (max |LLR| "
+          f"{front_scale:.1f}); n_iter {out_gpu[2]} vs {out_cpu[2]}")
+    if not (torch.equal(out_gpu[0].cpu(), out_cpu[0])
+            and torch.equal(out_gpu[1].cpu(), out_cpu[1])
+            and out_gpu[2] == out_cpu[2]):
+        raise AssertionError(f"{name}: card and CPU decodes of the same "
+                             f"slice differ")
+    if front_err > 1e-4 * front_scale:
+        raise AssertionError(f"{name}: card and CPU fronts differ beyond "
+                             f"FFT rounding")
+
+
+def time_decode(dec, x: torch.Tensor, reps: int) -> tuple[float, float]:
+    """(median, p90) seconds of ``dec(x)``: host clock around synchronised
+    calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), float(np.percentile(times, 90))
+
+
+def run_dl(cell: DlCell, dev, card: str) -> dict:
+    """The DL path: 256 subframes of the bench.py headline config."""
+    t0 = time.perf_counter()
+    iq, tb_ref = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
+    print(f"[gen] {BATCH} subframes, TBS {cell.geom.tbs}, C={cell.geom.info.c}"
+          f", K={cell.geom.k}, {SNR_DB} dB: {time.perf_counter() - t0:.2f} s")
+    dec = make_batch_decoder(*cell.decoder_args(), device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    out = decode_counted("decode", dec, x, tb_ref, BATCH)
+    card_vs_cpu("decode", dec,
+                make_batch_decoder(*cell.decoder_args(), device="cpu"), x[:4])
+    torch.cuda.reset_peak_memory_stats()
+    dec.front(x)
+    torch.cuda.synchronize()
+    front_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t_med, t_p90 = time_decode(dec, x, DECODE_REPS)
+    decode_gb = torch.cuda.max_memory_allocated() / 1e9
+    mbps = BATCH * cell.geom.tbs / t_med / 1e6
+    print(f"[timing] decode B={BATCH}: median {t_med * 1e3:.3f} ms/batch, "
+          f"p90 {t_p90 * 1e3:.3f} (n={DECODE_REPS}), {mbps:.2f} Mbit/s "
+          f"({card})")
+    print(f"[memory] peak allocated: first decode {out['peak_gb']:.2f} GB, "
+          f"front {front_gb:.2f} GB, steady decode {decode_gb:.2f} GB "
+          f"({card})")
+    front_ms = cuda_time_ms(lambda: dec.front(x), 5)
+    print(f"[timing] front (OFDM..de-match) {front_ms:.3f} ms/batch ({card})")
+    return {**out, "decode_ms": t_med * 1e3, "decode_p90_ms": t_p90 * 1e3,
+            "mbit_per_s": mbps, "peak_gb": decode_gb, "front_ms": front_ms}
+
+
+def run_ul(cell: UlCell, dev, card: str) -> dict:
+    """The UL-SCH path: 256 gridded subframes at 100 PRB / TBS 75376."""
+    geom = cell.alloc.geom
+    t0 = time.perf_counter()
+    iq, tb_ref = ul_subframes(cell, BATCH, SNR_DB, seed=SEED)
+    print(f"[ul-gen] {BATCH} subframes, {cell.alloc.n_prb} PRB, TBS "
+          f"{geom.tbs}, C={geom.info.c}, K={geom.k}, {cell.alloc.scheme}, "
+          f"{SNR_DB} dB: {time.perf_counter() - t0:.2f} s")
+    dec = make_pusch_batch_decoder(*cell.decoder_args(), device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    out = decode_counted("ul", dec, x, tb_ref, BATCH)
+    card_vs_cpu("ul", dec,
+                make_pusch_batch_decoder(*cell.decoder_args(), device="cpu"),
+                x[:4])
+    torch.cuda.reset_peak_memory_stats()
+    t_med, t_p90 = time_decode(dec, x, UL_REPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mbps = BATCH * geom.tbs / t_med / 1e6
+    front_ms = cuda_time_ms(lambda: dec.front(x), 5)
+    print(f"[ul] decode B={BATCH}: median {t_med * 1e3:.3f} ms/batch, p90 "
+          f"{t_p90 * 1e3:.3f} (n={UL_REPS}), {mbps:.2f} Mbit/s; front (LS.."
+          f"de-match) {front_ms:.3f} ms/batch; peak allocated {peak_gb:.2f} "
+          f"GB ({card})")
+    return {**out, "decode_ms": t_med * 1e3, "decode_p90_ms": t_p90 * 1e3,
+            "mbit_per_s": mbps, "front_ms": front_ms, "peak_gb": peak_gb}
+
+
+def run_harq(cell: DlCell, dev, card: str) -> dict:
+    """The HARQ-IR path: rv 0 + rv 2 of 64 transport blocks at
+    ``HARQ_SNR_DB``, where rv 0 alone must decode none and the combination
+    all; then both decoders timed at 25 dB."""
+    t0 = time.perf_counter()
+    iq, tb_ref, cells = harq_transmissions(
+        cell, HARQ_SUBFRAMES, HARQ_RVS, HARQ_BATCH, HARQ_SNR_DB, seed=SEED)
+    iq_hi, tb_hi, _ = harq_transmissions(
+        cell, HARQ_SUBFRAMES, HARQ_RVS, HARQ_BATCH, SNR_DB, seed=SEED + 1)
+    print(f"[harq-gen] 2 x {len(cells)} x {HARQ_BATCH} subframes, subframes "
+          f"{HARQ_SUBFRAMES}, rv {HARQ_RVS}, {HARQ_SNR_DB} and {SNR_DB} dB: "
+          f"{time.perf_counter() - t0:.2f} s")
+    dec_h = make_batch_harq_decoder(*harq_decoder_args(cells), device=dev)
+    dec_1 = make_batch_decoder(*cells[0].decoder_args(), device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    out = decode_counted(f"harq rv0+rv2 {HARQ_SNR_DB} dB", dec_h, x, tb_ref,
+                         HARQ_BATCH)
+    decode_counted(f"harq rv0 alone {HARQ_SNR_DB} dB", dec_1, x[0], tb_ref, 0)
+    card_vs_cpu("harq", dec_h, make_batch_harq_decoder(
+        *harq_decoder_args(cells), device="cpu"), x[:, :4])
+    x_hi = torch.from_numpy(iq_hi).to(dev)
+    decode_counted(f"harq rv0+rv2 {SNR_DB} dB", dec_h, x_hi, tb_hi,
+                   HARQ_BATCH)
+    decode_counted(f"harq rv0 alone {SNR_DB} dB", dec_1, x_hi[0], tb_hi,
+                   HARQ_BATCH)
+    # in turns, so that a change in the host's load meets both alike
+    pairs = [(time_decode(dec_h, x_hi, 1)[0],
+              time_decode(dec_1, x_hi[0], 1)[0]) for _ in range(HARQ_REPS)]
+    t_h, t_1 = (float(np.median(t)) for t in zip(*pairs))
+    print(f"[harq] B={HARQ_BATCH}, {SNR_DB} dB: combined median "
+          f"{t_h * 1e3:.3f} ms/batch, rv 0 alone {t_1 * 1e3:.3f} (n="
+          f"{HARQ_REPS} each, in turns), ratio {t_h / t_1:.3f} ({card})")
+    f_h = cuda_time_ms(lambda: dec_h.front(x_hi), 5)
+    f_1 = cuda_time_ms(lambda: dec_1.front(x_hi[0]), 5)
+    print(f"[harq] fronts by CUDA events: two summed {f_h:.3f} ms/batch, "
+          f"one {f_1:.3f} ({card})")
+    return {**out, "snr_db": HARQ_SNR_DB, "combined_ms": t_h * 1e3,
+            "single_ms": t_1 * 1e3, "ratio": t_h / t_1,
+            "combined_front_ms": f_h, "single_front_ms": f_1}
+
+
+def run_probe(dev, card: str) -> dict:
+    """The probe's entry point, as its CLI drives it."""
+    acs_mod.LAUNCHES = 0
+    res = acs_probe.run(rounds=PROBE_ROUNDS[-1], reps=5, device=dev)
+    launches = acs_mod.LAUNCHES
+    if launches <= 0:
+        raise AssertionError("the probe path never launched acs_probe")
+    print(f"[probe] {res['elements']} elements x {res['rounds']} rounds: f32 "
+          f"{res['f32']['ms']:.4f} ms = {res['f32']['tops']:.2f} T add/max "
+          f"per s, bf16 {res['bf16']['ms']:.4f} ms = "
+          f"{res['bf16']['tops']:.2f}; bf16/f32 {res['ratio']:.3f}; launches "
+          f"{launches} ({card})")
+    return {**res, "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (the port's smoke run "
@@ -439,102 +744,75 @@ def main() -> None:
         print(f"[build] {ln}")
 
     # 2. each kernel against its plain version at the main paths' shapes
-    cell = DlCell()
-    kernels = [check_demap(cell, dev), check_turbo(cell, dev),
-               *check_pss(dev), check_resample(dev)]
-    for k in kernels:
+    cell, ul_cell = DlCell(), UlCell()
+    cfg = cell.cfg
+    dl_sgn, _ = dl_demap_plans(cfg, cell.re_idx, cell.geom, seq.pdsch_c_init(
+        cell.rnti, cell.subframe, cell.n_cell_id))
+    ul_dec = make_pusch_batch_decoder(*ul_cell.decoder_args(), device="cpu")
+    demap_ul = check_demap("demap (UL shape)", ul_dec.ul_front.sgn.numpy(),
+                           ul_cell.alloc.n_re, ul_cell.alloc.scheme, dev)
+    kernels = [check_demap("demap", dl_sgn, cfg.n_sym_subframe * cfg.n_sc,
+                           cell.scheme, dev),
+               check_turbo(cell, dev), *check_pss(dev), check_resample(dev),
+               check_acs_probe(dev)]
+    for k in [*kernels, demap_ul]:
+        lib_ms = k["library_ms"]
         print(f"[kernel] {k['name']} {k['shape']}: bit-exact vs plain; "
-              f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms "
-              f"({card})")
+              f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({k['bytes'] / 1e6:.1f} MB, {k['ops'] / 1e9:.2f} G "
+              f"operations), library call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({card})")
+    acs = kernels[-1]
+    print(f"[kernel] acs_probe bf16 (packed pairs): bit-exact vs plain at "
+          f"{PROBE_ROUNDS} rounds; kernel {acs['bf16_ms']:.4f} ms, plain "
+          f"{acs['bf16_plain_ms']:.4f} ms, bound {acs['bf16_bound_ms']:.4f} "
+          f"ms by {acs['bf16_bound_by']}; f32 {acs['tops']:.2f} and bf16 "
+          f"{acs['bf16_tops']:.2f} T add/max per s, ratio "
+          f"{acs['bf16_over_f32']:.3f} ({card})")
 
-    # 3. the main path: 256 subframes of the bench.py headline config
-    t0 = time.perf_counter()
-    iq, tb_ref = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
-    print(f"[gen] {BATCH} subframes, TBS {cell.geom.tbs}, C={cell.geom.info.c}"
-          f", K={cell.geom.k}, {SNR_DB} dB: {time.perf_counter() - t0:.2f} s")
-    dec = make_batch_decoder(*cell.decoder_args(), device=dev)
-    x = torch.from_numpy(iq).to(dev)
-    torch.cuda.reset_peak_memory_stats()
-    demap_mod.LAUNCHES = 0
-    turbo_mod.LAUNCHES = 0
-    bits, ok, n_iter = dec(x)
-    torch.cuda.synchronize()
-    first_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"demap": demap_mod.LAUNCHES,
-                "turbo_half_iteration": turbo_mod.LAUNCHES}
-    stats = dec.last_stats
-    n_ok = int(ok.sum())
-    bits_ok = bool(np.array_equal(bits.cpu().numpy(), tb_ref))
-    print(f"[decode] crc ok {n_ok}/{BATCH}, bits equal sent: {bits_ok}, "
-          f"n_iter {n_iter}/{dec.n_iter}, host syncs {stats.syncs}, "
-          f"compacted retries {stats.retries}, launches {launches}")
-    if n_ok != BATCH or not bits_ok:
-        raise AssertionError("the main path did not decode every TB")
-    if bits.shape != (BATCH, cell.geom.tbs) or bits.dtype != torch.int8:
-        raise AssertionError(f"tb_bits {tuple(bits.shape)} {bits.dtype}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"the main path never launched {name}")
-
-    # 4. the card's decode of a small slice equals the CPU's (plain versions)
-    small = slice(0, 4)
-    dec_cpu = make_batch_decoder(*cell.decoder_args(), device="cpu")
-    x_cpu = torch.from_numpy(iq[small])
-    d_gpu = dec.front(x[small])
-    d_cpu = dec_cpu.front(x_cpu)
-    out_gpu = dec.turbo(d_gpu)
-    out_cpu = dec_cpu.turbo(d_cpu)
-    front_err = max_abs_err(d_gpu.cpu(), d_cpu)
-    front_scale = float(d_cpu.abs().max())
-    print(f"[cpu-vs-card] B=4: de-matched LLR max |diff| {front_err:.3e} "
-          f"(max |LLR| {front_scale:.1f}); n_iter {out_gpu[2]} vs "
-          f"{out_cpu[2]}")
-    if not (torch.equal(out_gpu[0].cpu(), out_cpu[0])
-            and torch.equal(out_gpu[1].cpu(), out_cpu[1])
-            and out_gpu[2] == out_cpu[2]):
-        raise AssertionError("card and CPU decodes of the same slice differ")
-    if front_err > 1e-4 * front_scale:
-        raise AssertionError("card and CPU fronts differ beyond FFT rounding")
-
-    # 5. timing: the whole decode, host clock around synchronised calls
-    torch.cuda.reset_peak_memory_stats()
-    dec.front(x)
-    torch.cuda.synchronize()
-    front_gb = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(DECODE_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dec(x)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    decode_gb = torch.cuda.max_memory_allocated() / 1e9
-    t_med = float(np.median(times))
-    t_p90 = float(np.percentile(times, 90))
-    mbps = BATCH * cell.geom.tbs / t_med / 1e6
-    print(f"[timing] decode B={BATCH}: median {t_med * 1e3:.3f} ms/batch, "
-          f"p90 {t_p90 * 1e3:.3f} (n={len(times)}), {mbps:.2f} Mbit/s "
-          f"({card})")
-    print(f"[memory] peak allocated: first decode {first_gb:.2f} GB, front "
-          f"{front_gb:.2f} GB, steady decode {decode_gb:.2f} GB ({card})")
-    front_ms = cuda_time_ms(lambda: dec.front(x), 5)
-    print(f"[timing] front (OFDM..de-match) {front_ms:.3f} ms/batch ({card})")
-
-    # 6. the scanner path, 7. the sweep path
+    # 3. the main paths, each with its launch counts
+    dl = run_dl(cell, dev, card)
+    launches = dict(dl["launches"])
     scan_out = run_scanner(dev, card)
     launches.update(scan_out["launches"])
     sweep = run_sweep(dev, card)
     launches["pss_detect"] = sweep["launches"]
+    ul = run_ul(ul_cell, dev, card)
+    harq = run_harq(cell, dev, card)
+    probe = run_probe(dev, card)
+    launches["acs_probe"] = probe["launches"]
+    by_path = {name: {"dl": dl["launches"][name], "ul": ul["launches"][name],
+                      "harq": harq["launches"][name]}
+               for name in ("demap", "turbo_half_iteration")}
 
+    extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],
          "replaces": SOURCES[k["name"]][1], "launches": launches[k["name"]],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"]} for k in kernels],
-        "decode_ms": t_med * 1e3, "decode_p90_ms": t_p90 * 1e3,
-        "mbit_per_s": mbps, "peak_gb": decode_gb, "n_iter": n_iter,
-        "syncs": stats.syncs,
+         **({"launches_by_path": by_path[k["name"]]}
+            if k["name"] in by_path else {}),
+         **{key: k[key] for key in k
+            if key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms") + extra
+            or key.startswith("bf16_")}} for k in kernels],
+        "demap_ul_shape": {key: demap_ul[key] for key in
+                           ("shape", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "max_abs_err")},
+        "decode_ms": dl["decode_ms"], "decode_p90_ms": dl["decode_p90_ms"],
+        "mbit_per_s": dl["mbit_per_s"], "peak_gb": dl["peak_gb"],
+        "n_iter": dl["n_iter"], "syncs": dl["syncs"],
+        "front_ms": dl["front_ms"],
+        "ul": {key: ul[key] for key in
+               ("decode_ms", "decode_p90_ms", "mbit_per_s", "front_ms",
+                "peak_gb", "n_iter", "syncs", "retries")},
+        "harq": {key: harq[key] for key in
+                 ("snr_db", "combined_ms", "single_ms", "ratio", "n_iter",
+                  "combined_front_ms", "single_front_ms")},
+        "probe": {"f32_ms": probe["f32"]["ms"], "bf16_ms": probe["bf16"]["ms"],
+                  "f32_tops": probe["f32"]["tops"],
+                  "bf16_tops": probe["bf16"]["tops"],
+                  "ratio": probe["ratio"]},
         "scan_ms_per_channel": scan_out["wall_s"] * 1e3 / (N_LIVE + N_DEAD),
         "scan_stage_s": scan_out["stages"],
         "scan_host_reads": scan_out["reads"],

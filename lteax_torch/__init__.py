@@ -3,18 +3,25 @@
 The JAX package ``lteax`` is the reference; this package mirrors its layout
 so each counterpart is easy to find:
 
-  phy/        PDSCH receive chain in plain torch (OFDM, chest, equalizer,
-              CRC, rate de-match plans, turbo driver) and the numpy plan
-              code it needs (copied from ``lteax`` modules that import jax)
+  phy/        receive chains in plain torch (OFDM, chest, equalizers, sync,
+              PBCH, PUSCH, CRC, rate de-match plans, turbo decode loop) with
+              their numpy plans, configuration, grid maps and tables
   kernels/    hand-written CUDA kernels for sm_90a (demap, turbo
-              half-iteration) with their plain torch versions and launch
-              counters; sources under ``kernels/csrc``
-  pipeline.py ``make_batch_decoder``: (B, n_samps, 2) IQ -> TB bits, CRC
-  sim/        jax-free DL test-signal generator (the ``bench.py`` recipe)
+              half-iteration, PSS correlator and detect, polyphase
+              resampler, ACS op-mix probe) with their plain torch versions
+              and launch counters; sources under ``kernels/csrc``
+  pipeline.py ``make_batch_decoder`` (DL-SCH), ``make_batch_harq_decoder``
+              (HARQ-IR) and ``make_pusch_batch_decoder`` (UL-SCH): IQ -> TB
+              bits, CRC flags
+  apps/ shard/ the multi-carrier cell scanner to the MIB
+  sim/        DL, UL, HARQ and cell test-signal generators
+  bench/      the PSS sweep and the ACS probe
+  io/ stack/ utils/   IQ files, EARFCN helpers, the MIB, checkpoint, metrics
 
-The package imports torch and numpy and never jax.  It reuses the ``lteax``
-modules that are jax-free at import time (``phy.config``, ``phy.tables``,
-``phy.fec.segmentation``, ``phy.grid``, ``io.iq``).
+The package imports torch and numpy, never jax and nothing of ``lteax``: it
+keeps its own copy of every module it needs from there, and
+``tests/test_torch_plans.py`` holds each copy equal to its original.  Entry
+points run on the current CUDA device unless the caller names another.
 """
 
 __version__ = "0.1.0"

@@ -24,15 +24,16 @@ import math
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import crs_flat_idx, pbch_flat_idx, pss_sym, sss_sym, sync_sc
-from lteax.stack import rrc
 from lteax_torch.host import read
 from lteax_torch.phy import chest, sync
 from lteax_torch.phy.channels import pbch
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.crc import exact_f32_matmul
+from lteax_torch.phy.grid import (crs_flat_idx, pbch_flat_idx, pss_sym, sss_sym,
+                                  sync_sc)
 from lteax_torch.phy.mod import demodulate_maxlog
 from lteax_torch.phy.ofdm import samples_to_subframe
+from lteax_torch.stack import rrc
 
 @dataclasses.dataclass
 class ScanResult:
@@ -47,8 +48,8 @@ class ScanResult:
     mib: rrc.Mib | None = None
     n_ant: int = 0
     sfn: int = -1
-    sib1: rrc.Sib1 | None = None
-    sib2: rrc.Sib2 | None = None
+    sib1: object | None = None   # SI decode is not ported: stays None
+    sib2: object | None = None
     sibs: dict = dataclasses.field(default_factory=dict)
     sib_crc_fails: int = 0
     paging: list | None = None

@@ -27,11 +27,11 @@ from fractions import Fraction
 
 import torch
 
-from lteax.io.iq import read_iq
-from lteax.phy.config import PhyConfig
-from lteax.stack import bands
-from lteax.utils.checkpoint import ScanCheckpoint
-from lteax.utils.metrics import EVENTS, METRICS
+from lteax_torch.io.iq import read_iq
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.stack import bands
+from lteax_torch.utils.checkpoint import ScanCheckpoint
+from lteax_torch.utils.metrics import EVENTS, METRICS
 from lteax_torch.apps.file_scan import ScanResult, scan
 from lteax_torch.kernels.polyphase import resample_poly
 from lteax_torch.shard.scanner import batched_prescan

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.kernels.pss import pss_detect, pss_reduce_combine
 from lteax_torch.phy import seq
 from lteax_torch.phy.ofdm import subframe_to_samples

@@ -7,9 +7,9 @@ link.  The library lands in ``build/lteax_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
-``-fmad=false``: every kernel is adds, multiplies, maxes and mins in f32,
-and with no contraction into fused multiply-adds each one equals its plain
-torch version bit for bit.
+``-fmad=false``: every kernel is adds, multiplies, maxes and mins in f32
+(the ACS probe also in packed bf16), and with no contraction into fused
+multiply-adds each one equals its plain torch version bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -40,6 +41,8 @@ SIGNATURES = {
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "lteax_acs_chain_f32": [_P, _P, _L, _I, _P],
+    "lteax_acs_chain_bf16": [_P, _P, _L, _I, _P],
 }
 
 

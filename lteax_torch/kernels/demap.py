@@ -17,9 +17,20 @@ import numpy as np
 import torch
 
 from lteax_torch.phy.mod import BITS_PER_SYM, _pam_axis
+from lteax_torch.phy.seq import scrambling_symbols_np
 
 LAUNCHES = 0
 """Kernel launches since the last reset (plain-version calls do not count)."""
+
+
+def planar_sgn_np(c_init: int, g: int, m: int, npad: int) -> np.ndarray:
+    """(m, npad) f32 scrambling signs in planar layout: plane j, column s
+    holds the sign of interleaved bit s*m + j; columns past g/m hold 1
+    (the demap zero-pads 1/nv there, so they emit 0 all the same)."""
+    n = g // m
+    out = np.ones((m, npad), dtype=np.float32)
+    out[:, :n] = scrambling_symbols_np(c_init, g).reshape(n, m).T
+    return out
 
 
 def _npad(n: int, sgn_planar: torch.Tensor) -> int:

@@ -25,7 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lteax.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
+from lteax_torch.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
 from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok
 from lteax_torch.phy.fec.turbo import _unrolled_wiring
 

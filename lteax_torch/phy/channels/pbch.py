@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.host import read
 from lteax_torch.phy import seq
 from lteax_torch.phy.chest import precode_sfbc, precode_sfbc_fstd

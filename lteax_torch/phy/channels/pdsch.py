@@ -1,9 +1,9 @@
 """PDSCH geometry, rate de-match plan and desegmentation (36.212 §5.3.2).
 
 ``pdsch_geometry``, ``_global_rm_idx`` and ``_global_rm_inv`` are numpy
-copies of the plan code in ``lteax.phy.channels.pdsch`` (which imports jax);
-the tests hold them equal to the originals.  Segmentation itself is shared
-with ``lteax.phy.fec.segmentation``, which is jax-free.
+copies of the plan code in ``lteax.phy.channels.pdsch``; segmentation is the
+port's own copy too (``lteax_torch.phy.fec.segmentation``).  The port imports
+nothing of ``lteax``; the tests hold each copy equal to its original.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lteax.phy.fec.segmentation import SegmentInfo, segment_info
+from lteax_torch.phy.fec.segmentation import SegmentInfo, segment_info
 from lteax_torch.phy.fec.ratematch import turbo_rm_indices
 
 

@@ -17,8 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import _crs_v, crs_flat_idx, crs_symbols
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.grid import _crs_v, crs_flat_idx, crs_symbols
 from lteax_torch.phy import seq
 
 

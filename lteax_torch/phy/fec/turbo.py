@@ -15,7 +15,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from lteax.phy.tables.turbo_qpp import qpp_interleaver
+from lteax_torch.phy.tables.turbo_qpp import qpp_interleaver
 
 
 @lru_cache(maxsize=None)

@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
+from lteax_torch.phy.config import PhyConfig
 
 
 def _symbol_sample_idx(cfg: PhyConfig) -> np.ndarray:

@@ -22,8 +22,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import sync_sc
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.grid import sync_sc
 from lteax_torch.kernels.pss import pss_corr_mag
 from lteax_torch.phy import seq
 

@@ -1,6 +1,6 @@
 """Numerics-only decoder tuning (counterpart of ``lteax.phy.tuning``).
 
-Only the knobs that change what the DL decode computes are carried over;
+Only the knobs that change what a decode computes are carried over;
 the TPU layout and scheduling knobs (tile sizes, lane folds, layout glue,
 planar boundaries, bf16 staging) have no meaning on the GPU port.  Values
 are the reference's shipped defaults, so a decode with this profile is the
@@ -19,7 +19,9 @@ class DecoderTuning:
     - ``earlystop``: CRC-based half-iteration early termination.
     - ``pinpad``: dead trellis positions carry u=+PIN in the beta sweep
       instead of a freeze blend (the only form the port implements).
-    - ``retry_m_dl``: compacted-retry subbatch size; 0 disables the retry.
+    - ``retry_m``: compacted-retry subbatch size of the UL decoder; 0
+      disables the retry.
+    - ``retry_m_dl``: the same for the DL and HARQ decoders.
     - ``retry_levels``: full-batch iterations checked for compaction before
       the full-batch early-stop loop takes over.
     - ``mdtype``: trellis metric dtype; the port runs "f32" only.
@@ -30,6 +32,7 @@ class DecoderTuning:
     ext_scale: float = 0.75
     earlystop: bool = True
     pinpad: bool = True
+    retry_m: int = 128
     retry_m_dl: int = 64
     retry_levels: int = 2
     mdtype: str = "f32"

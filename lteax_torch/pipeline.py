@@ -1,16 +1,30 @@
-"""Batched DL-SCH decoder: (B, n_samps, 2) IQ -> TB bits and CRC flags.
+"""Batched transport-channel decoders: IQ -> TB bits and CRC flags.
 
-Counterpart of ``lteax.shard.pipeline.make_batch_decoder_pallas`` with the
-natural stage boundary (``_pdsch_stages(..., planar_boundary=False)``):
+Three decoders share one turbo + CRC tail (:class:`TurboTail`):
 
-  front:  IQ -> OFDM demod (FFT) -> CRS LS channel estimate + noise ->
-          full-grid MMSE equalizer -> demap kernel (planar LLRs, descramble
-          sign planes with zeros off the PDSCH) -> rate de-match gather
-          (RE extraction folded in) -> (B*C, 3, K+4) LLRs
-  turbo:  turbo decoder (half-iteration kernel, CRC early stop, compacted
-          retry) -> CRC24B, desegmentation, CRC24A
+- DL-SCH (:func:`make_batch_decoder`), counterpart of
+  ``lteax.shard.pipeline.make_batch_decoder_pallas`` with the natural stage
+  boundary (``_pdsch_stages(..., planar_boundary=False)``):
 
-Every plan (sign planes, de-match map, chest matrices, CRC matrices, QPP
+    front:  IQ -> OFDM demod (FFT) -> CRS LS channel estimate + noise ->
+            full-grid MMSE equalizer -> demap kernel (planar LLRs,
+            descramble sign planes with zeros off the PDSCH) -> rate
+            de-match gather (RE extraction folded in) -> (B*C, 3, K+4) LLRs
+    turbo:  turbo decoder (half-iteration kernel, CRC early stop, compacted
+            retry) -> CRC24B, desegmentation, CRC24A
+
+- HARQ incremental redundancy (:func:`make_batch_harq_decoder`), counterpart
+  of ``make_batch_harq_decoder_pallas``: one DL front per (re)transmission,
+  summed in the d domain, then one turbo batch.
+- UL-SCH (:func:`make_pusch_batch_decoder`), counterpart of
+  ``make_pusch_batch_decoder``: gridded SC-FDMA subframe -> DM-RS LS
+  estimate, denoised and interpolated -> MMSE equalizer -> IDFT -> demap
+  kernel -> one gather composing the planar layout, the channel
+  de-interleaver and the rate de-match -> the same tail.
+
+A decoder runs on the current CUDA device unless the caller names another
+device; without a CUDA device and without ``device="cpu"`` the factories
+raise.  Every plan (sign planes, de-match map, chest matrices, CRC matrices, QPP
 tables) is built once per decoder on its device.  The TPU layout glue of
 the reference (flipped-tile maps, lane picks, planar statics, the
 two-program split) is not ported: it existed to avoid TPU relayouts.
@@ -21,14 +35,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import pdsch_flat_idx
-from lteax_torch.kernels.demap import demap_planar
+from lteax_torch.kernels.demap import demap_planar, planar_sgn_np
 from lteax_torch.kernels.turbo_mlm import TurboStats, turbo_decode_batch
 from lteax_torch.phy import chest, seq
+from lteax_torch.phy.channels import pusch
 from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_inv,
                                             desegment_device)
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.crc import check_crc, crc_matrix, exact_f32_matmul
+from lteax_torch.phy.grid import pdsch_flat_idx
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.phy.tuning import DecoderTuning
 
@@ -63,38 +78,70 @@ def dl_demap_plans(cfg: PhyConfig, re_idx: np.ndarray, geom: PdschGeometry,
     return sgn, grid_inv
 
 
-class BatchDecoder:
-    """DL-SCH batch decoder on one device.  Build with
-    :func:`make_batch_decoder`; call on (B, n_samps_subframe, 2) IQ."""
+def ul_rm_inv_planar(geom: PdschGeometry, qm: int, m_sc: int,
+                     npad: int) -> np.ndarray:
+    """UL de-match gather indices reading straight from the planar demap
+    output: composes the planar layout, the data-only channel de-interleaver
+    of 36.212 §5.2.2.8 (a (12, m_sc, qm) -> (m_sc, 12, qm) transpose) and the
+    inverse rate match.  Untransmitted positions point at ``qm * npad``, the
+    zero column the front appends (never a pad column: an allocation whose
+    12 * m_sc is a multiple of 128 has none)."""
+    inv, injective = _global_rm_inv(geom)
+    if not injective:
+        raise NotImplementedError("the planar UL de-match needs an injective "
+                                  "rate match (no circular-buffer wrap)")
+    p = inv.astype(np.int64)
+    k = p // (12 * qm)
+    sym = (p % (12 * qm)) // qm
+    j = p % qm
+    out = j * npad + sym * m_sc + k
+    out[inv == geom.g] = qm * npad
+    return out.astype(np.int32)
 
-    def __init__(self, cfg: PhyConfig, n_cell_id: int, cfi: int,
-                 prbs: tuple[int, ...], subframe: int, rnti: int,
-                 geom: PdschGeometry, scheme: str, n_iter: int,
-                 tuning: DecoderTuning, device: torch.device):
+
+def _resolve_device(device) -> torch.device:
+    """``None`` -> the current CUDA device; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the decoders run on the card "
+                               "unless the caller passes device=\"cpu\"")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _gather_dematch(llr: torch.Tensor, inv: torch.Tensor,
+                    d_len: int) -> torch.Tensor:
+    """Planar LLRs (B, m, npad) -> (B*C, 3, d_len) through a de-match map
+    whose untransmitted positions point one past the planes, at a zero."""
+    flat = llr.reshape(llr.shape[0], -1)
+    ext = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=-1)
+    return ext[:, inv].reshape(-1, 3, d_len)
+
+
+def _iq_to_complex(iq: torch.Tensor) -> torch.Tensor:
+    return torch.complex(iq[..., 0].to(torch.float32),
+                         iq[..., 1].to(torch.float32))
+
+
+class DlFront:
+    """IQ of one PDSCH transmission -> de-matched LLRs (B*C, 3, K+4)."""
+
+    def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
+                 scheme: str, k: int, sgn: np.ndarray, grid_inv: np.ndarray,
+                 device: torch.device):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
-        self.geom, self.scheme, self.n_iter = geom, scheme, n_iter
-        self.tuning, self.device = tuning, torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        exact_f32_matmul()
-        re_idx = pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, subframe)
-        sgn, grid_inv = dl_demap_plans(cfg, re_idx, geom,
-                                       seq.pdsch_c_init(rnti, subframe,
-                                                        n_cell_id))
-        t = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=self.device)
-        self.sgn = t(sgn)
-        self.grid_inv = t(grid_inv)
-        info = geom.info
-        self.m24b = (t(crc_matrix(geom.k - 24, "24B"), torch.float32)
-                     if info.cb_crc else None)
-        self.m24a = t(crc_matrix(info.b - 24, "24A"), torch.float32)
-        self.last_stats = TurboStats()
+        self.scheme, self.d_len = scheme, k + 4
+        self.sgn = torch.as_tensor(sgn, dtype=torch.float32, device=device)
+        self.grid_inv = torch.as_tensor(grid_inv, dtype=torch.int64,
+                                        device=device)
 
     def equalize(self, samples_iq: torch.Tensor):
         """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
         cfg = self.cfg
-        samples = torch.complex(samples_iq[..., 0].to(torch.float32),
-                                samples_iq[..., 1].to(torch.float32))
+        samples = _iq_to_complex(samples_iq)
         grid = samples_to_subframe(samples, cfg)
         h = chest.estimate_channel(grid, cfg, self.n_cell_id, self.subframe)
         nv = chest.estimate_noise_var(grid, cfg, self.n_cell_id,
@@ -106,23 +153,97 @@ class BatchDecoder:
         x = x / torch.clamp_min(p / (p + nv), 1e-12)
         return x.real.contiguous(), x.imag.contiguous(), (p / nv).contiguous()
 
-    def front(self, samples_iq: torch.Tensor) -> torch.Tensor:
-        """IQ -> de-matched LLRs (B*C, 3, K+4): the natural stage boundary."""
+    def __call__(self, samples_iq: torch.Tensor) -> torch.Tensor:
         xr, xi, inv_nv = self.equalize(samples_iq)
         llr = demap_planar(xr, xi, inv_nv, self.sgn, self.scheme)
-        flat = llr.reshape(llr.shape[0], -1)
-        ext = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=-1)
-        geom = self.geom
-        return ext[:, self.grid_inv].reshape(-1, 3, geom.k + 4)
+        return _gather_dematch(llr, self.grid_inv, self.d_len)
 
-    def turbo(self, llr_d: torch.Tensor):
-        """(B*C, 3, K+4) -> (tb_bits (B, TBS) int8, ok (B,) bool, n_iter)."""
+
+class PuschFront:
+    """Gridded SC-FDMA subframes (B, 14, m_sc, 2) -> de-matched LLRs
+    (B*C, 3, K+4).
+
+    ``ref0``/``ref1`` are the conjugate DM-RS of the two slots, ``w`` the
+    (12, 1) time-interpolation weights of the data symbols, ``taps`` the
+    denoiser's delay mask, ``sgn`` the (qm, npad) planar descramble signs
+    and ``ul_inv`` the composed de-match map (:func:`ul_rm_inv_planar`).
+    ``noise_var=None`` estimates the noise per subframe from the DM-RS
+    residual (the two pilots' raw LS difference is noise only while the
+    channel holds still over a subframe); a float pins a static prior."""
+
+    def __init__(self, scheme: str, k: int, ref0: np.ndarray,
+                 ref1: np.ndarray, w: np.ndarray, taps: np.ndarray,
+                 sgn: np.ndarray, ul_inv: np.ndarray,
+                 noise_var: float | None, device: torch.device):
+        t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
+                                          device=device)
+        self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
+        self.ref0, self.ref1 = t(ref0, torch.complex64), t(ref1, torch.complex64)
+        self.w, self.taps = t(w, torch.float32), t(taps, torch.float32)
+        self.sgn, self.ul_inv = t(sgn, torch.float32), t(ul_inv, torch.int64)
+        self.data_syms = t(pusch.DATA_SYMS, torch.int64)
+
+    def equalize(self, grid_iq: torch.Tensor):
+        """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
+        grid = _iq_to_complex(grid_iq)
+        bsz = grid.shape[0]
+        ls0 = grid[:, pusch.DMRS_SYMS[0]] * self.ref0   # raw LS at the pilots
+        ls1 = grid[:, pusch.DMRS_SYMS[1]] * self.ref1
+        if self.noise_var is None:
+            nv = torch.clamp_min(
+                torch.mean((ls0 - ls1).abs() ** 2, dim=-1) / 2.0, 1e-6)
+        else:
+            nv = torch.full((bsz,), self.noise_var, dtype=torch.float32,
+                            device=grid.device)
+        nv = nv[:, None, None]                  # one scalar per subframe
+        h0 = pusch.chest_denoise(ls0, self.taps)[:, None]
+        h1 = pusch.chest_denoise(ls1, self.taps)[:, None]
+        h = (1 - self.w) * h0 + self.w * h1     # (B, 12, m_sc)
+        y = grid[:, self.data_syms]
+        p = h.abs() ** 2
+        xf = y * torch.conj(h) / (p + nv)
+        xf = xf / torch.clamp_min(p / (p + nv), 1e-12)
+        xt = pusch.ul_dft(xf, inverse=True)
+        # post-IDFT noise: the mean over each symbol's subcarriers
+        eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1, keepdim=True)
+        inv_eff = (1.0 / eff).expand_as(p)
+        return (xt.real.reshape(bsz, -1).contiguous(),
+                xt.imag.reshape(bsz, -1).contiguous(),
+                inv_eff.reshape(bsz, -1).contiguous())
+
+    def __call__(self, grid_iq: torch.Tensor) -> torch.Tensor:
+        xr, xi, inv_eff = self.equalize(grid_iq)
+        llr = demap_planar(xr, xi, inv_eff, self.sgn, self.scheme)
+        return _gather_dematch(llr, self.ul_inv, self.d_len)
+
+
+class TurboTail:
+    """De-matched LLRs (B*C, 3, K+4) -> (tb_bits (B, TBS) int8, ok (B,)
+    bool, n_iter): turbo decode with CRC early stop and compacted retry,
+    CRC24B, desegmentation, CRC24A.  ``last_stats`` holds the turbo
+    schedule of the latest call."""
+
+    def __init__(self, geom: PdschGeometry, n_iter: int,
+                 tuning: DecoderTuning, retry_m: int, m24a: np.ndarray,
+                 m24b: np.ndarray | None, device: torch.device):
+        if geom.info.cb_crc and m24b is None:
+            raise ValueError("segmented transport blocks need the CRC24B "
+                             "matrix")
+        exact_f32_matmul()
+        self.geom, self.n_iter, self.tuning = geom, n_iter, tuning
+        self.retry_m = retry_m
+        t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+        self.m24a = t(m24a)
+        self.m24b = t(m24b) if geom.info.cb_crc else None
+        self.last_stats = TurboStats()
+
+    def __call__(self, llr_d: torch.Tensor):
         t, geom = self.tuning, self.geom
         info = geom.info
         bits, stats = turbo_decode_batch(
             llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
             ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
-            retry_m=t.retry_m_dl, retry_levels=t.retry_levels)
+            retry_m=self.retry_m, retry_levels=t.retry_levels)
         self.last_stats = stats
         bits = bits.reshape(-1, info.c, geom.k)
         if info.cb_crc:
@@ -135,23 +256,223 @@ class BatchDecoder:
                                 self.m24a)
         return tb_bits, ok & torch.all(cb_ok, dim=-1), stats.n_iter
 
-    def __call__(self, samples_iq: torch.Tensor):
-        if samples_iq.device != self.device:
-            raise ValueError(f"IQ on {samples_iq.device}, decoder on "
-                             f"{self.device}")
-        return self.turbo(self.front(samples_iq))
+
+def _crc_plans(geom: PdschGeometry):
+    """(CRC24A matrix, CRC24B matrix or None) of a geometry's tail."""
+    info = geom.info
+    return (crc_matrix(info.b - 24, "24A"),
+            crc_matrix(geom.k - 24, "24B") if info.cb_crc else None)
+
+
+class _Decoder:
+    """A front and the shared tail on one device; subclasses give
+    ``front``.  Build one with its ``make_*`` factory or ``from_plans``."""
+
+    def __init__(self, tail: TurboTail, device: torch.device):
+        self.tail, self.device = tail, device
+
+    @property
+    def n_iter(self) -> int:
+        return self.tail.n_iter
+
+    @property
+    def last_stats(self) -> TurboStats:
+        return self.tail.last_stats
+
+    def front(self, x: torch.Tensor) -> torch.Tensor:
+        """Input -> de-matched LLRs (B*C, 3, K+4): the stage boundary."""
+        raise NotImplementedError
+
+    def turbo(self, llr_d: torch.Tensor):
+        """(B*C, 3, K+4) -> (tb_bits (B, TBS) int8, ok (B,) bool, n_iter)."""
+        return self.tail(llr_d)
+
+    def __call__(self, x: torch.Tensor):
+        if x.device != self.device:
+            raise ValueError(f"input on {x.device}, decoder on {self.device}")
+        return self.turbo(self.front(x))
+
+
+class BatchDecoder(_Decoder):
+    """DL-SCH batch decoder on one device.  Build with
+    :func:`make_batch_decoder`; call on (B, n_samps_subframe, 2) IQ."""
+
+    def __init__(self, dl_front: DlFront, tail: TurboTail,
+                 device: torch.device):
+        super().__init__(tail, device)
+        self.dl_front = dl_front
+
+    @classmethod
+    def from_plans(cls, cfg: PhyConfig, n_cell_id: int, subframe: int,
+                   geom: PdschGeometry, scheme: str, sgn: np.ndarray,
+                   grid_inv: np.ndarray, m24a: np.ndarray,
+                   m24b: np.ndarray | None, n_iter: int = 6,
+                   tuning: DecoderTuning | None = None,
+                   device=None) -> "BatchDecoder":
+        """Build from plan arrays given as numpy (:func:`dl_demap_plans`'s
+        sign planes and de-match map, the CRC matrices)."""
+        device = _resolve_device(device)
+        tuning = tuning or DecoderTuning()
+        return cls(DlFront(cfg, n_cell_id, subframe, scheme, geom.k, sgn,
+                           grid_inv, device),
+                   TurboTail(geom, n_iter, tuning, tuning.retry_m_dl, m24a,
+                             m24b, device), device)
+
+    def equalize(self, samples_iq: torch.Tensor):
+        return self.dl_front.equalize(samples_iq)
+
+    def front(self, samples_iq: torch.Tensor) -> torch.Tensor:
+        return self.dl_front(samples_iq)
+
+
+class HarqBatchDecoder(_Decoder):
+    """HARQ-IR batch decoder: ``n_tx`` DL fronts, one tail.  Build with
+    :func:`make_batch_harq_decoder`; call on (n_tx, B, n_samps, 2) IQ, slot
+    i holding transmission i of every transport block in the batch."""
+
+    def __init__(self, dl_fronts: list[DlFront], tail: TurboTail,
+                 device: torch.device):
+        if len(dl_fronts) < 2:
+            raise ValueError("HARQ combining needs >= 2 transmissions")
+        if {f.d_len for f in dl_fronts} != {tail.geom.k + 4}:
+            raise ValueError("HARQ combining needs one codeblock size K")
+        super().__init__(tail, device)
+        self.dl_fronts = dl_fronts
+
+    @classmethod
+    def from_plans(cls, cfg: PhyConfig, n_cell_id: int,
+                   subframes: tuple[int, ...], geom: PdschGeometry,
+                   scheme: str, sgns: list[np.ndarray],
+                   grid_invs: list[np.ndarray], m24a: np.ndarray,
+                   m24b: np.ndarray | None, n_iter: int = 6,
+                   tuning: DecoderTuning | None = None,
+                   device=None) -> "HarqBatchDecoder":
+        """Build from one (sign planes, de-match map) pair per transmission
+        and the CRC matrices, all numpy; ``geom`` is the first
+        transmission's."""
+        if not len(subframes) == len(sgns) == len(grid_invs):
+            raise ValueError("one subframe, sign plane set and de-match map "
+                             "per transmission")
+        device = _resolve_device(device)
+        tuning = tuning or DecoderTuning()
+        fronts = [DlFront(cfg, n_cell_id, sf, scheme, geom.k, s, g, device)
+                  for sf, s, g in zip(subframes, sgns, grid_invs)]
+        return cls(fronts, TurboTail(geom, n_iter, tuning, tuning.retry_m_dl,
+                                     m24a, m24b, device), device)
+
+    def front(self, batch_iq: torch.Tensor) -> torch.Tensor:
+        """Sum of the transmissions' de-matched LLRs, in order."""
+        if batch_iq.shape[0] != len(self.dl_fronts):
+            raise ValueError(f"{batch_iq.shape[0]} transmissions given, "
+                             f"decoder built for {len(self.dl_fronts)}")
+        d = self.dl_fronts[0](batch_iq[0])
+        for f, iq in zip(self.dl_fronts[1:], batch_iq[1:]):
+            d = d + f(iq)
+        return d
+
+
+class PuschBatchDecoder(_Decoder):
+    """UL-SCH batch decoder on one device.  Build with
+    :func:`make_pusch_batch_decoder`; call on (B, 14, m_sc, 2) IQ grids."""
+
+    def __init__(self, ul_front: PuschFront, tail: TurboTail,
+                 device: torch.device):
+        super().__init__(tail, device)
+        self.ul_front = ul_front
+
+    @classmethod
+    def from_plans(cls, alloc: pusch.PuschAlloc, ref0: np.ndarray,
+                   ref1: np.ndarray, w: np.ndarray, taps: np.ndarray,
+                   sgn: np.ndarray, ul_inv: np.ndarray, m24a: np.ndarray,
+                   m24b: np.ndarray | None, n_iter: int = 6,
+                   noise_var: float | None = None,
+                   tuning: DecoderTuning | None = None,
+                   device=None) -> "PuschBatchDecoder":
+        """Build from plan arrays given as numpy (see :class:`PuschFront`
+        and the CRC matrices)."""
+        device = _resolve_device(device)
+        tuning = tuning or DecoderTuning()
+        geom = alloc.geom
+        return cls(PuschFront(alloc.scheme, geom.k, ref0, ref1, w, taps, sgn,
+                              ul_inv, noise_var, device),
+                   TurboTail(geom, n_iter, tuning, tuning.retry_m, m24a,
+                             m24b, device), device)
+
+    def front(self, grid_iq: torch.Tensor) -> torch.Tensor:
+        return self.ul_front(grid_iq)
 
 
 def make_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
                        prbs: tuple[int, ...], subframe: int, rnti: int,
                        geom: PdschGeometry, scheme: str, n_iter: int = 6,
                        tuning: DecoderTuning | None = None,
-                       device: torch.device | str = "cpu") -> BatchDecoder:
+                       device=None) -> BatchDecoder:
     """DL-SCH decoder for one (cell, allocation, subframe, RNTI) geometry.
 
     The returned callable takes (B, n_samps_subframe, 2) float IQ on
-    ``device`` and returns (tb_bits (B, TBS) int8, ok (B,) bool, n_iter);
-    ``last_stats`` holds the turbo schedule of the latest call (host syncs,
-    compacted retries)."""
-    return BatchDecoder(cfg, n_cell_id, cfi, prbs, subframe, rnti, geom,
-                        scheme, n_iter, tuning or DecoderTuning(), device)
+    ``device`` (default: the current CUDA device) and returns (tb_bits
+    (B, TBS) int8, ok (B,) bool, n_iter); ``last_stats`` holds the turbo
+    schedule of the latest call (host syncs, compacted retries)."""
+    re_idx = pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, subframe)
+    sgn, grid_inv = dl_demap_plans(
+        cfg, re_idx, geom, seq.pdsch_c_init(rnti, subframe, n_cell_id))
+    return BatchDecoder.from_plans(cfg, n_cell_id, subframe, geom, scheme,
+                                   sgn, grid_inv, *_crc_plans(geom), n_iter,
+                                   tuning, device)
+
+
+def make_batch_harq_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
+                            prbs: tuple[int, ...],
+                            subframes: tuple[int, ...], rnti: int,
+                            geoms: tuple[PdschGeometry, ...], scheme: str,
+                            n_iter: int = 6,
+                            tuning: DecoderTuning | None = None,
+                            device=None) -> HarqBatchDecoder:
+    """HARQ incremental-redundancy decoder: soft-combines >= 2
+    (re)transmissions of the same transport blocks, then runs one turbo
+    batch on the summed d-domain LLRs.
+
+    ``subframes``/``geoms``: one entry per transmission — the subframe it
+    was sent in (scrambling and CRS positions differ) and its geometry
+    (same TBS, n_re and Qm, its own ``rv``).  Each transmission's rate match
+    must be injective, so combining is a sum of gathers.  Input
+    (n_tx, B, n_samps, 2) IQ; output as :func:`make_batch_decoder`."""
+    if len(subframes) != len(geoms) or len(geoms) < 2 or \
+            len({g.k for g in geoms}) != 1:
+        raise ValueError("HARQ combining needs >= 2 transmissions of one TB "
+                         "geometry, with one subframe each")
+    plans = [dl_demap_plans(cfg, pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, sf),
+                            g, seq.pdsch_c_init(rnti, sf, n_cell_id))
+             for sf, g in zip(subframes, geoms)]
+    return HarqBatchDecoder.from_plans(
+        cfg, n_cell_id, subframes, geoms[0], scheme, [p[0] for p in plans],
+        [p[1] for p in plans], *_crc_plans(geoms[0]), n_iter, tuning, device)
+
+
+def make_pusch_batch_decoder(alloc: pusch.PuschAlloc, rnti: int,
+                             subframe: int, n_cell_id: int, n_iter: int = 6,
+                             noise_var: float | None = None,
+                             tuning: DecoderTuning | None = None,
+                             device=None) -> PuschBatchDecoder:
+    """UL-SCH (PUSCH, data only) decoder for one (allocation, RNTI,
+    subframe, cell).
+
+    The returned callable takes (B, 14, m_sc, 2) float IQ grids (the
+    allocation's subcarriers of every SC-FDMA symbol) on ``device``
+    (default: the current CUDA device) and returns (tb_bits (B, TBS) int8,
+    ok (B,) bool, n_iter).  Noise is estimated per subframe from the DM-RS
+    residual unless ``noise_var`` pins a static prior."""
+    geom, m_sc, qm = alloc.geom, alloc.m_sc, alloc.qm
+    d0, d1 = pusch.DMRS_SYMS
+    w = np.clip(np.asarray([(s - d0) / (d1 - d0) for s in pusch.DATA_SYMS],
+                           dtype=np.float32), 0.0, 1.0)[:, None]
+    npad = -(-(12 * m_sc) // 128) * 128
+    sgn = planar_sgn_np(pusch.pusch_c_init(rnti, subframe, n_cell_id), geom.g,
+                        qm, npad)
+    return PuschBatchDecoder.from_plans(
+        alloc,
+        np.conj(pusch.dmrs_pusch(n_cell_id, 2 * subframe, m_sc)),
+        np.conj(pusch.dmrs_pusch(n_cell_id, 2 * subframe + 1, m_sc)),
+        w, pusch.chest_taps(m_sc), sgn,
+        ul_rm_inv_planar(geom, qm, m_sc, npad), *_crc_plans(geom), n_iter,
+        noise_var, tuning, device)

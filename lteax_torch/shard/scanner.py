@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from lteax.phy.config import PhyConfig
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.host import read
 from lteax_torch.phy.sync import pss_correlate, pss_peak
 

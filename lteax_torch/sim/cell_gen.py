@@ -23,11 +23,11 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import (crs_flat_idx, crs_symbols, pbch_flat_idx,
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.grid import (crs_flat_idx, crs_symbols, pbch_flat_idx,
                             pss_sym, sss_sym, sync_sc)
-from lteax.sim.channel import awgn
-from lteax.stack import rrc
+from lteax_torch.sim.channel import awgn
+from lteax_torch.stack import rrc
 from lteax_torch.kernels.polyphase import resample_poly
 from lteax_torch.phy import seq
 from lteax_torch.phy.channels import pbch

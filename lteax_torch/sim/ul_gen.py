@@ -1,0 +1,84 @@
+"""Jax-free UL-SCH test signal: the recipe of ``bench/ul_throughput.py`` in
+numpy/torch.
+
+Random transport blocks from a numpy seed -> CRC24A -> segmentation and
+CRC24B -> turbo encode -> rate match -> channel interleave -> scramble ->
+modulation -> DFT precoding -> (14, m_sc) grid with the DM-RS in symbols 3
+and 10 -> AWGN.  At most ``max_unique`` distinct subframes are encoded and
+tiled to the batch, as ``dl_gen.dl_subframes`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lteax_torch.phy import seq
+from lteax_torch.phy.channels import pusch
+from lteax_torch.phy.mod import modulate
+from lteax_torch.sim.dl_gen import (pdsch_prepare_cbs, rate_matched_bits,
+                                    tile_with_awgn)
+
+
+@dataclasses.dataclass(frozen=True)
+class UlCell:
+    """One UL-SCH allocation: the ``bench/ul_throughput.py`` headline is the
+    default (100 PRB, TBS 75376, 64QAM, cell 214, subframe 4, RNTI 0x3D)."""
+    alloc: pusch.PuschAlloc = pusch.PuschAlloc(n_prb=100, rb_start=0,
+                                               mcs_tbs=75376, qm=6)
+    n_cell_id: int = 214
+    subframe: int = 4
+    rnti: int = 0x3D
+
+    def decoder_args(self):
+        """Positional arguments of ``make_pusch_batch_decoder``."""
+        return (self.alloc, self.rnti, self.subframe, self.n_cell_id)
+
+
+def pusch_encode_cbs(cbs: np.ndarray, alloc: pusch.PuschAlloc, rnti: int,
+                     subframe: int, n_cell_id: int) -> np.ndarray:
+    """(..., C, K_payload) codeblock payloads -> (..., 14, m_sc) complex64
+    SC-FDMA frequency-domain grids, DM-RS symbols left zero."""
+    geom = alloc.geom
+    e = rate_matched_bits(cbs, geom)
+    e = e[..., pusch.channel_interleaver_idx(geom.g, alloc.qm)]
+    c = seq.gold_sequence_np(pusch.pusch_c_init(rnti, subframe, n_cell_id),
+                             geom.g)
+    sym = modulate((e + c) % 2, alloc.scheme)
+    # after the channel interleaver consecutive m_sc symbols share one
+    # SC-FDMA symbol: transform-precode each of the 12
+    data = torch.from_numpy(sym.reshape(*sym.shape[:-1], pusch.N_DATA_SYMS,
+                                        alloc.m_sc))
+    grid = np.zeros((*sym.shape[:-1], 14, alloc.m_sc), np.complex64)
+    grid[..., pusch.DATA_SYMS, :] = pusch.ul_dft(data, inverse=False).numpy()
+    return grid
+
+
+def pusch_add_dmrs(grid: np.ndarray, alloc: pusch.PuschAlloc, n_cell_id: int,
+                   subframe: int) -> np.ndarray:
+    """Fill the DM-RS symbols (3, 10) of (..., 14, m_sc) grids."""
+    g = np.array(grid)
+    for slot, sym in enumerate(pusch.DMRS_SYMS):
+        g[..., sym, :] = pusch.dmrs_pusch(n_cell_id, 2 * subframe + slot,
+                                          alloc.m_sc)
+    return g
+
+
+def ul_subframes(cell: UlCell, b: int, snr_db: float = 25.0, seed: int = 0,
+                 max_unique: int = 16):
+    """-> (iq (b, 14, m_sc, 2) float32, tb_bits (b, TBS) int32) numpy.
+
+    The noise has variance 10^(-snr/10) per resource element (unit-power
+    symbols, unitary DFT)."""
+    alloc, geom = cell.alloc, cell.alloc.geom
+    rng = np.random.default_rng(seed)
+    b_uniq = min(b, max_unique)
+    tb_bits = rng.integers(0, 2, size=(b_uniq, geom.tbs)).astype(np.int32)
+    cbs = np.stack([pdsch_prepare_cbs(t, geom) for t in tb_bits])
+    grids = pusch_add_dmrs(
+        pusch_encode_cbs(cbs, alloc, cell.rnti, cell.subframe,
+                         cell.n_cell_id), alloc, cell.n_cell_id, cell.subframe)
+    tb_bits = np.tile(tb_bits, (-(-b // b_uniq), 1))[:b]
+    return tile_with_awgn(grids, b, snr_db, rng), tb_bits

@@ -15,12 +15,13 @@ import torch
 
 from lteax.phy import chest as chest_ref
 from lteax.phy.channels import pdsch as pdsch_ref
-from lteax.phy.config import PhyConfig
+from lteax.phy.config import PhyConfig as RefPhyConfig
 from lteax.phy.ofdm import samples_to_subframe as s2s_ref
 from lteax.phy.tuning import DecoderTuning as RefTuning
 from lteax.shard.pipeline import _pdsch_stages
 
 from lteax_torch.phy import chest
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.pipeline import make_batch_decoder
 from lteax_torch.sim.dl_gen import DlCell, dl_subframes
@@ -38,10 +39,11 @@ def signal():
 def test_ofdm_chest_noise_mmse(signal):
     cell, iq = signal
     cfg, cid, sf = cell.cfg, cell.n_cell_id, cell.subframe
+    cfg_r = RefPhyConfig(n_rb_dl=cell.n_rb_dl)
     x = iq[..., 0] + 1j * iq[..., 1]
-    grid_r = s2s_ref(jnp.asarray(x.astype(np.complex64)), cfg, dft="fft")
-    h_r = chest_ref.estimate_channel(grid_r, cfg, cid, sf, port=0)
-    nv_r = chest_ref.estimate_noise_var(grid_r, cfg, cid, sf)
+    grid_r = s2s_ref(jnp.asarray(x.astype(np.complex64)), cfg_r, dft="fft")
+    h_r = chest_ref.estimate_channel(grid_r, cfg_r, cid, sf, port=0)
+    nv_r = chest_ref.estimate_noise_var(grid_r, cfg_r, cid, sf)
 
     grid = samples_to_subframe(torch.complex(*map(torch.from_numpy,
                                                   (iq[..., 0], iq[..., 1]))),
@@ -58,7 +60,7 @@ def test_ofdm_chest_noise_mmse(signal):
     nvb = nv_r[:, None]
     xr = grid_r.reshape(2, -1) * jnp.conj(hf) / (p + nvb)
     xr = xr / jnp.maximum(p / (p + nvb), 1e-12)
-    dec = make_batch_decoder(*cell.decoder_args())
+    dec = make_batch_decoder(*cell.decoder_args(), device="cpu")
     got = dec.equalize(torch.from_numpy(iq))
     for g, r in zip(got, (jnp.real(xr), jnp.imag(xr), p / nvb)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
@@ -71,12 +73,12 @@ def test_dematched_llrs_match_reference_front(signal, monkeypatch):
     geom = cell.geom
     geom_r = pdsch_ref.pdsch_geometry(geom.tbs, geom.n_re, geom.qm, geom.rv)
     front_r, _ = _pdsch_stages(
-        cell.cfg, cell.n_cell_id, cell.cfi, cell.prbs, cell.subframe,
-        cell.rnti, geom_r, cell.scheme, 6,
+        RefPhyConfig(n_rb_dl=cell.n_rb_dl), cell.n_cell_id, cell.cfi,
+        cell.prbs, cell.subframe, cell.rnti, geom_r, cell.scheme, 6,
         RefTuning(mdtype="f32", demap_in="f32"), True, planar_boundary=False)
     ref = np.asarray(front_r(jnp.asarray(iq))).reshape(-1, 3, geom.k + 4)
 
-    got = make_batch_decoder(*cell.decoder_args()).front(
+    got = make_batch_decoder(*cell.decoder_args(), device="cpu").front(
         torch.from_numpy(iq)).numpy()
     assert got.shape == ref.shape == (2 * geom.info.c, 3, geom.k + 4)
     np.testing.assert_array_equal(got == 0, ref == 0)
@@ -88,17 +90,17 @@ def test_dematched_llrs_match_reference_front(signal, monkeypatch):
 def test_chest_every_port(port):
     """The CRS estimate of each antenna port (ports 2/3 have 2 pilot
     symbols, 0/1 have 4) and the port-0 noise estimate, on one grid."""
-    cfg = PhyConfig(n_rb_dl=15)
+    cfg, cfg_r = PhyConfig(n_rb_dl=15), RefPhyConfig(n_rb_dl=15)
     rng = np.random.default_rng(port)
     g = (rng.standard_normal((2, cfg.n_sym_subframe, cfg.n_sc))
          + 1j * rng.standard_normal((2, cfg.n_sym_subframe, cfg.n_sc))
          ).astype(np.complex64)
     for cid, sf in ((301, 0), (7, 5)):
         h = chest.estimate_channel(torch.from_numpy(g), cfg, cid, sf, port)
-        h_r = chest_ref.estimate_channel(jnp.asarray(g), cfg, cid, sf, port)
+        h_r = chest_ref.estimate_channel(jnp.asarray(g), cfg_r, cid, sf, port)
         np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **TOL)
     nv = chest.estimate_noise_var(torch.from_numpy(g), cfg, 301, 0)
-    nv_r = chest_ref.estimate_noise_var(jnp.asarray(g), cfg, 301, 0)
+    nv_r = chest_ref.estimate_noise_var(jnp.asarray(g), cfg_r, 301, 0)
     np.testing.assert_allclose(nv.numpy(), np.asarray(nv_r), **TOL)
 
 

@@ -1,8 +1,13 @@
-"""The PyTorch port loads no jax, and chip_smoke.py refuses to run without
-the port or without a CUDA device (no CPU fallback, no result printed)."""
+"""The PyTorch port loads no jax and nothing of the ``lteax`` package (not
+even its jax-free modules: the port keeps its own copies), its decoders run
+on the card unless asked for the CPU, and chip_smoke.py refuses to run
+without the port or without a CUDA device (no CPU fallback, no result
+printed)."""
 
+import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -19,28 +24,69 @@ def _run(code: str, cwd=REPO):
                           capture_output=True, text=True, timeout=120)
 
 
+_FOREIGN = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'jaxlib', 'lteax'))\n"
+            "assert not bad, bad\n")
+
+
 def test_port_imports_no_jax():
+    """Every module of the port, imported: neither jax nor lteax loaded."""
     res = _run(
         "import importlib, pkgutil, sys\n"
         "import lteax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or"
-        " m.startswith('jax.') or m.startswith('jaxlib'))\n"
-        "print(len(mods), bad)\n"
-        "assert not bad, bad\n")
+        "assert len(mods) >= 40, mods\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py's own imports (the port, torch, numpy) load no jax."""
+    """chip_smoke.py's own imports (the port, torch, numpy) load neither."""
     res = _run(
         "import runpy, sys\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "assert 'jax' not in sys.modules\n")
+        "assert 'lteax_torch.pipeline' in sys.modules\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
+
+
+def test_no_import_statement_names_lteax_or_jax():
+    """No source line of the port or of chip_smoke.py imports them."""
+    pat = re.compile(r"^\s*(from|import)\s+(lteax|jax|jaxlib)(\.|\s|$)")
+    files = [*sorted((REPO / "lteax_torch").rglob("*.py")),
+             REPO / "chip_smoke.py"]
+    assert len(files) >= 40
+    bad = [f"{f.relative_to(REPO)}:{i}: {ln.strip()}" for f in files
+           for i, ln in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(ln)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("factory", ["make_batch_decoder",
+                                     "make_pusch_batch_decoder",
+                                     "make_batch_harq_decoder"])
+def test_decoders_need_a_card_unless_asked_for_the_cpu(factory):
+    """Without a ``device`` and without CUDA the factory raises instead of
+    running on the CPU; ``device="cpu"`` builds."""
+    import torch
+    import lteax_torch.pipeline as pipeline
+    from lteax_torch.phy.channels.pusch import PuschAlloc
+    from lteax_torch.sim.dl_gen import DlCell, harq_decoder_args
+    from lteax_torch.sim.ul_gen import UlCell
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cell = DlCell(n_rb_dl=6, n_cell_id=150, mcs=9, cfi=2)
+    args = {
+        "make_batch_decoder": cell.decoder_args(),
+        "make_pusch_batch_decoder":
+            UlCell(alloc=PuschAlloc(6, 0, 712, 2)).decoder_args(),
+        "make_batch_harq_decoder": harq_decoder_args(
+            [cell, dataclasses.replace(cell, subframe=2, rv=2)]),
+    }[factory]
+    make = getattr(pipeline, factory)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(*args)
+    assert make(*args, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda():

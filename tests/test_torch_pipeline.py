@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lteax.phy.channels import pdsch as pdsch_ref
+from lteax.phy.config import PhyConfig as RefPhyConfig
 from lteax.phy.tuning import DecoderTuning as RefTuning
 from lteax.shard.pipeline import make_batch_decoder_pallas
 
@@ -32,14 +33,15 @@ def decoders():
     mp.setenv("LTEAX_OFDM_DFT", "fft")
     geom = CELL.geom
     geom_r = pdsch_ref.pdsch_geometry(geom.tbs, geom.n_re, geom.qm, geom.rv)
-    args = (CELL.cfg, CELL.n_cell_id, CELL.cfi, CELL.prbs, CELL.subframe,
-            CELL.rnti)
+    args = (CELL.n_cell_id, CELL.cfi, CELL.prbs, CELL.subframe, CELL.rnti)
     ref = make_batch_decoder_pallas(
-        *args, geom_r, CELL.scheme, n_iter=6, interpret=True,
+        RefPhyConfig(n_rb_dl=CELL.n_rb_dl), *args, geom_r, CELL.scheme,
+        n_iter=6, interpret=True,
         tuning=RefTuning(mdtype="f32", demap_in="f32", retry_m_dl=2,
                          print_iters=True))
-    port = make_batch_decoder(*args, geom, CELL.scheme, n_iter=6,
-                              tuning=DecoderTuning(retry_m_dl=2))
+    port = make_batch_decoder(CELL.cfg, *args, geom, CELL.scheme, n_iter=6,
+                              tuning=DecoderTuning(retry_m_dl=2),
+                              device="cpu")
     yield ref, port
     mp.undo()
 

@@ -1,7 +1,14 @@
-"""Every numpy plan the port copies from a jax-importing ``lteax`` module
-equals its original, array for array; the jax-free DL signal generator
-gives the reference encoder's symbols and IQ."""
+"""Every numpy plan and every module the port copies from ``lteax`` equals
+its original, array for array (the port imports nothing of ``lteax``, so
+these tests are what holds the two together); the jax-free DL and UL signal
+generators give the reference encoders' symbols and grids.
 
+The two packages' ``PhyConfig`` / ``SegmentInfo`` / ``PdschGeometry`` are
+different classes that key ``lru_cache``d plans: each side gets its own,
+built from the same arguments."""
+
+import dataclasses
+import json
 import re
 from pathlib import Path
 
@@ -14,7 +21,7 @@ from lteax.phy import chest as chest_ref
 from lteax.phy import mod as mod_ref
 from lteax.phy import seq as seq_ref
 from lteax.phy.channels import pdsch as pdsch_ref
-from lteax.phy.config import PhyConfig
+from lteax.phy.config import PhyConfig as RefPhyConfig
 from lteax.phy.fec import crc as crc_ref
 from lteax.phy.fec import ratematch as rm_ref
 from lteax.phy.fec import turbo as turbo_ref
@@ -22,11 +29,12 @@ from lteax.phy.ofdm import subframe_to_samples as s2s_ref
 
 from lteax_torch.phy import chest, mod, seq
 from lteax_torch.phy.channels import pdsch
+from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec import crc, ratematch, turbo
 from lteax_torch.phy.ofdm import subframe_to_samples
 from lteax_torch.sim import dl_gen
 
-CFGS = [PhyConfig(n_rb_dl=6), PhyConfig(n_rb_dl=15), PhyConfig(n_rb_dl=100)]
+N_RBS = [6, 15, 100]
 
 
 @pytest.mark.parametrize("n,kind", [(40, "24A"), (5800, "24B"),
@@ -64,8 +72,8 @@ def test_turbo_rm_indices(d_len, e_len, rv):
 def test_pdsch_geometry_and_rm_maps(tbs, n_re, qm, rv):
     g, gr = (pdsch.pdsch_geometry(tbs, n_re, qm, rv),
              pdsch_ref.pdsch_geometry(tbs, n_re, qm, rv))
-    assert (g.tbs, g.n_re, g.qm, g.rv, g.info, g.e_list, g.k, g.g) == \
-        (gr.tbs, gr.n_re, gr.qm, gr.rv, gr.info, gr.e_list, gr.k, gr.g)
+    assert dataclasses.asdict(g) == dataclasses.asdict(gr)
+    assert (g.k, g.g) == (gr.k, gr.g)
     np.testing.assert_array_equal(pdsch._global_rm_idx(g),
                                   pdsch_ref._global_rm_idx(gr))
     inv, inj = pdsch._global_rm_inv(g)
@@ -136,18 +144,20 @@ def test_turbo_encode(k):
     np.testing.assert_array_equal(turbo.turbo_encode(bits, k), ref)
 
 
-@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: f"{c.n_rb_dl}prb")
-def test_chest_plans(cfg):
+@pytest.mark.parametrize("n_rb", N_RBS, ids=lambda n: f"{n}prb")
+def test_chest_plans(n_rb):
+    cfg, cfg_r = PhyConfig(n_rb_dl=n_rb), RefPhyConfig(n_rb_dl=n_rb)
     for shift in range(6):
-        np.testing.assert_array_equal(chest._freq_interp_matrix(cfg, shift),
-                                      chest_ref._freq_interp_matrix(cfg, shift))
+        np.testing.assert_array_equal(
+            chest._freq_interp_matrix(cfg, shift),
+            chest_ref._freq_interp_matrix(cfg_r, shift))
     syms = (0, 4, 7, 11)
     np.testing.assert_array_equal(chest._time_interp_matrix(cfg, syms),
-                                  chest_ref._time_interp_matrix(cfg, syms))
+                                  chest_ref._time_interp_matrix(cfg_r, syms))
     for cid, sf in ((214, 1), (7, 0)):
         np.testing.assert_array_equal(
             chest._crs_ref_values(cfg, cid, 0, sf),
-            chest_ref._crs_ref_values(cfg, cid, 0, sf))
+            chest_ref._crs_ref_values(cfg_r, cid, 0, sf))
 
 
 @pytest.mark.parametrize("n_rb,mcs", [(6, 17), (15, 28)])
@@ -171,7 +181,8 @@ def test_dl_gen_matches_reference_encoder(n_rb, mcs):
     grid = np.zeros((2, cfg.n_sym_subframe, cfg.n_sc), np.complex64)
     grid.reshape(2, -1)[:, cell.re_idx] = syms
     x = subframe_to_samples(torch.from_numpy(grid), cfg).numpy()
-    x_r = np.asarray(s2s_ref(jnp.asarray(grid), cfg))
+    x_r = np.asarray(s2s_ref(jnp.asarray(grid),
+                             RefPhyConfig(n_rb_dl=n_rb)))
     np.testing.assert_allclose(x, x_r, rtol=1e-5, atol=1e-5)
 
     iq, tb_out = dl_gen.dl_subframes(cell, 3, snr_db=30.0, seed=5,
@@ -197,11 +208,12 @@ def test_check_crc_matches_reference(kind, n):
 # -- the scanner slice's plans: sync sequences and filters, resampler bank,
 #    convolutional code, PBCH masks, CRC16 --------------------------------
 
-@pytest.mark.parametrize("cfg", CFGS, ids=lambda c: f"{c.n_rb_dl}prb")
-def test_pss_time_filters(cfg):
+@pytest.mark.parametrize("n_rb", N_RBS, ids=lambda n: f"{n}prb")
+def test_pss_time_filters(n_rb):
     from lteax.phy import sync as sync_ref
     from lteax_torch.phy import sync
-    got, ref = sync.pss_time_filters(cfg), sync_ref.pss_time_filters(cfg)
+    got = sync.pss_time_filters(PhyConfig(n_rb_dl=n_rb))
+    ref = sync_ref.pss_time_filters(RefPhyConfig(n_rb_dl=n_rb))
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got, ref)
 
@@ -253,3 +265,415 @@ def test_pbch_ant_masks_and_crc16():
         np.testing.assert_array_equal(pbch.ANT_MASKS[k], pbch_ref.ANT_MASKS[k])
     np.testing.assert_array_equal(crc.crc_matrix(24, "16"),
                                   crc_ref.crc_matrix(24, "16"))
+
+
+# -- the modules the port copies from the JAX package (it imports none of
+#    them): configuration, grid maps, tables, segmentation, IQ files, EARFCN
+#    helpers, the MIB, the channel model, checkpoint and metrics -----------
+
+def _same(a, b):
+    """Nested tuples / arrays / scalars equal, dtypes included."""
+    if isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b and type(a) is type(b)
+
+
+@pytest.mark.parametrize("n_rb", [6, 15, 25, 50, 75, 100],
+                         ids=lambda n: f"{n}prb")
+@pytest.mark.parametrize("n_ant", [1, 2, 4], ids=lambda n: f"{n}ant")
+def test_phy_config_fields(n_rb, n_ant):
+    from lteax.phy import config as config_ref
+    from lteax_torch.phy import config
+    cfg = PhyConfig(n_rb_dl=n_rb, n_ant=n_ant)
+    cfg_r = RefPhyConfig(n_rb_dl=n_rb, n_ant=n_ant)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_r)
+    for f in ("n_fft", "fs", "n_sc", "n_sym_slot", "n_sym_subframe",
+              "cp_lengths_slot", "n_samps_slot", "n_samps_subframe",
+              "n_samps_frame", "symbol_starts_subframe", "sc_to_fft_bin"):
+        _same(getattr(cfg, f), getattr(cfg_r, f))
+    assert config.subframe_grid_shape(cfg) == \
+        config_ref.subframe_grid_shape(cfg_r)
+    assert hash(cfg) == hash(PhyConfig(n_rb_dl=n_rb, n_ant=n_ant))
+
+
+def test_phy_config_rejects_what_the_original_rejects():
+    for kw in (dict(n_rb_dl=7), dict(n_ant=3)):
+        with pytest.raises(Exception) as e_ref:
+            RefPhyConfig(**kw)
+        with pytest.raises(type(e_ref.value)):
+            PhyConfig(**kw)
+
+
+GRID_CELLS = [(6, 0, 1), (6, 301, 4), (15, 150, 2), (25, 7, 1), (50, 503, 2),
+              (100, 214, 1), (100, 335, 4)]
+
+
+@pytest.mark.parametrize("n_rb,cid,n_ant", GRID_CELLS)
+def test_grid_index_functions(n_rb, cid, n_ant):
+    from lteax.phy import grid as grid_ref
+    from lteax_torch.phy import grid
+    cfg = PhyConfig(n_rb_dl=n_rb, n_ant=n_ant)
+    cfg_r = RefPhyConfig(n_rb_dl=n_rb, n_ant=n_ant)
+    both = lambda name, *a: _same(getattr(grid, name)(cfg, *a),
+                                  getattr(grid_ref, name)(cfg_r, *a))
+    for name in ("pss_sym", "sss_sym", "sync_sc", "central72_sc"):
+        both(name)
+    for name in ("crs_reserved_mask", "pbch_flat_idx", "pcfich_reg_indices",
+                 "pcfich_flat_idx"):
+        both(name, cid)
+    for port in range(n_ant):
+        _same(grid.crs_symbols(port, cfg), grid_ref.crs_symbols(port, cfg_r))
+        both("crs_flat_idx", cid, port)
+        for l in (0, 1, 4):
+            for ns in (0, 7, 19):
+                assert grid._crs_v(port, l, ns) == grid_ref._crs_v(port, l, ns)
+    for l in range(3):
+        both("regs_in_symbol", l, cid)
+    for ng in (1 / 6, 0.5, 1.0, 2.0):
+        both("n_phich_groups", ng)
+        both("phich_reg_indices", cid, ng)
+        both("phich_flat_idx", cid, ng, 0)
+    max_cfi = 3 if n_rb > 10 else 4
+    for cfi in range(1 if n_rb > 10 else 2, max_cfi + 1):
+        both("pdcch_reg_list", cid, cfi, 1.0)
+        both("pdcch_flat_idx", cid, cfi, 1.0)
+        prb_sets = (tuple(range(n_rb)), tuple(range(1, n_rb, 2)), (n_rb // 2,))
+        for prbs in prb_sets:
+            for sf in (0, 1, 5, 9):
+                both("pdsch_flat_idx", cid, cfi, prbs, sf)
+
+
+def test_qpp_tables_whole():
+    from lteax.phy.tables import turbo_qpp as qpp_ref
+    from lteax_torch.phy.tables import turbo_qpp as qpp
+    assert qpp.QPP_TABLE == qpp_ref.QPP_TABLE and len(qpp.QPP_TABLE) == 188
+    _same(qpp.VALID_K, qpp_ref.VALID_K)
+    for k in qpp.VALID_K.tolist():
+        _same(qpp.qpp_interleaver(k), qpp_ref.qpp_interleaver(k))
+    for k in (40, 1008, 6144):
+        _same(qpp.qpp_deinterleaver(k), qpp_ref.qpp_deinterleaver(k))
+    for b in (1, 40, 41, 513, 2049, 6144):
+        assert qpp.smallest_valid_k(b) == qpp_ref.smallest_valid_k(b)
+    for bad, fn, fn_r in ((41, qpp.qpp_interleaver, qpp_ref.qpp_interleaver),
+                          (6145, qpp.smallest_valid_k,
+                           qpp_ref.smallest_valid_k)):
+        with pytest.raises(Exception) as e_ref:
+            fn_r(bad)
+        with pytest.raises(type(e_ref.value)):
+            fn(bad)
+
+
+def test_tbs_tables_whole():
+    from lteax.phy.tables import tbs as tbs_ref
+    from lteax.phy.tables import tbs_full as full_ref
+    from lteax_torch.phy.tables import tbs, tbs_full
+    for name in (n for n in dir(full_ref) if n.isupper()):
+        _same(getattr(tbs_full, name), getattr(full_ref, name))
+    for mcs in range(29):
+        assert tbs.mcs_to_qm_itbs(mcs) == tbs_ref.mcs_to_qm_itbs(mcs)
+        for n_prb in range(1, 111):
+            assert tbs.get_tbs_for_mcs(mcs, n_prb) == \
+                tbs_ref.get_tbs_for_mcs(mcs, n_prb)
+    for i_tbs in range(27):
+        for n_prb in (1, 6, 25, 100, 110):
+            assert tbs.get_tbs(i_tbs, n_prb) == tbs_ref.get_tbs(i_tbs, n_prb)
+            assert tbs.get_tbs_provenance(i_tbs, n_prb) == \
+                tbs_ref.get_tbs_provenance(i_tbs, n_prb)
+        for n_1a in (2, 3):
+            assert tbs.tbs_1a(i_tbs, n_1a) == tbs_ref.tbs_1a(i_tbs, n_1a)
+    for n_bits in (100, 1000, 10000):
+        assert tbs.pick_mcs_for_size(n_bits, 25) == \
+            tbs_ref.pick_mcs_for_size(n_bits, 25)
+    for mod in (tbs, tbs_ref):
+        with pytest.raises(ValueError):
+            mod.pick_mcs_for_size(20000, 25)
+
+
+def test_segment_info_and_bits():
+    from lteax.phy.fec import segmentation as seg_ref
+    from lteax_torch.phy.fec import segmentation as seg
+    sizes = [*range(40, 7000, 97), 6144, 6145, 12288, 12289, 36696, 75400,
+             149776]
+    rng = np.random.default_rng(0)
+    for b in sizes:
+        info, info_r = seg.segment_info(b), seg_ref.segment_info(b)
+        assert dataclasses.asdict(info) == dataclasses.asdict(info_r)
+        assert info.k_list == info_r.k_list and info.uniform == info_r.uniform
+        assert seg.k_buckets(info) == seg_ref.k_buckets(info_r)
+        if b > 20000 or b % 3:
+            continue
+        bits = rng.integers(0, 2, b).astype(np.int32)
+        if info.uniform:
+            blocks = seg.segment_bits(bits, info)
+            _same(blocks, seg_ref.segment_bits(bits, info_r))
+            _same(seg.desegment_bits(blocks, info),
+                  seg_ref.desegment_bits(blocks, info_r))
+        gen = seg.segment_bits_general(bits, info)
+        _same(gen, seg_ref.segment_bits_general(bits, info_r))
+        _same(seg.desegment_bits_general(gen, info),
+              seg_ref.desegment_bits_general(gen, info_r))
+
+
+@pytest.mark.parametrize("fmt", ["fc32", "sc8"])
+def test_iq_files_round_trip(fmt, tmp_path):
+    from lteax.io import iq as iq_ref
+    from lteax_torch.io import iq
+    rng = np.random.default_rng(4)
+    x = ((rng.standard_normal(1000) + 1j * rng.standard_normal(1000)) * 0.2
+         ).astype(np.complex64)
+    assert np.abs(x.real).max() < 1 and np.abs(x.imag).max() < 1
+    a, b = str(tmp_path / "port.bin"), str(tmp_path / "ref.bin")
+    iq.write_iq(a, x, fmt)
+    iq_ref.write_iq(b, x, fmt)
+    assert Path(a).read_bytes() == Path(b).read_bytes()
+    for kw in ({}, dict(count=100), dict(count=64, offset_samples=17)):
+        got = iq.read_iq(a, fmt, **kw)
+        _same(got, iq_ref.read_iq(b, fmt, **kw))
+    back = iq.read_iq(a, fmt)
+    if fmt == "fc32":
+        np.testing.assert_array_equal(back, x)
+    else:
+        # written as round(127 x), read back over 128: half a step each way
+        np.testing.assert_allclose(back, x * (127 / 128), atol=0.71 / 128)
+    _same(iq.to_iq_f32(x), iq_ref.to_iq_f32(x))
+    _same(iq.from_iq_f32(iq.to_iq_f32(x)), x)
+    for mod in (iq, iq_ref):
+        with pytest.raises(ValueError):
+            mod.write_iq(a, x, "fc64")
+        with pytest.raises(ValueError):
+            mod.read_iq(a, "fc64")
+
+
+def test_earfcn_helpers():
+    from lteax.stack import bands as bands_ref
+    from lteax_torch.stack import bands
+    assert [dataclasses.asdict(b) for b in bands.BANDS] == \
+        [dataclasses.asdict(b) for b in bands_ref.BANDS]
+    for earfcn in (0, 300, 599, 1575, 2525, 3100, 6300, 9500, 38000, 40000):
+        assert bands.band_of_dl_earfcn(earfcn) == \
+            bands_ref.band_of_dl_earfcn(earfcn)
+        assert bands.dl_earfcn_to_freq_mhz(earfcn) == \
+            bands_ref.dl_earfcn_to_freq_mhz(earfcn)
+    for band in (1, 3, 7, 20, 38):
+        assert bands.is_tdd_band(band) == bands_ref.is_tdd_band(band)
+        assert bands.band_dl_earfcns(band) == bands_ref.band_dl_earfcns(band)
+        e = bands.band_dl_earfcns(band)[1]
+        f = bands.dl_earfcn_to_freq_mhz(e)
+        assert bands.dl_freq_to_earfcn(band, f) == \
+            bands_ref.dl_freq_to_earfcn(band, f) == e
+    assert bands.ul_earfcn_for_dl(300) == bands_ref.ul_earfcn_for_dl(300)
+    with pytest.raises(Exception) as e_ref:
+        bands_ref.band_of_dl_earfcn(70000)
+    with pytest.raises(type(e_ref.value)):
+        bands.band_of_dl_earfcn(70000)
+
+
+@pytest.mark.parametrize("n_rb", [6, 15, 25, 50, 75, 100])
+def test_mib_bits(n_rb):
+    from lteax.stack import rrc as rrc_ref
+    from lteax_torch.stack import rrc
+    for ext, res, sfn in ((False, 1.0, 0), (True, 1 / 6, 1023),
+                          (False, 0.5, 517), (True, 2.0, 256)):
+        m = rrc.Mib(n_rb, ext, res, sfn)
+        bits = rrc.pack_mib(m)
+        _same(bits, rrc_ref.pack_mib(rrc_ref.Mib(n_rb, ext, res, sfn)))
+        assert bits.shape == (24,)
+        for mod4 in range(4):
+            got = rrc.unpack_mib(bits, mod4)
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                rrc_ref.unpack_mib(bits, mod4))
+        assert rrc.unpack_mib(bits, sfn & 3) == m
+
+
+def test_awgn_on_the_same_generator():
+    from lteax.sim import channel as channel_ref
+    from lteax_torch.sim import channel
+    x = np.exp(1j * np.arange(500)).astype(np.complex64) * 0.5
+    for snr_db in (0.0, 17.5):
+        _same(channel.awgn(np.random.default_rng(9), x, snr_db),
+              channel_ref.awgn(np.random.default_rng(9), x, snr_db))
+    assert channel.PROFILES == channel_ref.PROFILES
+    for profile in channel.PROFILES:
+        got = channel.fade_and_awgn(np.random.default_rng(2), x, profile,
+                                    30.72e6, 20.0)
+        _same(got, channel_ref.fade_and_awgn(np.random.default_rng(2), x,
+                                             profile, 30.72e6, 20.0))
+
+
+def test_checkpoint_and_metrics_behave_as_the_originals(tmp_path):
+    from lteax.utils import checkpoint as ck_ref
+    from lteax.utils import metrics as metrics_ref
+    from lteax_torch.utils import checkpoint as ck
+    from lteax_torch.utils import metrics
+    files = []
+    for mod, name in ((ck, "port.json"), (ck_ref, "ref.json")):
+        c = mod.ScanCheckpoint(str(tmp_path / name))
+        c.record("a", {"n_cell_id": 7})
+        c.record("b", {"detected": False})
+        c = mod.ScanCheckpoint(str(tmp_path / name))       # reload
+        assert c.done("a") and not c.done("c")
+        assert c.result("a") == {"n_cell_id": 7} and c.result("c") is None
+        assert c.pending(["a", "c", "b", "d"]) == ["c", "d"]
+        files.append((tmp_path / name).read_text())
+    assert files[0] == files[1]
+    snaps = []
+    for mod in (metrics, metrics_ref):
+        m = mod.Metrics()
+        m.inc("subframes", 3)
+        m.inc("subframes")
+        m.gauge("snr_db", 12.5)
+        snap = m.snapshot()
+        assert snap["counters"] == {"subframes": 4.0}
+        assert snap["gauges"] == {"snr_db": 12.5}
+        assert m.rate("subframes") > 0 and m.rate("none") == 0
+        snaps.append(set(snap))
+        seen = []
+        log = mod.EventLog(level="info")
+        log.subscribe(seen.append)
+        log.emit("cell_found", n_cell_id=3)
+        log.emit("noise", level="debug")
+        log.set_types({"scan"})
+        log.emit("cell_found")
+        log.emit("scan.cell", n_cell_id=4)
+        recs = [json.loads(line) for line in seen]
+        assert [(r["event"], r["n_cell_id"]) for r in recs] == \
+            [("cell_found", 3), ("scan.cell", 4)]
+        with pytest.raises(ValueError):
+            log.set_level("loud")
+        assert mod.throughput_meter(10 ** 6, 0.5)["mbit_per_s"] == 2.0
+    assert snaps[0] == snaps[1]
+    assert metrics.LEVELS == metrics_ref.LEVELS
+    assert isinstance(metrics.METRICS, metrics.Metrics)
+    assert isinstance(metrics.EVENTS, metrics.EventLog)
+
+
+# -- the UL slice's plans --------------------------------------------------
+
+@pytest.mark.parametrize("cid,ns,m_sc", [(214, 8, 1200), (214, 9, 1200),
+                                         (0, 0, 36), (301, 5, 72),
+                                         (503, 19, 180), (17, 18, 96)])
+def test_dmrs_pusch(cid, ns, m_sc):
+    from lteax.phy.channels import pusch as pusch_ref
+    from lteax_torch.phy.channels import pusch
+    for kw in ({}, dict(group_hopping=True), dict(delta_ss=7, n_dmrs=3)):
+        _same(pusch.dmrs_pusch(cid, ns, m_sc, **kw),
+              pusch_ref.dmrs_pusch(cid, ns, m_sc, **kw))
+    assert pusch.group_hopping_pattern(cid, ns) == \
+        pusch_ref.group_hopping_pattern(cid, ns)
+    for u in (0, 13, 29):
+        for v in (0, 1):
+            _same(pusch.base_sequence(u, m_sc, v),
+                  pusch_ref.base_sequence(u, m_sc, v))
+
+
+@pytest.mark.parametrize("n_prb,qm", [(6, 2), (8, 2), (6, 4), (15, 6),
+                                      (100, 6)])
+def test_pusch_interleaver_taps_and_alloc(n_prb, qm):
+    from lteax.phy.channels import pusch as pusch_ref
+    from lteax_torch.phy.channels import pusch
+    assert (pusch.DMRS_SYMS, pusch.N_DATA_SYMS) == \
+        (pusch_ref.DMRS_SYMS, pusch_ref.N_DATA_SYMS)
+    g = 12 * 12 * n_prb * qm
+    idx = pusch.channel_interleaver_idx(g, qm)
+    _same(idx, pusch_ref.channel_interleaver_idx(g, qm))
+    assert sorted(idx.tolist()) == list(range(g))
+    _same(pusch.chest_taps(12 * n_prb), pusch_ref.chest_taps(12 * n_prb))
+    tbs = {6: 1192, 8: 1096, 15: 11064, 100: 75376}[n_prb]
+    a = pusch.PuschAlloc(n_prb, 0, tbs, qm)
+    a_r = pusch_ref.PuschAlloc(n_prb, 0, tbs, qm)
+    assert (a.m_sc, a.n_re, a.scheme) == (a_r.m_sc, a_r.n_re, a_r.scheme)
+    assert dataclasses.asdict(a.geom) == dataclasses.asdict(a_r.geom)
+    for rnti, sf, cid in ((0x3D, 4, 214), (0xFFFF, 9, 503)):
+        assert pusch.pusch_c_init(rnti, sf, cid) == \
+            int(pusch_ref._c_init(rnti, sf, cid))
+    with pytest.raises(ValueError):
+        pusch.channel_interleaver_idx(g + qm, qm)
+
+
+@pytest.mark.parametrize("n_prb,qm,tbs", [(6, 2, 712), (8, 2, 1096),
+                                          (6, 4, 1192), (15, 6, 11064),
+                                          (100, 6, 75376)])
+def test_ul_rm_inv_planar_and_sign_planes(n_prb, qm, tbs):
+    from lteax.kernels import demap as demap_ref
+    from lteax.shard.pipeline import _ul_rm_inv_planar
+    from lteax_torch.kernels import demap
+    from lteax_torch.pipeline import ul_rm_inv_planar
+    m_sc = 12 * n_prb
+    geom = pdsch.pdsch_geometry(tbs, 12 * m_sc, qm, 0)
+    geom_r = pdsch_ref.pdsch_geometry(tbs, 12 * m_sc, qm, 0)
+    npad = -(-(12 * m_sc) // 128) * 128
+    got = ul_rm_inv_planar(geom, qm, m_sc, npad)
+    _same(got, _ul_rm_inv_planar(geom_r, qm, m_sc, npad))
+    # transmitted positions read inside the planes, each once; the rest
+    # read the appended zero column, never a pad column
+    inside = got[got < qm * npad]
+    assert len(np.unique(inside)) == len(inside) == geom.g
+    assert (inside % npad < 12 * m_sc).all()
+    assert (got[got >= qm * npad] == qm * npad).all()
+    c_init = 0x3D * 2 ** 14 + 4 * 512 + 214
+    _same(demap.planar_sgn_np(c_init, geom.g, qm, npad),
+          demap_ref.planar_sgn_np(c_init, geom_r.g, qm, npad))
+
+
+@pytest.mark.parametrize("rv", [0, 1, 2, 3])
+@pytest.mark.parametrize("d_len,e_len", [(5828, 6516), (44, 100),
+                                         (1028, 2000), (6148, 7000)])
+def test_turbo_rm_indices_every_rv(d_len, e_len, rv):
+    np.testing.assert_array_equal(ratematch.turbo_rm_indices(d_len, e_len, rv),
+                                  rm_ref.turbo_rm_indices(d_len, e_len, rv))
+
+
+@pytest.mark.parametrize("m_sc", [72, 96, 180, 1200])
+def test_ul_dft_and_chest_denoise(m_sc):
+    """torch.fft against the reference's fft forms: rtol/atol 1e-5 on
+    unit-power values (the two FFTs sum in different orders)."""
+    from lteax.phy.channels import pusch as pusch_ref
+    from lteax_torch.phy.channels import pusch
+    rng = np.random.default_rng(m_sc)
+    x = ((rng.standard_normal((3, m_sc)) + 1j * rng.standard_normal((3, m_sc)))
+         / np.sqrt(2)).astype(np.complex64)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LTEAX_UL_DFT", "fft")
+    try:
+        for inverse in (False, True):
+            got = pusch.ul_dft(torch.from_numpy(x), inverse).numpy()
+            ref = np.asarray(pusch_ref._ul_dft(jnp.asarray(x), inverse))
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    finally:
+        mp.undo()
+    taps = torch.from_numpy(pusch.chest_taps(m_sc))
+    np.testing.assert_allclose(
+        pusch.chest_denoise(torch.from_numpy(x), taps).numpy(),
+        np.asarray(pusch_ref.chest_denoise(jnp.asarray(x))),
+        rtol=1e-5, atol=1e-5)
+    back = pusch.ul_dft(pusch.ul_dft(torch.from_numpy(x), False), True)
+    np.testing.assert_allclose(back.numpy(), x, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mcs,rvs", [(9, (0, 2)), (9, (0, 1, 2, 3)),
+                                     (17, (0, 2))])
+def test_harq_transmissions_match_reference_encoder(mcs, rvs):
+    """Each (re)transmission carries the reference encoder's symbols of the
+    same codeblocks at its own subframe and rv."""
+    cell = dl_gen.DlCell(n_rb_dl=6, n_cell_id=150, mcs=mcs, cfi=2)
+    sfs = tuple(range(1, 1 + len(rvs)))
+    iq, tb, cells = dl_gen.harq_transmissions(cell, sfs, rvs, 3, 30.0, seed=8,
+                                              max_unique=2)
+    assert iq.shape[:2] == (len(rvs), 3)
+    np.testing.assert_array_equal(tb[2], tb[0])
+    cbs = np.stack([dl_gen.pdsch_prepare_cbs(t, cell.geom) for t in tb[:2]])
+    for c in cells:
+        g = c.geom
+        geom_r = pdsch_ref.pdsch_geometry(g.tbs, g.n_re, g.qm, g.rv)
+        syms = dl_gen.pdsch_encode_cbs(cbs, g, c.rnti, c.subframe,
+                                       c.n_cell_id, c.scheme)
+        syms_r = np.stack([np.asarray(pdsch_ref.pdsch_encode_cbs(
+            jnp.asarray(cb), geom_r, c.rnti, c.subframe, c.n_cell_id,
+            c.scheme)) for cb in cbs])
+        np.testing.assert_array_equal(syms, syms_r)

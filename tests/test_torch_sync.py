@@ -17,13 +17,16 @@ import torch
 from lteax.kernels.pss import (pss_corr_mag_pallas, pss_detect_pallas,
                                pss_reduce_combine as combine_ref)
 from lteax.phy import sync as sync_ref
-from lteax.phy.config import PhyConfig
-from lteax.phy.grid import pss_sym, sss_sym, sync_sc
+from lteax.phy.config import PhyConfig as RefPhyConfig
 from lteax.phy.ofdm import samples_to_subframe as s2s_ref
 
 from lteax_torch.kernels import pss
 from lteax_torch.phy import sync
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.grid import pss_sym, sss_sym, sync_sc
 from lteax_torch.sim.cell_gen import Cell, capture
+
+CFG6_R = RefPhyConfig(n_rb_dl=6)       # the reference's own class
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,7 +63,7 @@ def test_corr_plain_matches_tpu_kernel_and_fft():
     assert got.shape == (2, 3, x.shape[1]) and got.dtype == np.float32
     tpu = np.asarray(pss_corr_mag_pallas(jnp.asarray(x), filt, mdtype="f32",
                                          interpret=True))
-    fft = np.asarray(sync_ref.pss_correlate(jnp.asarray(x), cfg,
+    fft = np.asarray(sync_ref.pss_correlate(jnp.asarray(x), CFG6_R,
                                             use_pallas=False))
     for ref in (tpu, fft):
         np.testing.assert_allclose(got, ref, atol=2e-5 * float(ref.max()))
@@ -122,7 +125,7 @@ def test_coarse_timing_and_cfo(cfo_capture):
     cfg = PhyConfig(n_rb_dl=6)
     t0, cfo = sync.coarse_timing_and_cfo(torch.from_numpy(cfo_capture), cfg)
     t0_r, cfo_r = sync_ref.coarse_timing_and_cfo(jnp.asarray(cfo_capture),
-                                                 cfg)
+                                                 CFG6_R)
     assert int(t0) == int(t0_r)
     assert abs(float(cfo) - float(cfo_r)) < 0.05
     assert abs(float(cfo) + 2100.0) < 100.0
@@ -137,14 +140,14 @@ def test_find_pss_and_sss_detect(cfo_capture):
     cfg = PhyConfig(n_rb_dl=6)
     x = torch.from_numpy(cfo_capture)
     nid2, idx, peak = sync.find_pss(x, cfg)
-    nid2_r, idx_r, peak_r = sync_ref.find_pss(jnp.asarray(cfo_capture), cfg)
+    nid2_r, idx_r, peak_r = sync_ref.find_pss(jnp.asarray(cfo_capture), CFG6_R)
     assert (int(nid2), int(idx)) == (int(nid2_r), int(idx_r))
     assert int(nid2) == 137 % 3
     np.testing.assert_allclose(float(peak), float(peak_r), rtol=1e-4)
     start = int(idx) - cfg.symbol_starts_subframe[pss_sym(cfg)]
     start += 5 * cfg.n_samps_subframe if start < 0 else 0
     seg = cfo_capture[start:start + cfg.n_samps_subframe]
-    g_r = np.asarray(s2s_ref(jnp.asarray(seg), cfg, dft="fft"))
+    g_r = np.asarray(s2s_ref(jnp.asarray(seg), CFG6_R, dft="fft"))
     scs = sync_sc(cfg)
     nid1, half, score = sync.sss_detect(
         torch.from_numpy(g_r[sss_sym(cfg), scs]),
