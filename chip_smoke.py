@@ -21,9 +21,14 @@ read just after:
    30.72 Msps; every live cell must report the cell id, antenna count and
    MIB it was made with, every dead channel none; one capture's scan on
    the card must match its scan on the CPU.
+   The PSS correlator runs its default, the bf16 tensor-core kernel;
+   ``lteax_torch.phy.sync.find_pss(..., mdtype="f32")`` on one capture
+   drives the direct f32 kernel and must give the same root within one
+   sample of the default's index.
 3. The PSS band sweep (``lteax_torch.bench.scan_throughput.detect``, the
    fused detect kernel) over 128 carriers x 20 subframes of 20 MHz: every
-   carrier must give root 1 at the inserted index.
+   carrier must give root 1 at the plain version's index, within 8 samples
+   of the inserted PSS, in bf16 (the default) and in f32.
 4. UL-SCH decode through ``lteax_torch.pipeline.make_pusch_batch_decoder``
    at the ``bench/ul_throughput.py`` configuration (100 PRB, TBS 75376,
    64QAM, cell 214, subframe 4, RNTI 0x3D) on 256 gridded subframes at
@@ -66,13 +71,13 @@ import lteax_torch.kernels.demap as demap_mod
 import lteax_torch.kernels.polyphase as poly_mod
 import lteax_torch.kernels.pss as pss_mod
 import lteax_torch.kernels.turbo_mlm as turbo_mod
+import lteax_torch.phy.sync as sync
 from lteax_torch import host
 from lteax_torch.bench import acs_probe, scan_throughput
 from lteax_torch.io.iq import read_iq, write_iq
 from lteax_torch.kernels._build import library
 from lteax_torch.phy import seq
 from lteax_torch.phy.config import PhyConfig
-from lteax_torch.phy.sync import pss_time_filters
 from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
                                   make_pusch_batch_decoder)
@@ -102,6 +107,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F32_OPS_PER_S = 33.5e12
 BF16X2_OPS_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 
 SCAN_CFG = PhyConfig(n_rb_dl=100)
 SDR_RATE = 20e6       # the captures' rate; the scanner resamples 192/125
@@ -109,18 +115,29 @@ SCAN_S = 0.02         # 20 ms per capture
 N_LIVE, N_DEAD = 12, 4
 SWEEP_CARRIERS, SWEEP_SF, SWEEP_REPS = 128, 20, 5
 PSS_CHECK_SHAPE = (4, 20 * SCAN_CFG.n_samps_subframe)   # K4/K5 vs plain
+# (C, n, win, acq) that exercise the turbo kernel's masks and halos: a C that
+# is no multiple of anything, K = 40 in one window, a last window with 3
+# live positions (K = 1152), a block grid with dead windows (K = 5824)
+TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
+                (5, 43, 32, 8))
 RESAMPLE_CHECK_SHAPE = (16, 400_000)                    # K6 vs plain, 192/125
 WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 SOURCES = {
     "demap": ("lteax_torch/kernels/csrc/demap.cu",
               "lteax/kernels/demap.py:68"),
+    "demap (UL shape)": ("lteax_torch/kernels/csrc/demap.cu",
+                         "lteax/kernels/demap.py:68"),
     "turbo_half_iteration": ("lteax_torch/kernels/csrc/turbo.cu",
                              "lteax/kernels/turbo_mlm.py:536"),
     "pss_corr_mag": ("lteax_torch/kernels/csrc/pss.cu",
                      "lteax/kernels/pss.py:55"),
     "pss_detect": ("lteax_torch/kernels/csrc/pss.cu",
                    "lteax/kernels/pss.py:134"),
+    "pss_corr_mag_bf16": ("lteax_torch/kernels/csrc/pss.cu",
+                          "lteax/kernels/pss.py:55"),
+    "pss_detect_bf16": ("lteax_torch/kernels/csrc/pss.cu",
+                        "lteax/kernels/pss.py:134"),
     "resample_poly": ("lteax_torch/kernels/csrc/polyphase.cu",
                       "lteax/kernels/polyphase.py:60"),
     "acs_probe": ("lteax_torch/kernels/csrc/acs_probe.cu",
@@ -225,26 +242,42 @@ def check_acs_probe(dev) -> dict:
     return out
 
 
-def check_turbo(cell: DlCell, dev) -> dict:
-    """Half-iteration kernel vs plain at the main path's shape:
-    C = 13 * 256 = 3328 codeblocks, K = 5824 (n = K+3 trellis steps)."""
-    geom = cell.geom
-    c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
+def turbo_inputs(c: int, n: int, win: int, seed: int, dev):
+    """(u, v, a_init, b_init) of a half-iteration, boundaries pinned."""
     n_w = -(-n // win)
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     t = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
     u = t(rng.standard_normal((c, n)) * 8.0)
     v = t(rng.standard_normal((c, n)) * 8.0)
     a0 = t(-np.abs(rng.standard_normal((c, n_w, 8))) * 4.0)
     b0 = t(-np.abs(rng.standard_normal((c, n_w, 8))) * 4.0)
-    a0, b0 = turbo_mod._pin_boundaries(a0, b0)
-    got = turbo_mod.half_iteration_raw(u, v, a0, b0, win, acq)
-    ref = turbo_mod.half_iteration_plain(u, v, a0, b0, win, acq)
+    return (u, v, *turbo_mod._pin_boundaries(a0, b0))
+
+
+def turbo_equal_plain(args, win: int, acq: int) -> list[float]:
+    """Kernel vs plain on (L, a_nii, b_nii), ``torch.equal``."""
+    got = turbo_mod.half_iteration_raw(*args, win, acq)
+    ref = turbo_mod.half_iteration_plain(*args, win, acq)
     torch.cuda.synchronize()
     errs = [max_abs_err(g, r) for g, r in zip(got, ref)]
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-        raise AssertionError(f"turbo kernel != plain (L, a_nii, b_nii): "
+        raise AssertionError(f"turbo kernel != plain (L, a_nii, b_nii) at "
+                             f"{tuple(args[0].shape)}, win {win}, acq {acq}: "
                              f"max |err| {errs}")
+    return errs
+
+
+def check_turbo(cell: DlCell, dev) -> dict:
+    """Half-iteration kernel vs plain at the main path's shape,
+    C = 13 * 256 = 3328 codeblocks, K = 5824 (n = K+3 trellis steps), and
+    at the ragged shapes."""
+    for c, n, win, acq in TURBO_RAGGED:
+        turbo_equal_plain(turbo_inputs(c, n, win, SEED + n, dev), win, acq)
+    geom = cell.geom
+    c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
+    n_w = -(-n // win)
+    u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 1, dev)
+    errs = turbo_equal_plain((u, v, a0, b0), win, acq)
     ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
                                                            win, acq), 20)
     plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
@@ -288,17 +321,18 @@ def check_resample(dev) -> dict:
                     got.numel() * 46, F32_FLOP_PER_S)}
 
 
-def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray) -> float:
+def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray,
+                      tf32: bool) -> float:
     """The one PyTorch call nearest to the PSS correlator:
     ``torch.nn.functional.conv1d`` of the zero-padded complex streams with
-    the conjugate replicas, in full f32 (TF32 off).  It gives the complex
-    correlation of the same (C, 3, L) outputs and leaves out the kernel's
-    |.|^2, so it is a yardstick that does a little less.  Used nowhere in
-    the port."""
+    the conjugate replicas, in full f32 (``tf32`` False) or with cuDNN's
+    TF32 allowed (True).  It gives the complex correlation of the same
+    (C, 3, L) outputs and leaves out the kernel's |.|^2, so it is a
+    yardstick that does a little less.  Used nowhere in the port."""
     w = torch.as_tensor(np.conj(filt), device=x.device)[:, None, :]
     xp = torch.nn.functional.pad(x, (0, filt.shape[1] - 1))[:, None, :]
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         y = torch.nn.functional.conv1d(xp, w)
         if y.shape != (x.shape[0], 3, x.shape[1]):
@@ -306,59 +340,123 @@ def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray) -> float:
         del y
         return cuda_time_ms(lambda: torch.nn.functional.conv1d(xp, w), 3)
     finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def check_pss(dev) -> list[dict]:
     """PSS correlator and detect kernels vs plain at 4 carriers x 20
-    subframes of 20 MHz (nf = 2048), bit for bit."""
-    filt = pss_time_filters(SCAN_CFG)
+    subframes of 20 MHz (nf = 2048): the f32 kernels bit for bit; the bf16
+    kernels within ``pss.BF16_TOL`` of each carrier's peak magnitude, and
+    exactly in the root and index of every carrier's peak."""
+    filt = sync.pss_time_filters(SCAN_CFG)
+    n_c, length = PSS_CHECK_SHAPE
     x = _complex_noise(PSS_CHECK_SHAPE, SEED + 3, dev)
-    for c in range(PSS_CHECK_SHAPE[0]):
+    for c in range(n_c):
         x[c, 5000 + 7919 * c:5000 + 7919 * c + filt.shape[1]] += \
             30.0 * torch.as_tensor(filt[c % 3], device=dev)
-    out = []
-    # a complex multiply-add per (output, root, tap): 4 mul + 4 add; the
+    want = [5000 + 7919 * c for c in range(n_c)]
+    tol = pss_mod.BF16_TOL
+    # a complex multiply-add per (output, root, tap): 4 mul + 4 add, whatever
+    # computes it (the Toeplitz form's extra chunk is not useful work); the
     # magnitude's 3 flop per output vanish beside them
     flop = x.numel() * 3 * filt.shape[1] * 8
     in_bytes = 8 * (x.numel() + filt.size)
-    got = pss_mod.pss_corr_mag(x, filt)
-    ref = pss_mod.pss_corr_mag_plain(x, filt)
+    corr_bytes = in_bytes + 4 * 3 * x.numel()
+    shape = list(PSS_CHECK_SHAPE)
+
+    def found(parts, tile, name):
+        nid2, idx, _, _ = pss_mod.pss_reduce_combine(*parts, tile, length)
+        if nid2.tolist() != [c % 3 for c in range(n_c)] or \
+                any(abs(i - w) > 2 for i, w in zip(idx.tolist(), want)):
+            raise AssertionError(f"{name} found {nid2.tolist()} at "
+                                 f"{idx.tolist()}, inserted at {want}")
+        return nid2, idx
+
+    out = []
+    # -- f32: the direct correlator, bit for bit
+    got = pss_mod.pss_corr_mag(x, filt, "f32")
+    ref = pss_mod.pss_corr_mag_plain(x, filt, "f32")
     torch.cuda.synchronize()
     err = max_abs_err(got, ref)
     if not torch.equal(got, ref):
         raise AssertionError(f"PSS correlator kernel != plain: max |err| "
                              f"{err}")
+    peak_f32 = got.flatten(1).argmax(dim=1)
     del got, ref
-    out.append({"name": "pss_corr_mag", "shape": list(PSS_CHECK_SHAPE),
-                "max_abs_err": err,
-                "ms": cuda_time_ms(lambda: pss_mod.pss_corr_mag(x, filt), 5),
+    out.append({"name": "pss_corr_mag", "shape": shape, "max_abs_err": err,
+                "ms": cuda_time_ms(
+                    lambda: pss_mod.pss_corr_mag(x, filt, "f32"), 5),
                 "plain_ms": cuda_time_ms(
-                    lambda: pss_mod.pss_corr_mag_plain(x, filt), 1, 0),
-                "library_ms": library_conv1d_ms(x, filt),
-                **bound(in_bytes + 4 * 3 * x.numel(), flop, F32_FLOP_PER_S)})
-    got = pss_mod.pss_detect(x, filt)[:3]
-    ref = pss_mod.pss_detect_plain(x, filt)
+                    lambda: pss_mod.pss_corr_mag_plain(x, filt, "f32"), 1, 0),
+                "library_ms": library_conv1d_ms(x, filt, tf32=False),
+                "library": "conv1d, f32, TF32 off",
+                **bound(corr_bytes, flop, F32_FLOP_PER_S)})
+    got = pss_mod.pss_detect(x, filt, "f32")[:3]
+    ref = pss_mod.pss_detect_plain(x, filt, "f32")
     torch.cuda.synchronize()
     errs = [max_abs_err(g, r) for g, r in zip(got, ref)]
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
         raise AssertionError(f"PSS detect kernel != plain (max, argmax, "
                              f"sum): max |err| {errs}")
-    nid2, idx, _, _ = pss_mod.pss_reduce_combine(*got, pss_mod.TILE,
-                                                 PSS_CHECK_SHAPE[1])
-    want = [5000 + 7919 * c for c in range(PSS_CHECK_SHAPE[0])]
-    if nid2.tolist() != [c % 3 for c in range(PSS_CHECK_SHAPE[0])] or \
-            any(abs(i - w) > 2 for i, w in zip(idx.tolist(), want)):
-        raise AssertionError(f"PSS detect found {nid2.tolist()} at "
-                             f"{idx.tolist()}, inserted at {want}")
-    out.append({"name": "pss_detect", "shape": list(PSS_CHECK_SHAPE),
+    found(got, pss_mod.TILE, "PSS detect (f32)")
+    out.append({"name": "pss_detect", "shape": shape,
                 "max_abs_err": max(errs),
-                "ms": cuda_time_ms(lambda: pss_mod.pss_detect(x, filt), 5),
+                "ms": cuda_time_ms(
+                    lambda: pss_mod.pss_detect(x, filt, "f32"), 5),
+                "plain_ms": cuda_time_ms(
+                    lambda: pss_mod.pss_detect_plain(x, filt, "f32"), 1, 0),
+                "library_ms": None,
+                **bound(in_bytes + sum(4 * g.numel() for g in got), flop,
+                        F32_FLOP_PER_S)})
+
+    # -- bf16: the Toeplitz GEMM on the tensor cores, by tolerance
+    got = pss_mod.pss_corr_mag(x, filt)
+    ref = pss_mod.pss_corr_mag_plain(x, filt)
+    torch.cuda.synchronize()
+    peak = ref.amax(dim=(1, 2))
+    rel = ((got - ref).abs().amax(dim=(1, 2)) / peak).tolist()
+    err = max_abs_err(got, ref)
+    peak_got = got.flatten(1).argmax(dim=1)
+    if max(rel) > tol or not torch.equal(peak_got,
+                                         ref.flatten(1).argmax(dim=1)):
+        raise AssertionError(f"PSS bf16 correlator vs plain: |err| / peak "
+                             f"per carrier {rel} (limit {tol}), or another "
+                             f"root or index")
+    moved = int((peak_got != peak_f32).sum())
+    del got
+    out.append({"name": "pss_corr_mag_bf16", "shape": shape,
+                "max_abs_err": err, "max_rel_err_of_peak": max(rel),
+                "tolerance_of_peak": tol, "peaks_moved_vs_f32": moved,
+                "ms": cuda_time_ms(lambda: pss_mod.pss_corr_mag(x, filt), 10),
+                "plain_ms": cuda_time_ms(
+                    lambda: pss_mod.pss_corr_mag_plain(x, filt), 1, 0),
+                "library_ms": library_conv1d_ms(x, filt, tf32=True),
+                "library": "conv1d, f32 with cuDNN TF32 on",
+                **bound(corr_bytes, flop, BF16_TENSOR_FLOP_PER_S)})
+    got = pss_mod.pss_detect(x, filt)[:3]
+    rp = pss_mod.pss_detect_plain(x, filt)
+    torch.cuda.synchronize()
+    max_rel = float((got[0] - rp[0]).abs().max() / peak.max())
+    sum_rel = float(((got[2] - rp[2]).abs() / rp[2]).max())
+    a = found(got, pss_mod.TILE_BF16, "PSS detect (bf16)")
+    b = found(rp, pss_mod.TILE_BF16, "PSS detect plain (bf16)")
+    # the per-tile sum adds 16 384 non-negative magnitudes in f32 in another
+    # order: relative rounding ~1e-7 * sqrt(terms), held to the same limit
+    if max_rel > tol or sum_rel > tol or not all(
+            torch.equal(g, r) for g, r in zip(a, b)):
+        raise AssertionError(f"PSS bf16 detect vs plain: tile max off by "
+                             f"{max_rel} of the peak, tile sum by {sum_rel} "
+                             f"(limit {tol}), combine {a} vs {b}")
+    out.append({"name": "pss_detect_bf16", "shape": shape,
+                "max_abs_err": max_abs_err(got[0], rp[0]),
+                "max_rel_err_of_peak": max_rel, "sum_rel_err": sum_rel,
+                "tolerance_of_peak": tol,
+                "ms": cuda_time_ms(lambda: pss_mod.pss_detect(x, filt), 10),
                 "plain_ms": cuda_time_ms(
                     lambda: pss_mod.pss_detect_plain(x, filt), 1, 0),
                 "library_ms": None,
                 **bound(in_bytes + sum(4 * g.numel() for g in got), flop,
-                        F32_FLOP_PER_S)})
+                        BF16_TENSOR_FLOP_PER_S)})
     return out
 
 
@@ -447,17 +545,42 @@ def scan_card_vs_cpu(chan, dev, card: str) -> dict:
     return diffs
 
 
+def find_pss_f32(chan, dev) -> dict:
+    """``sync.find_pss`` on one capture in f32 (the direct correlator, the
+    reference's study mode) and in the default: the same root, the index
+    within one sample (the lobe's top is flat below the noise)."""
+    x = poly_mod.resample_poly(torch.from_numpy(read_iq(chan.path)).to(dev),
+                               192, 125)
+    pss_mod.CORR_LAUNCHES = 0
+    nid2, idx, _ = sync.find_pss(x, SCAN_CFG, mdtype="f32")
+    torch.cuda.synchronize()
+    launches = pss_mod.CORR_LAUNCHES
+    nid2_d, idx_d, _ = sync.find_pss(x, SCAN_CFG)
+    moved = int(idx) - int(idx_d)
+    print(f"[find-pss-f32] channel {chan.label}: root {int(nid2)} at "
+          f"{int(idx)} in f32, root {int(nid2_d)} at {int(idx_d)} in bf16; "
+          f"launches {launches}")
+    if int(nid2) != int(nid2_d) or abs(moved) > 1 or launches <= 0:
+        raise AssertionError("find_pss in f32 and in bf16 disagree, or the "
+                             "f32 correlator was not launched")
+    return {"launches": launches, "idx_moved": moved}
+
+
 def run_scanner(dev, card: str) -> dict:
-    """The scanner path: 16 channels through scan_channels(prescan=True)."""
+    """The scanner path: 16 channels through scan_channels(prescan=True),
+    twice (run 0 warms caches, run 1 is reported), each run with its own
+    launch counts, and each must report the cells that were sent.  Then
+    the f32 correlator through ``find_pss`` on one capture."""
     t0 = time.perf_counter()
     chans, caps = scanner_captures()
     print(f"[scan-gen] {len(chans)} captures of {SCAN_S * 1e3:.0f} ms at "
           f"{SDR_RATE / 1e6:.0f} Msps: {time.perf_counter() - t0:.2f} s")
     runs = []
-    for run in range(2):          # run 0 warms caches; run 1 is reported
+    for tag in ("first", "second"):
         scanner.STAGE_SECONDS.clear()
         host.READS = 0
-        poly_mod.LAUNCHES = pss_mod.CORR_LAUNCHES = 0
+        poly_mod.LAUNCHES = 0
+        pss_mod.CORR_LAUNCHES = pss_mod.CORR_BF16_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reports = scanner.scan_channels(chans, SCAN_CFG, prescan=True,
@@ -465,38 +588,48 @@ def run_scanner(dev, card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"resample_poly": poly_mod.LAUNCHES,
-                    "pss_corr_mag": pss_mod.CORR_LAUNCHES}
+                    "pss_corr_mag_bf16": pss_mod.CORR_BF16_LAUNCHES}
         check_scan_reports(reports, caps)
         for name, cnt in launches.items():
             if cnt <= 0:
                 raise AssertionError(f"the scanner path never launched "
                                      f"{name}")
-        runs.append({"wall_s": wall, "stages": dict(scanner.STAGE_SECONDS),
-                     "reads": host.READS,
+        if pss_mod.CORR_LAUNCHES:
+            raise AssertionError("the scanner path launched the f32 "
+                                 "correlator: bf16 is its default")
+        runs.append({"tag": tag, "wall_s": wall, "stages":
+                     dict(scanner.STAGE_SECONDS), "reads": host.READS,
                      "launches": launches})
     n = len(chans)
-    for tag, r in zip(("first", "second"), runs):
+    for r in runs:
         st = r["stages"]
-        print(f"[scanner] {tag} run: {N_LIVE}/{N_LIVE} live cells with the "
-              f"sent id, n_ant and MIB, {N_DEAD}/{N_DEAD} dead flagged; wall "
-              f"{r['wall_s'] * 1e3 / n:.2f} ms per channel (resample "
+        print(f"[scanner] {r['tag']} run: {N_LIVE}/{N_LIVE} live cells with "
+              f"the sent id, n_ant and MIB, {N_DEAD}/{N_DEAD} dead flagged; "
+              f"wall {r['wall_s'] * 1e3 / n:.2f} ms per channel (resample "
               f"{st.get('resample', 0) * 1e3 / n:.2f}, prescan "
               f"{st.get('prescan', 0) * 1e3 / n:.2f}, scan "
               f"{st.get('scan', 0) * 1e3 / N_LIVE:.2f} per live channel); "
               f"host reads {r['reads']} ({r['reads'] / n:.2f} per channel); "
               f"launches {r['launches']} ({card})")
+    f32 = find_pss_f32(chans[0], dev)
     diffs = scan_card_vs_cpu(chans[0], dev, card)
-    return {**runs[1], "first_wall_s": runs[0]["wall_s"],
-            "cpu_vs_card": diffs}
+    return {"wall_s": runs[1]["wall_s"], "stages": runs[1]["stages"],
+            "reads": runs[1]["reads"],
+            "launches": {**runs[1]["launches"],
+                         "pss_corr_mag": f32["launches"]},
+            "first_wall_s": runs[0]["wall_s"],
+            "find_pss_f32_idx_moved": f32["idx_moved"], "cpu_vs_card": diffs}
 
 
 def run_sweep(dev, card: str) -> dict:
     """The band sweep: 128 carriers x 20 subframes through the detect
-    kernel.  Every carrier must give root 1, and the same index as the
-    plain version on the same samples, within the PSS correlation's main
-    lobe (+-8 of 2048/62 = 33 samples) of the inserted PSS start: at the
-    reference synthesis's noise level the lobe's top is flat to ~0.3% per
-    sample, below the noise, so the exact sample is the noise's choice."""
+    kernel, in bf16 (the default) and in f32.  Every carrier must give root
+    1, and the same index as the plain version of the same arithmetic on
+    the same samples, within the PSS correlation's main lobe (+-8 of
+    2048/62 = 33 samples) of the inserted PSS start: at the reference
+    synthesis's noise level the lobe's top is flat to ~0.3% per sample,
+    below the noise, so the exact sample is the noise's choice (and may
+    move by one between the two arithmetics)."""
     length = SWEEP_SF * SCAN_CFG.n_samps_subframe
     t0 = time.perf_counter()
     x_np, want = scan_throughput.sweep_signal(SCAN_CFG, SWEEP_CARRIERS,
@@ -505,41 +638,49 @@ def run_sweep(dev, card: str) -> dict:
     del x_np
     print(f"[sweep-gen] {SWEEP_CARRIERS} x {length} samples "
           f"({x.numel() * 8 / 1e6:.0f} MB): {time.perf_counter() - t0:.2f} s")
-    pss_mod.DETECT_LAUNCHES = 0
-    nid2, idx, _ = scan_throughput.detect(x, SCAN_CFG)
-    nid2, idx = nid2.tolist(), idx.tolist()
-    launches = pss_mod.DETECT_LAUNCHES
-    filt = pss_time_filters(SCAN_CFG)
-    ref_idx = []
-    for c0 in range(0, SWEEP_CARRIERS, 16):
-        parts = pss_mod.pss_detect_plain(x[c0:c0 + 16], filt)
-        ref_idx += pss_mod.pss_reduce_combine(*parts, pss_mod.TILE,
-                                              length)[1].tolist()
-    dev_from_sent = [i - int(w) for i, w in zip(idx, want)]
-    bad = [c for c in range(SWEEP_CARRIERS)
-           if nid2[c] != 1 or idx[c] != ref_idx[c]
-           or abs(dev_from_sent[c]) > 8]
-    if bad or launches <= 0:
-        raise AssertionError(f"sweep: carriers {bad} wrong (launches "
-                             f"{launches})")
-    times = []
-    for _ in range(SWEEP_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scan_throughput.detect(x, SCAN_CFG)[2].cpu()
-        times.append(time.perf_counter() - t0)
-    t = float(np.median(times))
-    msps = SWEEP_CARRIERS * length / t / 1e6
-    exact = sum(d == 0 for d in dev_from_sent)
-    off = {c: d for c, d in enumerate(dev_from_sent) if d}
-    print(f"[sweep] {SWEEP_CARRIERS} carriers x {SWEEP_SF} sf: all root 1, "
-          f"index equal to the plain version's on all; {exact} exactly at "
-          f"the inserted PSS start, the rest (carrier: samples off) {off}; "
-          f"median "
-          f"{t * 1e3:.2f} ms per sweep (n={len(times)}) = {msps:.1f} Msps "
-          f"({card})")
-    return {"median_ms": t * 1e3, "msps": msps, "launches": launches,
-            "exact_idx": exact}
+    filt = sync.pss_time_filters(SCAN_CFG)
+    res = {}
+    for mdtype in pss_mod.MDTYPES:
+        pss_mod.DETECT_LAUNCHES = pss_mod.DETECT_BF16_LAUNCHES = 0
+        nid2, idx, _ = scan_throughput.detect(x, SCAN_CFG, mdtype)
+        nid2, idx = nid2.tolist(), idx.tolist()
+        launches = (pss_mod.DETECT_BF16_LAUNCHES if mdtype == "bf16"
+                    else pss_mod.DETECT_LAUNCHES)
+        ref_idx = []
+        for c0 in range(0, SWEEP_CARRIERS, 16):
+            parts = pss_mod.pss_detect_plain(x[c0:c0 + 16], filt, mdtype)
+            ref_idx += pss_mod.pss_reduce_combine(
+                *parts, pss_mod.detect_tile(mdtype), length)[1].tolist()
+        dev_from_sent = [i - int(w) for i, w in zip(idx, want)]
+        bad = [c for c in range(SWEEP_CARRIERS)
+               if nid2[c] != 1 or idx[c] != ref_idx[c]
+               or abs(dev_from_sent[c]) > 8]
+        if bad or launches <= 0:
+            raise AssertionError(f"sweep ({mdtype}): carriers {bad} wrong "
+                                 f"(launches {launches})")
+        times = []
+        for _ in range(SWEEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scan_throughput.detect(x, SCAN_CFG, mdtype)[2].cpu()
+            times.append(time.perf_counter() - t0)
+        t = float(np.median(times))
+        msps = SWEEP_CARRIERS * length / t / 1e6
+        exact = sum(d == 0 for d in dev_from_sent)
+        off = {c: d for c, d in enumerate(dev_from_sent) if d}
+        print(f"[sweep] {mdtype}: {SWEEP_CARRIERS} carriers x {SWEEP_SF} sf: "
+              f"all root 1, index equal to the plain version's on all; "
+              f"{exact} exactly at the inserted PSS start, the rest "
+              f"(carrier: samples off) {off}; median {t * 1e3:.2f} ms per "
+              f"sweep (n={len(times)}) = {msps:.1f} Msps ({card})")
+        res[mdtype] = {"median_ms": t * 1e3, "msps": msps,
+                       "launches": launches, "exact_idx": exact, "idx": idx}
+    moved = sum(a != b for a, b in zip(res["bf16"]["idx"], res["f32"]["idx"]))
+    print(f"[sweep] carriers whose peak index differs between the bf16 and "
+          f"the f32 kernel: {moved} of {SWEEP_CARRIERS}")
+    for r in res.values():
+        del r["idx"]
+    return {**res["bf16"], "f32": res["f32"], "moved_vs_f32": moved}
 
 
 def decode_counted(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
@@ -722,6 +863,18 @@ def run_probe(dev, card: str) -> dict:
     return {**res, "launches": launches}
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall time kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+        + time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (the port's smoke run "
@@ -749,15 +902,21 @@ def main() -> None:
     dl_sgn, _ = dl_demap_plans(cfg, cell.re_idx, cell.geom, seq.pdsch_c_init(
         cell.rnti, cell.subframe, cell.n_cell_id))
     ul_dec = make_pusch_batch_decoder(*ul_cell.decoder_args(), device="cpu")
-    demap_ul = check_demap("demap (UL shape)", ul_dec.ul_front.sgn.numpy(),
-                           ul_cell.alloc.n_re, ul_cell.alloc.scheme, dev)
-    kernels = [check_demap("demap", dl_sgn, cfg.n_sym_subframe * cfg.n_sc,
-                           cell.scheme, dev),
-               check_turbo(cell, dev), *check_pss(dev), check_resample(dev),
-               check_acs_probe(dev)]
+    demap_ul = timed("check_demap", check_demap, "demap (UL shape)",
+                     ul_dec.ul_front.sgn.numpy(), ul_cell.alloc.n_re,
+                     ul_cell.alloc.scheme, dev)
+    kernels = [timed("check_demap", check_demap, "demap", dl_sgn,
+                     cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
+               timed("check_turbo", check_turbo, cell, dev),
+               *timed("check_pss", check_pss, dev),
+               timed("check_resample", check_resample, dev),
+               timed("check_acs_probe", check_acs_probe, dev)]
     for k in [*kernels, demap_ul]:
         lib_ms = k["library_ms"]
-        print(f"[kernel] {k['name']} {k['shape']}: bit-exact vs plain; "
+        how = (f"within {k['max_rel_err_of_peak']:.2e} of the peak (limit "
+               f"{k['tolerance_of_peak']}), root and index equal"
+               if "tolerance_of_peak" in k else "bit-exact")
+        print(f"[kernel] {k['name']} {k['shape']}: {how} vs plain; "
               f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
               f"({k['bytes'] / 1e6:.1f} MB, {k['ops'] / 1e9:.2f} G "
@@ -772,21 +931,27 @@ def main() -> None:
           f"{acs['bf16_over_f32']:.3f} ({card})")
 
     # 3. the main paths, each with its launch counts
-    dl = run_dl(cell, dev, card)
+    dl = timed("dl", run_dl, cell, dev, card)
     launches = dict(dl["launches"])
-    scan_out = run_scanner(dev, card)
+    scan_out = timed("scanner", run_scanner, dev, card)
     launches.update(scan_out["launches"])
-    sweep = run_sweep(dev, card)
-    launches["pss_detect"] = sweep["launches"]
-    ul = run_ul(ul_cell, dev, card)
-    harq = run_harq(cell, dev, card)
-    probe = run_probe(dev, card)
+    sweep = timed("sweep", run_sweep, dev, card)
+    launches["pss_detect_bf16"] = sweep["launches"]
+    launches["pss_detect"] = sweep["f32"]["launches"]
+    ul = timed("ul", run_ul, ul_cell, dev, card)
+    harq = timed("harq", run_harq, cell, dev, card)
+    probe = timed("probe", run_probe, dev, card)
+    print("[phases] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     launches["acs_probe"] = probe["launches"]
+    launches["demap (UL shape)"] = ul["launches"]["demap"]
     by_path = {name: {"dl": dl["launches"][name], "ul": ul["launches"][name],
                       "harq": harq["launches"][name]}
                for name in ("demap", "turbo_half_iteration")}
 
-    extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32")
+    extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
+             "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
+             "peaks_moved_vs_f32")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],
          "replaces": SOURCES[k["name"]][1], "launches": launches[k["name"]],
@@ -795,7 +960,7 @@ def main() -> None:
          **{key: k[key] for key in k
             if key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms") + extra
-            or key.startswith("bf16_")}} for k in kernels],
+            or key.startswith("bf16_")}} for k in [*kernels, demap_ul]],
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",
                             "bound_by", "max_abs_err")},
@@ -816,8 +981,12 @@ def main() -> None:
         "scan_ms_per_channel": scan_out["wall_s"] * 1e3 / (N_LIVE + N_DEAD),
         "scan_stage_s": scan_out["stages"],
         "scan_host_reads": scan_out["reads"],
+        "find_pss_f32_idx_moved": scan_out["find_pss_f32_idx_moved"],
         "sweep_ms": sweep["median_ms"], "sweep_msps": sweep["msps"],
-        "build_s": build_s, "card": card}))
+        "sweep_f32_ms": sweep["f32"]["median_ms"],
+        "sweep_f32_msps": sweep["f32"]["msps"],
+        "sweep_moved_vs_f32": sweep["moved_vs_f32"],
+        "build_s": build_s, "phase_s": PHASE_SECONDS, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

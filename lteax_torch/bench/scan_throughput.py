@@ -45,10 +45,10 @@ def sweep_signal(cfg: PhyConfig, carriers: int, length: int,
     return x, offs + cfg.symbol_starts_subframe[6]
 
 
-def detect(x: torch.Tensor, cfg: PhyConfig):
+def detect(x: torch.Tensor, cfg: PhyConfig, mdtype: str = "bf16"):
     """(carriers, L) complex64 -> (n_id_2, idx, peak/mean) per carrier."""
     nid2, idx, peak, mean = pss_reduce_combine(
-        *pss_detect(x, pss_time_filters(cfg)))
+        *pss_detect(x, pss_time_filters(cfg), mdtype))
     return nid2, idx, peak / torch.clamp_min(mean, 1e-20)
 
 

@@ -7,9 +7,12 @@ link.  The library lands in ``build/lteax_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
-``-fmad=false``: every kernel is adds, multiplies, maxes and mins in f32
-(the ACS probe also in packed bf16), and with no contraction into fused
-multiply-adds each one equals its plain torch version bit for bit.
+``-fmad=false``: the kernels on the CUDA cores are adds, multiplies, maxes
+and mins in f32 (the ACS probe also in packed bf16), and with no
+contraction into fused multiply-adds each one equals its plain torch
+version bit for bit.  The one tensor-core kernel (the bf16 PSS routine)
+sums in the hardware's order and is held to its plain version by a
+tolerance.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _P],
+    "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _P],
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lteax_pss_corr_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "lteax_pss_detect_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lteax_acs_chain_f32": [_P, _P, _L, _I, _P],
     "lteax_acs_chain_bf16": [_P, _P, _L, _I, _P],

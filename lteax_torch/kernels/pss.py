@@ -1,39 +1,147 @@
 """PSS matched-filter correlation magnitude and fused detect.
 
 Ports of two TPU kernels of ``lteax/kernels/pss.py`` to one CUDA source,
-``csrc/pss.cu`` (a direct time-domain correlator; see the note there):
+``csrc/pss.cu`` (see the note there):
 
 - :func:`pss_corr_mag` replaces ``pss_corr_mag_pallas``: |corr|^2 of
   (..., L) complex64 against the 3 PSS replicas, (..., 3, L) float32 with
   ``corr[n] = sum_k x[n+k] conj(h[k])`` (peak index = PSS start sample);
 - :func:`pss_detect` replaces ``pss_detect_pallas``: the same, with each
-  tile of ``TILE`` outputs reduced in the kernel to (max, first argmax,
-  sum) per root, combined by :func:`pss_reduce_combine`.
+  tile of outputs reduced in the kernel to (max, first argmax, sum) per
+  root, combined by :func:`pss_reduce_combine`.
 
-Each has a plain torch version of the same arithmetic (k accumulated in
-order, every product and sum rounded to f32, the detect reduction in the
-kernel's tree), which CPU tensors take; CUDA tensors launch the kernel.
+Both take the reference's ``mdtype``.  ``"bf16"``, the default as in the
+reference, is the Toeplitz-chunk GEMM on the tensor cores: x and the
+replicas rounded to bfloat16, products exact, float32 accumulation.
+``"f32"`` is the direct time-domain correlator on the CUDA cores, taps
+accumulated in order in float32.  Each has a plain torch version of the
+same arithmetic, which CPU tensors take; CUDA tensors launch the kernel.
+The f32 kernel equals its plain version bit for bit; the bf16 kernel sums
+in another order than its plain version (the bf16-rounded inputs through
+the same f32 loop), so it is held to it by :data:`BF16_TOL` and exactly in
+the root and peak index.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 TILE = 1024
-"""Outputs per kernel block and per detect partial (``kTile`` in pss.cu)."""
+"""Outputs per block and per detect partial of the f32 kernel (``kTile`` in
+pss.cu)."""
 _THREADS, _PER = 256, 4       # kThreads, kPer: the reduction tree's shape
 
+FRAME = 64
+"""Samples per GEMM row of the bf16 kernel (``kFrame`` in pss.cu)."""
+TILE_ROWS = 256
+"""Frames per block of the bf16 kernel (``kRows`` in pss.cu)."""
+TILE_BF16 = FRAME * TILE_ROWS
+"""Outputs per block and per detect partial of the bf16 kernel."""
+
+BF16_TOL = 1e-4
+"""Largest |kernel - plain| of the bf16 routine, relative to the carrier's
+peak magnitude.  Both sum the same exact products of bf16-rounded inputs
+in float32; a 4096-term sum whose partial sums stay below the peak's
+square root carries at most a few 1e-6 of the peak in either order, and
+the magnitude doubles the relative error: 1e-4 leaves a factor of ten."""
+
 CORR_LAUNCHES = 0
-"""Launches of the correlator entry since the last reset."""
+"""Launches of the f32 correlator entry since the last reset."""
 DETECT_LAUNCHES = 0
-"""Launches of the detect entry since the last reset."""
+"""Launches of the f32 detect entry since the last reset."""
+CORR_BF16_LAUNCHES = 0
+"""Launches of the bf16 correlator entry since the last reset."""
+DETECT_BF16_LAUNCHES = 0
+"""Launches of the bf16 detect entry since the last reset."""
+
+MDTYPES = ("bf16", "f32")
+
+
+def _check_mdtype(mdtype: str) -> None:
+    if mdtype not in MDTYPES:
+        raise ValueError(f"mdtype must be one of {MDTYPES}, got {mdtype!r}")
 
 
 def _replicas(filt, device) -> torch.Tensor:
     """(3, nf) complex64 replicas on ``device``."""
     return torch.as_tensor(np.asarray(filt, dtype=np.complex64),
                            device=device)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Real and imaginary parts rounded to bfloat16 (nearest even), kept
+    as complex64."""
+    r = torch.view_as_real(x.to(torch.complex64))
+    return torch.view_as_complex(r.to(torch.bfloat16).to(torch.float32))
+
+
+def _chunk_matrices(filt: np.ndarray, f: int) -> np.ndarray:
+    """(3, (nc+1)*F, F) complex64 stacked Toeplitz chunks of conj(h):
+    G_c[s, i] = conj(h[c*F + s - i]) where 0 <= c*F + s - i < nf, so that a
+    tile of T output frames is sum_c X[c : c+T, :] @ G_c.  The port's own
+    copy of ``lteax.kernels.pss._chunk_matrices``."""
+    nf = filt.shape[1]
+    nc = -(-nf // f)
+    g = np.zeros((3, (nc + 1) * f, f), np.complex64)
+    hh = np.conj(filt)
+    s_idx = np.arange((nc + 1) * f)[:, None]          # chunk-stacked s
+    i_idx = np.arange(f)[None, :]
+    d = s_idx - i_idx                                  # = c*F + s - i
+    valid = (d >= 0) & (d < nf)
+    for r in range(3):
+        g[r][valid] = hh[r][d[valid]]
+    return g
+
+
+def toeplitz_operand_np(filt) -> np.ndarray:
+    """The bf16 kernel's B operand as float32 values (bf16-representable
+    once rounded): (nc+1, 3, 2F, 2F) real matrices B[c, root, k, n] of the
+    complex product as one real GEMM, with A's K index 2s + p (p = 0 the
+    real, 1 the imaginary part of sample s of a frame) and N index 2i + q
+    (q = 0 the real, 1 the imaginary part of output i):
+
+        [cr | ci] = [xr | xi] @ [[gr, gi], [-gi, gr]]."""
+    filt = np.asarray(filt, dtype=np.complex64)
+    nf, f = filt.shape[1], FRAME
+    nch = -(-nf // f) + 1
+    g = _chunk_matrices(filt, f).reshape(3, nch, f, f).transpose(1, 0, 2, 3)
+    gr, gi = g.real, g.imag
+    b = np.empty((nch, 3, f, 2, f, 2), np.float32)     # [c, r, s, p, i, q]
+    b[:, :, :, 0, :, 0] = gr
+    b[:, :, :, 1, :, 0] = -gi
+    b[:, :, :, 0, :, 1] = gi
+    b[:, :, :, 1, :, 1] = gr
+    return b.reshape(nch, 3, 2 * f, 2 * f)
+
+
+def _toeplitz_image(filt: np.ndarray) -> torch.Tensor:
+    """The B operand in the kernel's shared-memory image: bfloat16
+    (nc+1, 3, K/8, N, 8), i.e. per chunk and root the K-major core
+    matrices of 8 rows x 16 bytes that ``wgmma`` reads without a swizzle.
+    The replicas are rounded to bfloat16 before the chunks are cut
+    (negation is exact), so the kernel multiplies what the plain version
+    does."""
+    b = toeplitz_operand_np(_round_bf16(torch.from_numpy(filt)).numpy())
+    nch, _, k, n = b.shape
+    img = b.reshape(nch, 3, k // 8, 8, n).transpose(0, 1, 2, 4, 3)
+    return torch.from_numpy(np.ascontiguousarray(img)).to(torch.bfloat16)
+
+
+@lru_cache(maxsize=8)
+def _operand(mdtype: str, raw: bytes, nf: int, device: str) -> torch.Tensor:
+    """The kernel's replica operand on ``device``: the (3, nf, 2) float32
+    replicas for "f32", the Toeplitz image for "bf16".  Kept per content
+    of the replicas (``raw``, their complex64 bytes): the wrappers run
+    once per capture batch, and neither the operand's construction nor its
+    upload belongs on that path, while replicas that changed, in place or
+    not, get a new operand."""
+    filt = np.frombuffer(raw, np.complex64).reshape(3, nf).copy()
+    if mdtype == "f32":
+        return torch.view_as_real(torch.from_numpy(filt)).to(device)
+    return _toeplitz_image(filt).to(device)
 
 
 def _corr_mag_padded(x: torch.Tensor, filt, lp: int) -> torch.Tensor:
@@ -61,8 +169,18 @@ def _corr_mag_padded(x: torch.Tensor, filt, lp: int) -> torch.Tensor:
     return cr * cr + ci * ci
 
 
-def pss_corr_mag_plain(x: torch.Tensor, filt) -> torch.Tensor:
+def _rounded(x: torch.Tensor, filt, mdtype: str):
+    """x and the replicas as the ``mdtype`` routine multiplies them."""
+    _check_mdtype(mdtype)
+    if mdtype == "f32":
+        return x, filt
+    return _round_bf16(x), _round_bf16(_replicas(filt, "cpu")).numpy()
+
+
+def pss_corr_mag_plain(x: torch.Tensor, filt,
+                       mdtype: str = "bf16") -> torch.Tensor:
     """Plain torch version: (C, L) complex64 -> (C, 3, L) float32."""
+    x, filt = _rounded(x, filt, mdtype)
     return _corr_mag_padded(x, filt, x.shape[-1])
 
 
@@ -75,81 +193,106 @@ def _split(x: torch.Tensor, name: str):
     return x.reshape(-1, x.shape[-1]), x.shape[:-1]
 
 
-def pss_corr_mag(x: torch.Tensor, filt) -> torch.Tensor:
+def _launch(entry: str, name: str, xc: torch.Tensor, filt, mdtype: str,
+            outs: list) -> None:
+    """Launch ``entry`` (f32) or ``entry + "_bf16"`` on (C, L) complex64
+    ``xc`` with the output tensors ``outs``."""
+    from lteax_torch.kernels._build import check_cuda, library, stream_handle
+    xv = torch.view_as_real(xc.contiguous())
+    nf = np.asarray(filt).shape[1]
+    raw = np.ascontiguousarray(filt, dtype=np.complex64).tobytes()
+    hv = _operand(mdtype, raw, nf, str(xc.device))
+    check_cuda(name, xv)
+    if mdtype != "f32":
+        entry += "_bf16"
+    library().call(entry, xv.data_ptr(), hv.data_ptr(),
+                   *(o.data_ptr() for o in outs), xc.shape[0], xc.shape[1],
+                   nf, stream_handle(xc))
+
+
+def pss_corr_mag(x: torch.Tensor, filt, mdtype: str = "bf16") -> torch.Tensor:
     """|corr|^2 of x (..., L) against the 3 replicas ``filt`` (3, nf)
     -> (..., 3, L) float32.  CPU: plain version; CUDA: the kernel."""
-    global CORR_LAUNCHES
+    global CORR_LAUNCHES, CORR_BF16_LAUNCHES
+    _check_mdtype(mdtype)
     xc, lead = _split(x, "pss_corr_mag")
     l = xc.shape[-1]
     if not x.is_cuda:
-        return pss_corr_mag_plain(xc, filt).reshape(*lead, 3, l)
-    from lteax_torch.kernels._build import check_cuda, library, stream_handle
-    xv = torch.view_as_real(xc.contiguous())
-    hv = torch.view_as_real(_replicas(filt, x.device))
-    check_cuda("pss_corr_mag", xv, hv)
+        return pss_corr_mag_plain(xc, filt, mdtype).reshape(*lead, 3, l)
     out = torch.empty((xc.shape[0], 3, l), dtype=torch.float32,
                       device=x.device)
-    library().call("lteax_pss_corr", xv.data_ptr(), hv.data_ptr(),
-                   out.data_ptr(), xc.shape[0], l, hv.shape[1],
-                   stream_handle(x))
-    CORR_LAUNCHES += 1
+    _launch("lteax_pss_corr", "pss_corr_mag", xc, filt, mdtype, [out])
+    if mdtype == "f32":
+        CORR_LAUNCHES += 1
+    else:
+        CORR_BF16_LAUNCHES += 1
     return out.reshape(*lead, 3, l)
 
 
-def pss_detect_plain(x: torch.Tensor, filt):
+def detect_tile(mdtype: str) -> int:
+    """Outputs per detect partial of the ``mdtype`` routine."""
+    _check_mdtype(mdtype)
+    return TILE if mdtype == "f32" else TILE_BF16
+
+
+def pss_detect_plain(x: torch.Tensor, filt, mdtype: str = "bf16"):
     """Plain torch version of the detect entry: (C, L) complex64 ->
-    (maxv f32, argv int32, sumv f32), each (C, 3, n_tiles), reduced per
-    tile in the kernel's order."""
+    (maxv f32, argv int32, sumv f32), each (C, 3, n_tiles).  The f32
+    routine's tile sum is taken in the kernel's order (per thread, warp
+    shuffle tree, warps in order); the bf16 routine's is a plain sum."""
+    x, filt = _rounded(x, filt, mdtype)
     c, l = x.shape
-    n_tiles = -(-l // TILE)
-    m = _corr_mag_padded(x, filt, n_tiles * TILE)
-    m = m.reshape(c, 3, n_tiles, _PER, _THREADS)   # position j*256 + thread
-    s = m[..., 0, :]
-    for j in range(1, _PER):
-        s = s + m[..., j, :]                        # per thread, j in order
-    s = s.reshape(c, 3, n_tiles, _THREADS // 32, 32)
-    off = 16
-    while off:
-        s = s[..., :off] + s[..., off:2 * off]      # warp shuffle tree
-        off //= 2
-    tot = s[..., 0, 0]
-    for w in range(1, _THREADS // 32):
-        tot = tot + s[..., w, 0]                    # warps in order
-    flat = m.reshape(c, 3, n_tiles, TILE)
+    tile = detect_tile(mdtype)
+    n_tiles = -(-l // tile)
+    m = _corr_mag_padded(x, filt, n_tiles * tile)
+    flat = m.reshape(c, 3, n_tiles, tile)
+    if mdtype == "f32":
+        m = m.reshape(c, 3, n_tiles, _PER, _THREADS)   # position j*256 + thread
+        s = m[..., 0, :]
+        for j in range(1, _PER):
+            s = s + m[..., j, :]                        # per thread, j in order
+        s = s.reshape(c, 3, n_tiles, _THREADS // 32, 32)
+        off = 16
+        while off:
+            s = s[..., :off] + s[..., off:2 * off]      # warp shuffle tree
+            off //= 2
+        tot = s[..., 0, 0]
+        for w in range(1, _THREADS // 32):
+            tot = tot + s[..., w, 0]                    # warps in order
+    else:
+        tot = flat.sum(dim=-1)
     maxv = flat.amax(dim=-1)
     argv = torch.argmax((flat == maxv[..., None]).to(torch.uint8), dim=-1)
     return maxv, argv.to(torch.int32), tot
 
 
-def pss_detect(x: torch.Tensor, filt):
+def pss_detect(x: torch.Tensor, filt, mdtype: str = "bf16"):
     """Correlate + reduce per tile.  x (..., L) complex64 -> (maxv, argv,
-    sumv, TILE, L): (..., 3, n_tiles) partials in the reference's tuple
+    sumv, tile, L): (..., 3, n_tiles) partials in the reference's tuple
     form; combine with :func:`pss_reduce_combine`.  CPU: plain version;
     CUDA: the kernel (the (C, 3, L) magnitudes are never written)."""
-    global DETECT_LAUNCHES
+    global DETECT_LAUNCHES, DETECT_BF16_LAUNCHES
     xc, lead = _split(x, "pss_detect")
     c, l = xc.shape
-    n_tiles = -(-l // TILE)
+    tile = detect_tile(mdtype)
+    n_tiles = -(-l // tile)
     if not x.is_cuda:
-        parts = pss_detect_plain(xc, filt)
+        parts = pss_detect_plain(xc, filt, mdtype)
     else:
-        from lteax_torch.kernels._build import (check_cuda, library,
-                                                stream_handle)
-        xv = torch.view_as_real(xc.contiguous())
-        hv = torch.view_as_real(_replicas(filt, x.device))
-        check_cuda("pss_detect", xv, hv)
         maxv = torch.empty((c, 3, n_tiles), dtype=torch.float32,
                            device=x.device)
         argv = torch.empty((c, 3, n_tiles), dtype=torch.int32,
                            device=x.device)
         sumv = torch.empty_like(maxv)
-        library().call("lteax_pss_detect", xv.data_ptr(), hv.data_ptr(),
-                       maxv.data_ptr(), argv.data_ptr(), sumv.data_ptr(),
-                       c, l, hv.shape[1], stream_handle(x))
-        DETECT_LAUNCHES += 1
         parts = (maxv, argv, sumv)
+        _launch("lteax_pss_detect", "pss_detect", xc, filt, mdtype,
+                list(parts))
+        if mdtype == "f32":
+            DETECT_LAUNCHES += 1
+        else:
+            DETECT_BF16_LAUNCHES += 1
     shape = (*lead, 3, n_tiles)
-    return (*(p.reshape(shape) for p in parts), TILE, l)
+    return (*(p.reshape(shape) for p in parts), tile, l)
 
 
 def pss_reduce_combine(maxv, argv, sumv, tile_len: int, l: int):

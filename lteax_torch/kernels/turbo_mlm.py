@@ -3,8 +3,9 @@
 Port of ``lteax/kernels/turbo_mlm.py``: the TPU kernels
 ``half_iteration_blane`` and ``half_iteration_pallas`` (one function on two
 tiles) become ONE CUDA kernel on the natural (C, K+3) layout,
-``csrc/turbo.cu`` (one thread per (codeblock, window) chain; see the note
-in the source).  :func:`half_iteration_plain` is the same arithmetic in
+``csrc/turbo.cu`` (a block owns consecutive windows of one codeblock, 8
+lanes carry each window's chain, the alpha/beta stores stay in shared
+memory; see the note in the source).  :func:`half_iteration_plain` is the same arithmetic in
 plain torch, vectorised the way the Pallas body is: a Python loop over
 trellis steps on (C, n_w) tensors.  :func:`half_iteration_raw` runs it for
 CPU tensors and launches the kernel for CUDA tensors.
@@ -33,6 +34,11 @@ NEG = -1e9
 PIN = 512.0
 """Pinned-padding magnitude: dead positions get u += PIN in the beta sweep,
 so the state-0 self-loop dominates every dead step (the termination pin)."""
+
+WINDOWS_PER_BLOCK = 4
+"""Consecutive windows of a codeblock that one block of the kernel owns in
+the decoders (8 lanes each, so one warp a block): 21.4 KB of shared memory
+a block at win 128, ten blocks (40 chains) an SM."""
 
 LAUNCHES = 0
 """Kernel launches since the last reset (plain-version calls do not count)."""
@@ -135,7 +141,6 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
 def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int):
     """(l, a_nii, b_nii) of one half-iteration; CPU tensors take the plain
     version, CUDA tensors launch the kernel."""
-    global LAUNCHES
     c, n = u.shape
     n_w = -(-n // win)
     if a_init.shape != (c, n_w, 8) or b_init.shape != (c, n_w, 8):
@@ -144,19 +149,32 @@ def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int):
         raise ValueError("need an even win and 0 < acq <= win/2")
     if not u.is_cuda:
         return half_iteration_plain(u, v, a_init, b_init, win, acq)
+    # at most WINDOWS_PER_BLOCK windows a block, in whole warps
+    wpb = -(-min(WINDOWS_PER_BLOCK, n_w) // 4) * 4
+    return half_iteration_kernel(u, v, a_init, b_init, win, acq, wpb)
+
+
+def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
+                          wpb: int):
+    """Launch the kernel on CUDA tensors with ``wpb`` windows per block: a
+    multiple of 4 (8 lanes a window, whole warps a block; windows beyond
+    the row run on zeros and write nothing).  It needs no scratch: the
+    three outputs are all it allocates."""
+    global LAUNCHES
     from lteax_torch.kernels._build import check_cuda, library, stream_handle
     check_cuda("half_iteration", u, v, a_init, b_init)
+    if win % 4 or wpb <= 0 or wpb % 4:
+        raise ValueError("the kernel needs win and wpb to be multiples of 4")
+    c, n = u.shape
+    n_w = a_init.shape[1]
     dev = u.device
     l = torch.empty((c, n), dtype=torch.float32, device=dev)
     a_nii = torch.empty((c, n_w, 8), dtype=torch.float32, device=dev)
     b_nii = torch.empty_like(a_nii)
-    astore = torch.empty((win // 2, 8, c * n_w), dtype=torch.float32,
-                         device=dev)
-    bstore = torch.empty_like(astore)
     library().call("lteax_turbo_half", u.data_ptr(), v.data_ptr(),
                    a_init.data_ptr(), b_init.data_ptr(), l.data_ptr(),
-                   a_nii.data_ptr(), b_nii.data_ptr(), astore.data_ptr(),
-                   bstore.data_ptr(), c, n, n_w, win, acq, stream_handle(u))
+                   a_nii.data_ptr(), b_nii.data_ptr(), c, n, n_w, win, acq,
+                   wpb, stream_handle(u))
     LAUNCHES += 1
     return l, a_nii, b_nii
 

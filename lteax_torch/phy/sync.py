@@ -80,15 +80,19 @@ def pss_time_filters(cfg: PhyConfig) -> np.ndarray:
     return filt
 
 
-def pss_correlate(x: torch.Tensor, cfg: PhyConfig) -> torch.Tensor:
+def pss_correlate(x: torch.Tensor, cfg: PhyConfig,
+                  mdtype: str = "bf16") -> torch.Tensor:
     """|corr|^2 of x (..., L) with the 3 PSS replicas -> (..., 3, L)
-    float32 (peak index = PSS start sample)."""
-    return pss_corr_mag(x, pss_time_filters(cfg))
+    float32 (peak index = PSS start sample).  ``mdtype``: "bf16", the
+    reference's production default (inputs rounded to bfloat16, float32
+    accumulation), or "f32"."""
+    return pss_corr_mag(x, pss_time_filters(cfg), mdtype)
 
 
-def find_pss(x: torch.Tensor, cfg: PhyConfig, rel_threshold: float = 0.9):
+def find_pss(x: torch.Tensor, cfg: PhyConfig, rel_threshold: float = 0.9,
+             mdtype: str = "bf16"):
     """(n_id_2, pss_start_idx, peak_power) over the whole capture."""
-    return pss_peak(pss_correlate(x, cfg), rel_threshold)
+    return pss_peak(pss_correlate(x, cfg, mdtype), rel_threshold)
 
 
 def pss_peak(p: torch.Tensor, rel_threshold: float = 0.9):

@@ -40,8 +40,15 @@ def test_demap_kernel_matches_plain(dev, scheme, m):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("k,win,acq", [(40, 32, 8), (5824, 128, 16)])
+@pytest.mark.parametrize("k,win,acq", [
+    (40, 32, 8), (5824, 128, 16),
+    (40, 128, 16),        # one window, 43 of 128 positions live
+    (1152, 128, 16),      # the last window has 3 live positions
+    (6144, 128, 16),      # the largest K: 49 windows, a ragged block grid
+    (512, 64, 32)])       # acq = win / 2
 def test_turbo_kernel_matches_plain(dev, k, win, acq):
+    """Bit for bit, at a C (37) that is no multiple of anything the kernel
+    groups by."""
     c, n = 37, k + 3
     n_w = -(-n // win)
     rng = np.random.default_rng(k)
@@ -57,11 +64,52 @@ def test_turbo_kernel_matches_plain(dev, k, win, acq):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("wpb", [4, 8, 24, 40])
+def test_turbo_kernel_any_windows_per_block(dev, wpb):
+    """The block's window count is a launch parameter, not part of the
+    result: one warp, two, and 46 windows in ragged pairs of blocks (24 and
+    22 with two dead, 40 and 6 with two dead)."""
+    c, n, win, acq = 5, 5827, 128, 16
+    rng = np.random.default_rng(wpb)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u, v = t(rng.standard_normal((c, n)) * 6), t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, 46, 8))),
+                                t(rng.standard_normal((c, 46, 8))))
+    for g, r in zip(tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb),
+                    tm.half_iteration_plain(u, v, a0, b0, win, acq)):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError):
+        tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb + 1)
+
+
+def test_turbo_kernel_allocates_no_scratch(dev):
+    """The alpha and beta stores live in shared memory: a launch allocates
+    its three outputs and nothing else (a kernel with its stores in device
+    memory would need 2 x win/2 x 8 floats per chain beside them)."""
+    c, n, win, acq = 64, 5827, 128, 16
+    u = torch.zeros((c, n), dtype=torch.float32, device=dev)
+    a0 = torch.zeros((c, 46, 8), dtype=torch.float32, device=dev)
+    tm.half_iteration_raw(u, u, a0, a0, win, acq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = tm.half_iteration_raw(u, u, a0, a0, win, acq)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown <= sum(o.numel() * 4 for o in out) + 3 * 512   # rounding
+
+
 def test_kernels_refuse_wrong_dtype(dev):
     x = torch.zeros((2, 100), dtype=torch.float64, device=dev)
     sgn = torch.zeros((2, 128), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         demap.demap_planar(x, x, x, sgn, "qpsk")
+    u = torch.zeros((2, 43), dtype=torch.float32, device=dev)
+    ab = torch.zeros((2, 1, 8), dtype=torch.float32, device=dev)
+    for bad in ((u.double(), u, ab, ab), (u, u, ab.half(), ab),
+                (torch.zeros((43, 2), device=dev).T, u, ab, ab)):
+        with pytest.raises(ValueError):
+            tm.half_iteration_raw(*bad, 128, 16)
 
 
 def test_decoder_on_card_matches_cpu(dev):
@@ -96,15 +144,50 @@ def test_pss_kernels_match_plain(dev, n_rb, c, l):
     x[0, 1234:1234 + filt.shape[1]] += 20 * torch.as_tensor(filt[2],
                                                            device=dev)
     before = (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES)
-    got = pss.pss_corr_mag(x, filt)
-    parts = pss.pss_detect(x, filt)
+    got = pss.pss_corr_mag(x, filt, "f32")
+    parts = pss.pss_detect(x, filt, "f32")
     assert (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
-    assert torch.equal(got, pss.pss_corr_mag_plain(x, filt))
-    for g, r in zip(parts[:3], pss.pss_detect_plain(x, filt)):
+    assert torch.equal(got, pss.pss_corr_mag_plain(x, filt, "f32"))
+    for g, r in zip(parts[:3], pss.pss_detect_plain(x, filt, "f32")):
         assert torch.equal(g, r)
     nid2, idx, _, _ = pss.pss_reduce_combine(*parts)
     assert int(nid2[0]) == 2 and abs(int(idx[0]) - 1234) <= 2
+
+
+@pytest.mark.parametrize("n_rb,c,l", [
+    (6, 3, 5000), (6, 1, 16384 + 777), (15, 2, 33001), (100, 2, 40001)])
+def test_pss_bf16_kernels_match_plain(dev, n_rb, c, l):
+    """The tensor-core routine (the default) against its plain version:
+    within ``BF16_TOL`` of each carrier's peak, the root and index of the
+    peak equal; odd lengths and carrier counts exercise the ragged tiles
+    and the 8-byte row alignment."""
+    from lteax_torch.phy.config import PhyConfig
+    from lteax_torch.kernels import pss
+    from lteax_torch.phy.sync import pss_time_filters
+    filt = pss_time_filters(PhyConfig(n_rb_dl=n_rb))
+    x = _noise((c, l), n_rb + c, dev)
+    x[0, 1234:1234 + filt.shape[1]] += 20 * torch.as_tensor(filt[2],
+                                                           device=dev)
+    before = (pss.CORR_BF16_LAUNCHES, pss.DETECT_BF16_LAUNCHES,
+              pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES)
+    got = pss.pss_corr_mag(x, filt)
+    parts = pss.pss_detect(x, filt)
+    assert (pss.CORR_BF16_LAUNCHES, pss.DETECT_BF16_LAUNCHES,
+            pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
+    ref = pss.pss_corr_mag_plain(x, filt)
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    assert float(((got - ref).abs() / peak).max()) <= pss.BF16_TOL
+    assert torch.equal(got.flatten(1).argmax(1), ref.flatten(1).argmax(1))
+    rp = pss.pss_detect_plain(x, filt)
+    assert parts[3] == pss.TILE_BF16
+    assert float((parts[0] - rp[0]).abs().max() / peak.max()) <= pss.BF16_TOL
+    assert float(((parts[2] - rp[2]).abs() / rp[2]).max()) <= pss.BF16_TOL
+    a = pss.pss_reduce_combine(*parts)
+    b = pss.pss_reduce_combine(*rp, pss.TILE_BF16, l)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(a[0][0]) == 2 and abs(int(a[1][0]) - 1234) <= 2
 
 
 @pytest.mark.parametrize("p,q", [(192, 125), (125, 192), (4, 5), (2, 1)])
@@ -123,9 +206,28 @@ def test_scanner_kernels_refuse_wrong_dtype(dev):
     filt = np.zeros((3, 128), np.complex64)
     for call in (lambda: pss.pss_corr_mag(x, filt),
                  lambda: pss.pss_detect(x, filt),
+                 lambda: pss.pss_corr_mag(x, filt, "f32"),
+                 lambda: pss.pss_detect(x, filt, "f32"),
                  lambda: polyphase.resample_poly(x, 192, 125)):
         with pytest.raises(ValueError):
             call()
+    ok = torch.zeros((2, 5000), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        pss.pss_corr_mag(ok, filt, "fp8")
+
+
+def test_pss_kernels_take_strided_input_as_a_copy(dev):
+    """A non-contiguous capture is made contiguous by the wrapper, in both
+    arithmetics: same result as on its contiguous copy."""
+    from lteax_torch.kernels import pss
+    from lteax_torch.phy.config import PhyConfig
+    from lteax_torch.phy.sync import pss_time_filters
+    filt = pss_time_filters(PhyConfig(n_rb_dl=6))
+    x = _noise((2, 6000), 5, dev)[:, ::2]
+    assert not x.is_contiguous()
+    for mdtype in ("bf16", "f32"):
+        assert torch.equal(pss.pss_corr_mag(x, filt, mdtype),
+                           pss.pss_corr_mag(x.contiguous(), filt, mdtype))
 
 
 def test_scan_on_card_matches_cpu(dev):

@@ -109,31 +109,200 @@ def test_trellis_and_wiring():
 
 
 def test_cuda_source_wiring():
-    """csrc/turbo.cu writes the ACS and combine wiring out as straight-line
-    code; parse it back and hold it to ``_unrolled_wiring``."""
-    src = (Path(__file__).resolve().parents[1] / "lteax_torch" / "kernels"
-           / "csrc" / "turbo.cu").read_text()
+    """csrc/turbo.cu writes the ACS wiring out as the two tables
+    TRELLIS_FWD and TRELLIS_BWD (the combine's branches are BWD's, read
+    forwards); parse them back and hold them to ``_unrolled_wiring``."""
+    src = _turbo_cu()
     fwd, bwd, out0, out1 = turbo_ref._unrolled_wiring()
 
-    def acs(fn, var):
-        body = src.split(f"void {fn}(")[1].split("\n}")[0]
-        pat = (rf"n(\d) = fmaxf\({var}\[(\d)\] \+ g\[(\d)\], "
-               rf"{var}\[(\d)\] \+ g\[(\d)\]\);")
-        rows = re.findall(pat, body)
-        assert [int(r[0]) for r in rows] == list(range(8))
-        return tuple(tuple(int(x) for x in (r[1], r[3], r[2], r[4]))
-                     for r in rows)
+    def table(name):
+        body = re.search(rf"#define {name} (\{{.*?\}}\}})", src, re.S).group(1)
+        rows = re.findall(r"\{(\d), (\d), (\d), (\d)\}", body)
+        assert len(rows) == 8
+        return tuple(tuple(int(x) for x in r) for r in rows)
 
-    assert acs("acs_fwd", "a") == fwd
-    assert acs("acs_bwd", "b") == bwd
-    body = src.split("float combine(")[1].split("\n}")[0]
-    groups = {int(gc): set(re.findall(r"a\[(\d)\] \+ b\[(\d)\]", expr))
-              for gc, expr in re.findall(r"float m(\d) = (.*);", body)}
-    want = {gc: set() for gc in range(4)}
-    for s in range(8):
-        for ns, gc in (out0[s], out1[s]):
-            want[gc].add((str(s), str(ns)))
-    assert groups == want
+    assert table("TRELLIS_FWD") == fwd
+    assert table("TRELLIS_BWD") == bwd
+    # the kernel takes both tables from these macros and nowhere else
+    assert src.count("= TRELLIS_FWD;") == 2 and src.count("= TRELLIS_BWD;") == 2
+    # what the kernel derives from BWD: state s goes to n0 under g0 on bit 0
+    # and to n1 under g1 on bit 1, and a branch pair's codes sum to 3
+    assert tuple((r[0], r[2]) for r in bwd) == out0
+    assert tuple((r[1], r[3]) for r in bwd) == out1
+    assert all(r[2] + r[3] == 3 for r in fwd + bwd)
+
+
+def _turbo_cu() -> str:
+    return (Path(__file__).resolve().parents[1] / "lteax_torch" / "kernels"
+            / "csrc" / "turbo.cu").read_text()
+
+
+def _lane_wiring(src: str) -> dict:
+    """What csrc/turbo.cu derives by hand beside its two tables, parsed out
+    of the source: which lane bit a step's exchange crosses, which lanes
+    keep the bit-1 maxima, each lane's gamma code in the combine, which of
+    a butterfly's two maxima is bit 0's, and the three folds' lane
+    distances."""
+    one = lambda pat: re.search(pat, src).groups()
+    w = {}
+    w["swap"] = tuple(map(int, one(
+        r"p\.swap = \(ph == d\) \? (\d) : (\d);")))
+    w["keeps1_from"] = int(one(r"const bool keeps1 = q >= (\d);")[0])
+    a, b, c, d = map(int, one(
+        r"const int mcode = keeps1 \? 3 - \(q == 3 \? (\d) : (\d)\) : "
+        r"\(q == 0 \? (\d) : (\d)\);"))
+    w["mcode"] = (c, d, 3 - b, 3 - a)              # lanes 0, 1, 2, 3
+    w["bit0_below"] = int(one(r"p\.bit0_is_p = kFwd\[k\]\[2\] < (\d);")[0])
+    w["fold"] = (
+        int(one(r"__shfl_xor_sync\(all, keeps1 \? bit0 : bit1, (\d)\)")[0]),
+        int(one(r"__shfl_xor_sync\(all, in_b, (\d)\)")[0]),
+        int(one(r"__shfl_xor_sync\(all, in_c, (\d)\)")[0]))
+    assert "if (q == 0 && t >= half + 2) *lp = in_c - got_c;" in src
+    assert "in_b = fmaxf(keeps1 ? bit1 : bit0, got_a) + ga;" in src
+    return w
+
+
+def _emulate_lanes(u, v, a_init, b_init, win, acq, fwd, bwd, w):
+    """The lane algorithm of csrc/turbo.cu in numpy float32, a window at a
+    time over all codeblocks: 4 lanes a direction, each holding one
+    butterfly's pair of metrics, one exchange a step, the combine folded
+    across the lanes.  The kernel's pipelining (inputs and gammas ahead,
+    the fold in three stages) changes no value and is left out."""
+    c, n = u.shape
+    n_w, half = -(-n // win), win // 2
+    q = np.arange(4)
+    swap2 = ((q & 1) << 1) | (q >> 1)
+    pad = lambda x: np.pad(x, ((0, 0), (acq, n_w * win + acq - n)))
+    up, vp = pad(u), pad(v)                        # position p at p + acq
+
+    def phase(d, ph):
+        k = swap2 if ph else q
+        code = np.array([fwd[i][2] if d == 0 else
+                         bwd[2 * i][2] if bwd[2 * i][0] == i else bwd[2 * i][3]
+                         for i in k])
+        return {"pair": k, "vneg": (code == 1) | (code == 2), "neg": code >= 2,
+                "swap": w["swap"][0] if ph == d else w["swap"][1],
+                "bit0_is_p": np.array([fwd[i][2] < w["bit0_below"]
+                                       for i in k])}
+
+    def gamma(code_vneg, code_neg, pos, pin=False):
+        uu, vv = up[:, pos + acq, None], vp[:, pos + acq, None]
+        g = np.float32(0.5) * (uu + np.where(code_vneg, -vv, vv))
+        if pin:
+            g = np.full_like(g, 256.0)
+        return np.where(code_neg, -g, g)
+
+    def step(r, p, g):
+        """One trellis step of every lane's pair under its signed gamma."""
+        lo = np.maximum(r[0] + g, r[1] - g)
+        hi = np.maximum(r[0] - g, r[1] + g)
+        bit = (q & p["swap"]) != 0
+        got = np.where(bit, lo, hi)[:, q ^ p["swap"]]
+        return np.where(bit, got, lo), np.where(bit, hi, got)
+
+    state = lambda d, k, r: k + 4 * r if d else 2 * k + r
+    mcode = np.array(w["mcode"])
+    keeps1 = q >= w["keeps1_from"]
+    l = np.zeros((c, n_w * win), np.float32)
+    nii = np.zeros((2, c, n_w, 8), np.float32)
+    for wi in range(n_w):
+        base = wi * win
+        phs = [[phase(d, ph) for ph in (0, 1)] for d in (0, 1)]
+        regs, store = [], np.zeros((2, half, c, 4, 2), np.float32)
+        for d in (0, 1):
+            first = (acq if wi == 0 else 0) if d == 0 else \
+                min(max(base + win + acq - n, 0), acq)
+            ph = (acq - first) & 1
+            k = phs[d][ph]["pair"]
+            init = (b_init if d else a_init)[:, wi]
+            r = (init[:, state(d, k, 0)], init[:, state(d, k, 1)])
+            for t in range(first, acq):            # live positions only
+                p = phs[d][ph]
+                pos = base + win + acq - 1 - t if d else base - acq + t
+                r = step(r, p, gamma(p["vneg"], p["neg"], pos))
+                ph ^= 1
+            assert ph == 0
+            regs.append(r)
+        t_pin = win - (n - base)                   # beta pins steps t < t_pin
+        for t in range(win):
+            new = []
+            for d in (0, 1):
+                p, r = phs[d][t & 1], regs[d]
+                pos = base + (win - 1 - t if d else t)
+                if t < half:                       # slot t, at the pair's place
+                    store[d, t][:, p["pair"], 0] = r[0]
+                    store[d, t][:, p["pair"], 1] = r[1]
+                else:
+                    if t == win - acq:
+                        for i in (0, 1):
+                            nii[d][:, wi, state(d, p["pair"], i)] = r[i]
+                    o = store[1 - d, win - 1 - t][:, p["pair"]]
+                    pm = np.maximum(r[0] + o[..., 0], r[1] + o[..., 1])
+                    qm = np.maximum(r[0] + o[..., 1], r[1] + o[..., 0])
+                    bit0 = np.where(p["bit0_is_p"], pm, qm)
+                    bit1 = np.where(p["bit0_is_p"], qm, pm)
+                    got = np.where(keeps1, bit0, bit1)[:, q ^ w["fold"][0]]
+                    in_b = np.maximum(np.where(keeps1, bit1, bit0), got) \
+                        + gamma((mcode == 1) | (mcode == 2), mcode >= 2, pos)
+                    in_c = np.maximum(in_b, in_b[:, q ^ w["fold"][1]])
+                    l[:, pos] = (in_c - in_c[:, q ^ w["fold"][2]])[:, 0]
+                new.append(step(r, p, gamma(p["vneg"], p["neg"], pos,
+                                            pin=d == 1 and t < t_pin)))
+            regs = new
+    return l[:, :n], nii[0], nii[1]
+
+
+@pytest.mark.parametrize("c,n,win,acq", [
+    (3, 43, 32, 8),          # K = 40: two windows, the last with 11 live
+    (2, 43, 128, 16),        # one window, 43 of 128 positions live
+    (3, 131, 64, 16),        # the last window has 3 live positions
+    (2, 300, 32, 16),        # acq = win / 2, beta acquisition cut short
+    (5, 387, 128, 16)])
+def test_cuda_source_lane_algorithm(c, n, win, acq):
+    """The kernel's lane algorithm, emulated in numpy with the tables and
+    the hand-derived lane wiring parsed out of csrc/turbo.cu, equals
+    ``half_iteration_plain`` bit for bit: what pins the combine's wiring
+    (its gamma codes, which lane keeps which bit, the folds' lane
+    distances) and the exchange pattern where no card is at hand."""
+    from lteax_torch.kernels import turbo_mlm as tm
+    src = _turbo_cu()
+    fwd, bwd, _, _ = turbo._unrolled_wiring()
+    w = _lane_wiring(src)
+    assert w == {"swap": (1, 2), "keeps1_from": 2, "mcode": (0, 1, 2, 3),
+                 "bit0_below": 2, "fold": (3, 1, 3)}
+    n_w = -(-n // win)
+    rng = np.random.default_rng(n + win)
+    f32 = lambda x: torch.from_numpy(x.astype(np.float32))
+    u, v = f32(rng.standard_normal((c, n)) * 6), f32(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(f32(rng.standard_normal((c, n_w, 8))),
+                                f32(rng.standard_normal((c, n_w, 8))))
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq)
+    got = _emulate_lanes(u.numpy(), v.numpy(), a0.numpy(), b0.numpy(), win,
+                         acq, fwd, bwd, w)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r.numpy())
+    # a wrong fold distance or gamma code does not pass
+    for bad in ({**w, "fold": (3, 2, 3)}, {**w, "mcode": (0, 1, 3, 2)},
+                {**w, "swap": (2, 1)}):
+        worse = _emulate_lanes(u.numpy(), v.numpy(), a0.numpy(), b0.numpy(),
+                               win, acq, fwd, bwd, bad)
+        assert not np.array_equal(worse[0], ref[0].numpy())
+
+
+@pytest.mark.parametrize("f", [64, 128])
+@pytest.mark.parametrize("n_rb", N_RBS, ids=lambda n: f"{n}prb")
+def test_pss_chunk_matrices(n_rb, f):
+    """The port's copy of the Toeplitz chunk matrices equals the
+    reference's, at the frame length the port's kernel uses (64) and at
+    the reference's (128)."""
+    from lteax.kernels import pss as pss_ref
+    from lteax_torch.kernels import pss
+    from lteax_torch.phy.sync import pss_time_filters
+    filt = pss_time_filters(PhyConfig(n_rb_dl=n_rb))
+    ref = pss_ref._chunk_matrices(tuple(map(tuple, filt)), filt.shape[1], f)
+    got = pss._chunk_matrices(filt, f)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("k", [40, 1024, 5824])

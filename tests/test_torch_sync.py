@@ -1,5 +1,6 @@
 """The port's cell-search pieces against ``lteax.phy.sync`` and the TPU
-PSS kernels (interpret mode, ``mdtype="f32"``).
+PSS kernels (interpret mode, ``mdtype="f32"``; the bf16 default is held to
+the TPU kernels' bf16 mode in tests/test_torch_pss_bf16.py).
 
 Tolerances: |corr|^2 within 2e-5 of the peak against the TPU kernel in f32
 and against the FFT path (direct k-ordered sums vs matmul / FFT sums);
@@ -58,7 +59,7 @@ def test_corr_plain_matches_tpu_kernel_and_fft():
     cfg = PhyConfig(n_rb_dl=6)
     x, filt, (o1, o2) = _pss_capture(cfg)
     before = pss.CORR_LAUNCHES
-    got = sync.pss_correlate(torch.from_numpy(x), cfg).numpy()
+    got = sync.pss_correlate(torch.from_numpy(x), cfg, mdtype="f32").numpy()
     assert pss.CORR_LAUNCHES == before
     assert got.shape == (2, 3, x.shape[1]) and got.dtype == np.float32
     tpu = np.asarray(pss_corr_mag_pallas(jnp.asarray(x), filt, mdtype="f32",
@@ -83,7 +84,7 @@ def test_detect_plain_matches_tpu_kernel():
     x[0, 20000:20000 + cfg.n_fft] += 8 * filt[1]
     before = pss.DETECT_LAUNCHES
     nid2, idx, peak, mean = pss.pss_reduce_combine(
-        *pss.pss_detect(torch.from_numpy(x), filt))
+        *pss.pss_detect(torch.from_numpy(x), filt, mdtype="f32"))
     assert pss.DETECT_LAUNCHES == before
     nid2_r, idx_r, peak_r, mean_r = combine_ref(
         *pss_detect_pallas(jnp.asarray(x), filt, mdtype="f32",
@@ -139,7 +140,7 @@ def test_coarse_timing_and_cfo(cfo_capture):
 def test_find_pss_and_sss_detect(cfo_capture):
     cfg = PhyConfig(n_rb_dl=6)
     x = torch.from_numpy(cfo_capture)
-    nid2, idx, peak = sync.find_pss(x, cfg)
+    nid2, idx, peak = sync.find_pss(x, cfg, mdtype="f32")
     nid2_r, idx_r, peak_r = sync_ref.find_pss(jnp.asarray(cfo_capture), CFG6_R)
     assert (int(nid2), int(idx)) == (int(nid2_r), int(idx_r))
     assert int(nid2) == 137 % 3
