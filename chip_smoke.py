@@ -73,7 +73,7 @@ import lteax_torch.kernels.pss as pss_mod
 import lteax_torch.kernels.turbo_mlm as turbo_mod
 import lteax_torch.phy.sync as sync
 from lteax_torch import host
-from lteax_torch.bench import acs_probe, scan_throughput
+from lteax_torch.bench import acs_probe, resample_bench, scan_throughput
 from lteax_torch.io.iq import read_iq, write_iq
 from lteax_torch.kernels._build import library
 from lteax_torch.phy import seq
@@ -120,7 +120,6 @@ PSS_CHECK_SHAPE = (4, 20 * SCAN_CFG.n_samps_subframe)   # K4/K5 vs plain
 # live positions (K = 1152), a block grid with dead windows (K = 5824)
 TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
                 (5, 43, 32, 8))
-RESAMPLE_CHECK_SHAPE = (16, 400_000)                    # K6 vs plain, 192/125
 WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 SOURCES = {
@@ -299,26 +298,35 @@ def _complex_noise(shape, seed: int, dev) -> torch.Tensor:
     return torch.as_tensor(x.astype(np.complex64), device=dev)
 
 
-def check_resample(dev) -> dict:
-    """Resampler kernel vs plain at the scanner's shape: 16 captures of
-    400 000 samples (20 ms at 20 Msps), 192/125."""
-    x = _complex_noise(RESAMPLE_CHECK_SHAPE, SEED + 2, dev)
-    got = poly_mod.resample_poly(x, 192, 125)
-    ref = poly_mod.resample_poly_plain(x, 192, 125)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch.view_as_real(got), torch.view_as_real(ref))
-    if not torch.equal(got, ref):
-        raise AssertionError(f"resample kernel != plain: max |err| {err}")
-    ms = cuda_time_ms(lambda: poly_mod.resample_poly(x, 192, 125), 20)
-    plain_ms = cuda_time_ms(lambda: poly_mod.resample_poly_plain(x, 192,
-                                                                 125), 5)
-    # 12 real taps times a complex sample per output: 24 mul + 22 add
-    return {"name": "resample_poly", "shape": [*RESAMPLE_CHECK_SHAPE, 192,
-                                                125],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            **bound(8 * (x.numel() + got.numel()) + 4 * 192 * 12,
-                    got.numel() * 46, F32_FLOP_PER_S)}
+def check_resample() -> dict:
+    """Resampler kernel vs plain, bit for bit, through
+    ``resample_bench.run_shape`` at its three shapes: (16, 400 000) 192/125,
+    sixteen captures of 20 ms at 20 Msps in one launch (the timed check;
+    the scanner resamples one channel a launch), the scanner's own launch
+    (1, 400 000) 192/125, and (1, 500 000) 768/625 (a 25 Msps capture).
+    Device time warm (back-to-back launches) and cold (64 MB written between
+    launches), each shape's bound (46 f32 operations an output, which do
+    not fuse under -fmad=false; bytes decide), and the ``conv1d``
+    yardstick: the reference's dense frame weight at stride Q on the real
+    planes, cuDNN's TF32 off (``library_ms``) and on."""
+    rows = []
+    for k, shape in enumerate(resample_bench.SHAPES):
+        r = resample_bench.run_shape(*shape, reps=50, seed=SEED + 2 + k)
+        if not r["equal_plain"] or r["launches"] != 1:
+            raise AssertionError(f"resample kernel != plain at {r['shape']}: "
+                                 f"max |err| {r['max_abs_err']}, launches "
+                                 f"{r['launches']}")
+        rows.append({"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                     "ms": r["warm_ms"], "cold_ms": r["cold_ms"],
+                     "plain_ms": r["plain_ms"],
+                     "library_ms": r["conv1d"]["f32_ms"],
+                     "library_tf32_ms": r["conv1d"]["tf32_ms"],
+                     **bound(r["bytes"], r["ops"], F32_OPS_PER_S)})
+    return {**rows[0], "name": "resample_poly",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "library": "conv1d of the real planes, dense frame weight, "
+                       "stride Q, TF32 off (library_tf32_ms: on)",
+            "by_shape": rows}
 
 
 def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray,
@@ -909,9 +917,11 @@ def main() -> None:
                      cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
                timed("check_turbo", check_turbo, cell, dev),
                *timed("check_pss", check_pss, dev),
-               timed("check_resample", check_resample, dev),
+               timed("check_resample", check_resample),
                timed("check_acs_probe", check_acs_probe, dev)]
     for k in [*kernels, demap_ul]:
+        if "by_shape" in k:             # the resampler: a line a shape below
+            continue
         lib_ms = k["library_ms"]
         how = (f"within {k['max_rel_err_of_peak']:.2e} of the peak (limit "
                f"{k['tolerance_of_peak']}), root and index equal"
@@ -922,6 +932,13 @@ def main() -> None:
               f"({k['bytes'] / 1e6:.1f} MB, {k['ops'] / 1e9:.2f} G "
               f"operations), library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({card})")
+    k6 = next(k for k in kernels if k["name"] == "resample_poly")
+    for r in k6["by_shape"]:
+        print(f"[kernel] resample_poly {r['shape']}: bit-exact vs plain; "
+              f"kernel warm {r['ms']:.4f} ms, cold {r['cold_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}; conv1d TF32 off {r['library_ms']:.4f} ms, on "
+              f"{r['library_tf32_ms']:.4f} ms ({card})")
     acs = kernels[-1]
     print(f"[kernel] acs_probe bf16 (packed pairs): bit-exact vs plain at "
           f"{PROBE_ROUNDS} rounds; kernel {acs['bf16_ms']:.4f} ms, plain "
@@ -951,7 +968,7 @@ def main() -> None:
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
-             "peaks_moved_vs_f32")
+             "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],
          "replaces": SOURCES[k["name"]][1], "launches": launches[k["name"]],

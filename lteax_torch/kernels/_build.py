@@ -45,7 +45,7 @@ SIGNATURES = {
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_corr_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "lteax_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "lteax_resample": [_P, _P, _P, *[_I] * 13, _P],
     "lteax_acs_chain_f32": [_P, _P, _L, _I, _P],
     "lteax_acs_chain_bf16": [_P, _P, _L, _I, _P],
 }

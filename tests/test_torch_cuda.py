@@ -190,14 +190,58 @@ def test_pss_bf16_kernels_match_plain(dev, n_rb, c, l):
     assert int(a[0][0]) == 2 and abs(int(a[1][0]) - 1234) <= 2
 
 
-@pytest.mark.parametrize("p,q", [(192, 125), (125, 192), (4, 5), (2, 1)])
-def test_resample_kernel_matches_plain(dev, p, q):
+def _one_frame(p, q):
+    """A length that leaves exactly one output frame, with Q - 1 to spare."""
+    from lteax_torch.kernels.polyphase import k_in
+    return k_in(p, q) + 2 * q - 1
+
+
+@pytest.mark.parametrize("c,l,p,q", [
+    (3, 30011, 192, 125), (3, 30011, 125, 192), (3, 30011, 4, 5),
+    (3, 30011, 2, 1),
+    (1, 400_000, 192, 125),       # the scanner's launch: one channel
+    (1, 500_000, 768, 625),       # 25 Msps to 30.72 Msps, two items a thread
+    (2, 250_011, 1536, 625),      # 12.5 Msps to 30.72 Msps, four a thread
+    (2, 100_003, 3072, 625),      # two phase groups of blocks
+    (2, _one_frame(192, 125), 192, 125), (3, _one_frame(1536, 625), 1536, 625),
+    (8, 300_007, 192, 125)])      # several tiles a block, the last ragged
+def test_resample_kernel_matches_plain(dev, c, l, p, q):
     from lteax_torch.kernels import polyphase
-    x = _noise((3, 30011), p + q, dev)
+    x = _noise((c, l), p + q, dev)
     before = polyphase.LAUNCHES
     got = polyphase.resample_poly(x, p, q)
     assert polyphase.LAUNCHES == before + 1
     assert torch.equal(got, polyphase.resample_poly_plain(x, p, q))
+    if (c, l) == (8, 300_007):
+        pl = polyphase.launch_plan(c, l, p, q, polyphase._sm_count(str(dev)))
+        assert polyphase.n_frames_out(l, p, q) % pl.frames
+        assert c * pl.tiles > pl.blocks
+
+
+def test_resample_kernel_takes_unaligned_views(dev):
+    """A view that starts 8 bytes off a 16-byte boundary, contiguous or not,
+    gives what its contiguous copy gives."""
+    from lteax_torch.kernels import polyphase
+    x = _noise((2, 30012), 7, dev)
+    flat = x.reshape(-1)[1:40001]
+    assert flat.is_contiguous() and flat.data_ptr() % 16 == 8
+    for v in (x[:, 1:], flat):
+        assert torch.equal(polyphase.resample_poly(v, 192, 125),
+                           polyphase.resample_poly(v.clone(), 192, 125))
+
+
+def test_resample_bank_is_uploaded_once(dev):
+    """The bank lives on the device per (P, Q, device): a second call at
+    the same ratio uploads nothing."""
+    from lteax_torch.kernels import polyphase
+    polyphase._device_bank.cache_clear()
+    x = _noise((1, 20000), 3, dev)
+    a = polyphase.resample_poly(x, 192, 125)
+    b = polyphase.resample_poly(x, 192, 125)
+    info = polyphase._device_bank.cache_info()
+    assert (info.misses, info.hits) == (1, 1) and torch.equal(a, b)
+    polyphase.resample_poly(x, 768, 625)
+    assert polyphase._device_bank.cache_info().misses == 2
 
 
 def test_scanner_kernels_refuse_wrong_dtype(dev):
@@ -214,6 +258,8 @@ def test_scanner_kernels_refuse_wrong_dtype(dev):
     ok = torch.zeros((2, 5000), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError):
         pss.pss_corr_mag(ok, filt, "fp8")
+    with pytest.raises(ValueError):             # the kernel has 12 taps
+        polyphase.resample_poly(ok, 192, 125, taps_per_phase=8)
 
 
 def test_pss_kernels_take_strided_input_as_a_copy(dev):

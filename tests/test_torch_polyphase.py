@@ -1,20 +1,34 @@
 """The resampler kernel's plain version against the reference resampler:
 the XLA conv path (``resample_poly``) and the TPU kernel in interpret mode
-(``resample_poly_pallas``), for the ratios of the reference's own test.
-atol 2e-5 on unit-variance samples: the three sum the 12 taps in different
-orders (the TPU kernel as shifted matmuls over a zero-padded weight)."""
+(``resample_poly_pallas``), for the ratios of the reference's own test;
+for the scanner's large-P ratios (768/625, 1536/625), where the XLA path
+runs P convolutions, the reference's own dense frame weight
+(``_frame_weight``) applied to numpy windows in float64.  atol 2e-5 on
+unit-variance samples: they sum the 12 taps in different orders (the TPU
+kernel as shifted matmuls over a zero-padded weight)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lteax.kernels.polyphase import _frame_weight as frame_weight_ref
 from lteax.kernels.polyphase import resample_poly as resample_ref
 from lteax.kernels.polyphase import resample_poly_pallas
 
 from lteax_torch.kernels import polyphase
 
 RATIOS = [(192, 125), (2, 3), (25, 24), (1, 10), (2, 1)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs files in parallel processes; torch's own thread pool
+    on top of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +49,20 @@ def test_plain_matches_reference(stream, p, q):
     tpu = np.asarray(resample_poly_pallas(jnp.asarray(stream), p, q,
                                           interpret=True))
     np.testing.assert_allclose(got, tpu, atol=2e-5)
+
+
+@pytest.mark.parametrize("p,q", [(768, 625), (1536, 625)])
+def test_plain_matches_reference_frame_weight(stream, p, q):
+    """y[j*P + r] = x[j*Q : j*Q + K_in] @ W[:, r], W the reference's (K_in,
+    P) frame weight; 12.5 and 25 Msps captures to 30.72 Msps."""
+    w = frame_weight_ref(p, q, 12).astype(np.float64)
+    nf = polyphase.n_frames_out(stream.size, p, q)
+    win = np.lib.stride_tricks.sliding_window_view(
+        stream.astype(np.complex128), w.shape[0])[::q][:nf]
+    ref = (win @ w).reshape(-1)
+    got = polyphase.resample_poly(torch.from_numpy(stream), p, q).numpy()
+    assert got.shape == ref.shape == (nf * p,) and nf > 50
+    np.testing.assert_allclose(got, ref, atol=2e-5)
 
 
 def test_batch_equals_rows(stream):
