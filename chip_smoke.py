@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-six paths, each with the launch counters set to 0 just before it and
+seven paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -42,6 +42,15 @@ read just after:
    of them; then both decoders are timed at 25 dB.
 6. The ACS op-mix probe through ``lteax_torch.bench.acs_probe.run`` (f32 and
    packed bf16, 2 097 152 elements, 512 rounds).
+7. 2x2 MIMO through ``lteax_torch.pipeline.make_mimo_batch_decoder``
+   (``lteax_torch.sim.mimo_gen``, seed 0): TM3 at the
+   ``bench/mimo_throughput.py`` defaults (100 PRB, MCS 28, channel "bench",
+   25 dB) on 256 subframes, every one of the 512 transport blocks decoded to
+   the bits sent; the tracked TM4 configuration (codebook 0, MCS 24, channel
+   "corr", 28 dB) on 192 subframes through the MMSE and the SIC decoder on
+   the same IQ, SIC decoding all 384 and no fewer than MMSE; both decoders'
+   card decode of 4 subframes equal to the CPU's; the SIC stages and the
+   re-encode timed; the turbo kernel at the MIMO shape, C = 6656.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -56,7 +65,6 @@ below.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -74,16 +82,22 @@ import lteax_torch.kernels.turbo_mlm as turbo_mod
 import lteax_torch.phy.sync as sync
 from lteax_torch import host
 from lteax_torch.bench import acs_probe, resample_bench, scan_throughput
+from lteax_torch.bench.timing import card_line, time_decode
 from lteax_torch.io.iq import read_iq, write_iq
 from lteax_torch.kernels._build import library
 from lteax_torch.phy import seq
 from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.fec.reencode import turbo_reencode_batch
+from lteax_torch.phy.fec.turbo import turbo_encode
+from lteax_torch.phy.tuning import DecoderTuning
 from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
+                                  make_mimo_batch_decoder,
                                   make_pusch_batch_decoder)
 from lteax_torch.sim import cell_gen
 from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
                                     harq_transmissions)
+from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
 from lteax_torch.sim.ul_gen import UlCell, ul_subframes
 
 BATCH = 256
@@ -96,6 +110,10 @@ HARQ_SUBFRAMES, HARQ_RVS = (1, 2), (0, 2)
 HARQ_SNR_DB = 15.0    # rv 0 alone decodes 0/64 here, rv 0 + rv 2 64/64
 HARQ_REPS = 30
 PROBE_ROUNDS = (8, 64, 512)
+MIMO_TM3 = MimoCell()                    # bench/mimo_throughput.py defaults
+MIMO_TM4 = MimoCell(mcs=24, tm=4, cb_index=0)
+MIMO_TM4_BATCH, MIMO_TM4_SNR_DB = 192, 28.0
+MIMO_REPS = 20
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet and the Hopper
 # white paper): device memory, f32 outside the tensor cores counted as
@@ -142,13 +160,6 @@ SOURCES = {
     "acs_probe": ("lteax_torch/kernels/csrc/acs_probe.cu",
                   "bench/vpu_bf16_probe.py:39"),
 }
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -290,6 +301,25 @@ def check_turbo(cell: DlCell, dev) -> dict:
     return {"name": "turbo_half_iteration", "shape": [c, n, win, acq],
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, **bound(n_bytes, ops, F32_OPS_PER_S)}
+
+
+def check_turbo_mimo(dev) -> dict:
+    """The half-iteration kernel vs plain at the TM3 MIMO decode's shape:
+    C = 2 codewords * 13 * 256 = 6656 codeblocks, K = 5824; counted as
+    :func:`check_turbo`."""
+    geom = MIMO_TM3.geom
+    c, n, win, acq = 2 * geom.info.c * BATCH, geom.k + 3, 128, 16
+    n_w = -(-n // win)
+    u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 5, dev)
+    errs = turbo_equal_plain((u, v, a0, b0), win, acq)
+    ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
+                                                           win, acq), 10)
+    plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
+        u, v, a0, b0, win, acq), 1)
+    return {"shape": [c, n, win, acq], "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain_ms,
+            **bound(4 * (3 * c * n + 4 * c * n_w * 8),
+                    c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)}
 
 
 def _complex_noise(shape, seed: int, dev) -> torch.Tensor:
@@ -692,10 +722,11 @@ def run_sweep(dev, card: str) -> dict:
 
 
 def decode_counted(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
-                   want_ok: int) -> dict:
+                   want_ok: int | None) -> dict:
     """One decode with the demap and turbo launch counts set to 0 just
     before it and read just after; ``want_ok`` transport blocks must pass
-    their CRC, and when that is all of them the bits must equal the sent."""
+    their CRC (``None``: any number), and every one that passes must carry
+    the bits sent."""
     torch.cuda.reset_peak_memory_stats()
     demap_mod.LAUNCHES = 0
     turbo_mod.LAUNCHES = 0
@@ -706,55 +737,52 @@ def decode_counted(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = dec.last_stats
     n_ok, n = int(ok.sum()), len(tb_ref)
-    bits_ok = bool(np.array_equal(bits.cpu().numpy(), tb_ref))
-    print(f"[{name}] crc ok {n_ok}/{n}, bits equal sent: {bits_ok}, n_iter "
-          f"{n_iter}/{dec.n_iter}, host syncs {stats.syncs}, compacted "
-          f"retries {stats.retries}, launches {launches}")
+    okn = ok.cpu().numpy()
+    bits_ok = bool(np.array_equal(bits.cpu().numpy()[okn], tb_ref[okn]))
+    print(f"[{name}] crc ok {n_ok}/{n}, bits of those equal sent: {bits_ok}, "
+          f"n_iter {n_iter}/{dec.n_iter}, host syncs {stats.syncs}, "
+          f"compacted retries {stats.retries}, launches {launches}")
     if bits.shape != tb_ref.shape or bits.dtype != torch.int8:
         raise AssertionError(f"{name}: tb_bits {tuple(bits.shape)} "
                              f"{bits.dtype}")
-    if n_ok != want_ok or (want_ok == n and not bits_ok):
+    if (want_ok is not None and n_ok != want_ok) or not bits_ok:
         raise AssertionError(f"{name}: {n_ok}/{n} transport blocks decoded, "
                              f"{want_ok} expected (bits equal: {bits_ok})")
     for kernel, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"the {name} path never launched {kernel}")
     return {"launches": launches, "n_iter": n_iter, "syncs": stats.syncs,
-            "retries": stats.retries, "peak_gb": peak_gb}
+            "retries": stats.retries, "peak_gb": peak_gb, "n_ok": n_ok}
+
+
+def _llrs(front_out) -> list:
+    """The LLR tensors a decoder's front hands on (the SIC front: CW0's
+    de-matched and CW1's MMSE LLRs)."""
+    if torch.is_tensor(front_out):
+        return [front_out]
+    return [front_out.d0, front_out.llr1]
 
 
 def card_vs_cpu(name: str, dec, dec_cpu, x_small: torch.Tensor) -> None:
     """The card's decode of a small slice equals the CPU's (plain
-    versions): bits, CRC flags and n_iter equal, the de-matched LLRs within
+    versions): bits, CRC flags and n_iter equal, the front's LLRs within
     1e-4 of the largest (FFT rounding)."""
     d_gpu, d_cpu = dec.front(x_small), dec_cpu.front(x_small.cpu())
     out_gpu, out_cpu = dec.turbo(d_gpu), dec_cpu.turbo(d_cpu)
-    front_err = max_abs_err(d_gpu.cpu(), d_cpu)
-    front_scale = float(d_cpu.abs().max())
+    diffs = [(max_abs_err(g.cpu(), c), float(c.abs().max()))
+             for g, c in zip(_llrs(d_gpu), _llrs(d_cpu))]
     print(f"[{name}-cpu-vs-card] {out_cpu[0].shape[0]} transport blocks: "
-          f"de-matched LLR max |diff| {front_err:.3e} (max |LLR| "
-          f"{front_scale:.1f}); n_iter {out_gpu[2]} vs {out_cpu[2]}")
+          f"front LLR max |diff| " + ", ".join(
+              f"{e:.3e} (max |LLR| {m:.1f})" for e, m in diffs)
+          + f"; n_iter {out_gpu[2]} vs {out_cpu[2]}")
     if not (torch.equal(out_gpu[0].cpu(), out_cpu[0])
             and torch.equal(out_gpu[1].cpu(), out_cpu[1])
             and out_gpu[2] == out_cpu[2]):
         raise AssertionError(f"{name}: card and CPU decodes of the same "
                              f"slice differ")
-    if front_err > 1e-4 * front_scale:
+    if any(e > 1e-4 * m for e, m in diffs):
         raise AssertionError(f"{name}: card and CPU fronts differ beyond "
                              f"FFT rounding")
-
-
-def time_decode(dec, x: torch.Tensor, reps: int) -> tuple[float, float]:
-    """(median, p90) seconds of ``dec(x)``: host clock around synchronised
-    calls."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dec(x)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times)), float(np.percentile(times, 90))
 
 
 def run_dl(cell: DlCell, dev, card: str) -> dict:
@@ -856,6 +884,95 @@ def run_harq(cell: DlCell, dev, card: str) -> dict:
             "combined_front_ms": f_h, "single_front_ms": f_1}
 
 
+def reencode_ms(k: int, n: int, dev) -> float:
+    """The re-encode of n random codeblocks of K bits, checked exact on 64
+    of them against the numpy encoder, timed by CUDA events."""
+    bits = torch.as_tensor(np.random.default_rng(SEED + k).integers(
+        0, 2, (n, k)).astype(np.int8), device=dev)
+    got = turbo_reencode_batch(bits, k)
+    if not np.array_equal(got[:64].cpu().numpy(),
+                          turbo_encode(bits[:64].cpu().numpy(), k)):
+        raise AssertionError(f"re-encode at ({n}, {k}) != turbo_encode")
+    return cuda_time_ms(lambda: turbo_reencode_batch(bits, k), 5)
+
+
+def run_mimo(dev, card: str) -> dict:
+    """The 2x2 MIMO paths: TM3 MMSE at the bench defaults (B=256), then the
+    tracked TM4 configuration (B=192) through MMSE and SIC on one IQ."""
+    t0 = time.perf_counter()
+    iq, tb = mimo_subframes(MIMO_TM3, BATCH, SNR_DB, "bench", seed=SEED)
+    g3 = MIMO_TM3.geom
+    print(f"[mimo-gen] TM3, {BATCH} subframes x 2 codewords, TBS {g3.tbs}, "
+          f"C={g3.info.c}, K={g3.k}, channel bench, {SNR_DB} dB: "
+          f"{time.perf_counter() - t0:.2f} s")
+    dec = make_mimo_batch_decoder(*MIMO_TM3.decoder_args(), device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    del iq
+    out = decode_counted("mimo tm3", dec, x, decoder_rows(tb), 2 * BATCH)
+    card_vs_cpu("mimo", dec, make_mimo_batch_decoder(
+        *MIMO_TM3.decoder_args(), device="cpu"), x[:, :4])
+    torch.cuda.reset_peak_memory_stats()
+    t_med, t_p90 = time_decode(dec, x, MIMO_REPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    front_ms = cuda_time_ms(lambda: dec.front(x), 5)
+    mbps = 2 * BATCH * g3.tbs / t_med / 1e6
+    print(f"[mimo] TM3 MMSE B={BATCH}: median {t_med * 1e3:.3f} ms/batch, "
+          f"p90 {t_p90 * 1e3:.3f} (n={MIMO_REPS}), {mbps:.2f} Mbit/s; front "
+          f"{front_ms:.3f} ms; peak allocated {out['peak_gb']:.2f} GB first, "
+          f"{peak_gb:.2f} steady ({card})")
+    tm3 = {**out, "decode_ms": t_med * 1e3, "decode_p90_ms": t_p90 * 1e3,
+           "mbit_per_s": mbps, "front_ms": front_ms, "peak_gb": peak_gb,
+           "reencode_ms": reencode_ms(g3.k, BATCH * g3.info.c, dev)}
+    del x, dec
+
+    t0 = time.perf_counter()
+    iq, tb = mimo_subframes(MIMO_TM4, MIMO_TM4_BATCH, MIMO_TM4_SNR_DB, "corr",
+                            seed=SEED)
+    g4, rows = MIMO_TM4.geom, decoder_rows(tb)
+    print(f"[mimo-gen] TM4 cb 0, {MIMO_TM4_BATCH} subframes, TBS {g4.tbs}, "
+          f"C={g4.info.c}, K={g4.k}, channel corr, {MIMO_TM4_SNR_DB} dB: "
+          f"{time.perf_counter() - t0:.2f} s")
+    x = torch.from_numpy(iq).to(dev)
+    del iq
+    args = MIMO_TM4.decoder_args()
+    dec_m = make_mimo_batch_decoder(*args, **MIMO_TM4.precoding, device=dev)
+    sic = DecoderTuning(mimo_detector="sic")
+    dec_s = make_mimo_batch_decoder(*args, **MIMO_TM4.precoding, tuning=sic,
+                                    device=dev)
+    mm = decode_counted("mimo tm4 mmse", dec_m, x, rows, None)
+    sc = decode_counted("mimo tm4 sic", dec_s, x, rows, 2 * MIMO_TM4_BATCH)
+    if sc["n_ok"] < mm["n_ok"]:
+        raise AssertionError(f"SIC decoded {sc['n_ok']}, MMSE {mm['n_ok']}")
+    card_vs_cpu("mimo-sic", dec_s, make_mimo_batch_decoder(
+        *args, **MIMO_TM4.precoding, tuning=sic, device="cpu"), x[:, :4])
+    # in turns, so that a change in the host's load meets both alike
+    pairs = [(time_decode(dec_m, x, 1)[0], time_decode(dec_s, x, 1)[0])
+             for _ in range(MIMO_REPS // 2)]
+    t_m, t_s = (float(np.median(t)) for t in zip(*pairs))
+    f = dec_s.front(x)
+    cb0, _, ok0, _ = dec_s.turbo0(f.d0)
+    d1 = dec_s.cancel(cb0, ok0, f)
+    stages = {"front_ms": cuda_time_ms(lambda: dec_s.front(x), 3),
+              "turbo0_ms": cuda_time_ms(lambda: dec_s.turbo0(f.d0), 3),
+              "cancel_ms": cuda_time_ms(lambda: dec_s.cancel(cb0, ok0, f), 3),
+              "reencode_ms": cuda_time_ms(
+                  lambda: turbo_reencode_batch(cb0, g4.k), 5),
+              "turbo1_ms": cuda_time_ms(lambda: dec_s.turbo1(d1), 3)}
+    n_tb = 2 * MIMO_TM4_BATCH
+    print(f"[mimo] TM4 corr B={MIMO_TM4_BATCH}: MMSE {mm['n_ok']}/{n_tb} in "
+          f"{t_m * 1e3:.3f} ms, SIC {sc['n_ok']}/{n_tb} in {t_s * 1e3:.3f} ms "
+          f"(medians, n={len(pairs)} each, in turns); SIC by CUDA events: "
+          + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in stages.items())
+          + f" ms; peak allocated MMSE {mm['peak_gb']:.2f}, SIC "
+          f"{sc['peak_gb']:.2f} GB ({card})")
+    return {"tm3": tm3, "tm4_mmse": {**mm, "decode_ms": t_m * 1e3,
+                                     "mbit_per_s": mm["n_ok"] * g4.tbs
+                                     / t_m / 1e6},
+            "tm4_sic": {**sc, "decode_ms": t_s * 1e3,
+                        "mbit_per_s": sc["n_ok"] * g4.tbs / t_s / 1e6,
+                        **stages}}
+
+
 def run_probe(dev, card: str) -> dict:
     """The probe's entry point, as its CLI drives it."""
     acs_mod.LAUNCHES = 0
@@ -887,6 +1004,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (the port's smoke run "
                          "has no CPU fallback)")
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -913,6 +1031,7 @@ def main() -> None:
     demap_ul = timed("check_demap", check_demap, "demap (UL shape)",
                      ul_dec.ul_front.sgn.numpy(), ul_cell.alloc.n_re,
                      ul_cell.alloc.scheme, dev)
+    turbo_mimo = timed("check_turbo", check_turbo_mimo, dev)
     kernels = [timed("check_demap", check_demap, "demap", dl_sgn,
                      cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
                timed("check_turbo", check_turbo, cell, dev),
@@ -939,6 +1058,14 @@ def main() -> None:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}; conv1d TF32 off {r['library_ms']:.4f} ms, on "
               f"{r['library_tf32_ms']:.4f} ms ({card})")
+    print(f"[kernel] turbo_half_iteration at the MIMO shape "
+          f"{turbo_mimo['shape']}: bit-exact vs plain; kernel "
+          f"{turbo_mimo['ms']:.4f} ms, plain {turbo_mimo['plain_ms']:.4f} ms, "
+          f"bound {turbo_mimo['bound_ms']:.4f} ms by {turbo_mimo['bound_by']} "
+          f"({turbo_mimo['bytes'] / 1e6:.1f} MB, {turbo_mimo['ops'] / 1e9:.2f}"
+          f" G operations) ({card})")
+    print(f"[kernel] demap (UL shape) is also the MIMO decoders' launch: "
+          f"(256, 14400) 64QAM, npad 14464, one a codeword ({card})")
     acs = kernels[-1]
     print(f"[kernel] acs_probe bf16 (packed pairs): bit-exact vs plain at "
           f"{PROBE_ROUNDS} rounds; kernel {acs['bf16_ms']:.4f} ms, plain "
@@ -958,12 +1085,16 @@ def main() -> None:
     ul = timed("ul", run_ul, ul_cell, dev, card)
     harq = timed("harq", run_harq, cell, dev, card)
     probe = timed("probe", run_probe, dev, card)
+    mimo_out = timed("mimo", run_mimo, dev, card)
     print("[phases] seconds: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; main {time.perf_counter() - t_start:.1f} in all")
     launches["acs_probe"] = probe["launches"]
     launches["demap (UL shape)"] = ul["launches"]["demap"]
     by_path = {name: {"dl": dl["launches"][name], "ul": ul["launches"][name],
-                      "harq": harq["launches"][name]}
+                      "harq": harq["launches"][name],
+                      "mimo": mimo_out["tm3"]["launches"][name],
+                      "mimo_sic": mimo_out["tm4_sic"]["launches"][name]}
                for name in ("demap", "turbo_half_iteration")}
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
@@ -981,6 +1112,21 @@ def main() -> None:
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",
                             "bound_by", "max_abs_err")},
+        "turbo_mimo_shape": {key: turbo_mimo[key] for key in
+                             ("shape", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "max_abs_err")},
+        "mimo": {
+            "tm3": {key: mimo_out["tm3"][key] for key in
+                    ("decode_ms", "decode_p90_ms", "mbit_per_s", "front_ms",
+                     "peak_gb", "n_iter", "syncs", "retries", "n_ok",
+                     "reencode_ms")},
+            "tm4_mmse": {key: mimo_out["tm4_mmse"][key] for key in
+                         ("n_ok", "decode_ms", "mbit_per_s", "n_iter",
+                          "peak_gb")},
+            "tm4_sic": {key: mimo_out["tm4_sic"][key] for key in
+                        ("n_ok", "decode_ms", "mbit_per_s", "n_iter", "syncs",
+                         "peak_gb", "front_ms", "turbo0_ms", "cancel_ms",
+                         "reencode_ms", "turbo1_ms")}},
         "decode_ms": dl["decode_ms"], "decode_p90_ms": dl["decode_p90_ms"],
         "mbit_per_s": dl["mbit_per_s"], "peak_gb": dl["peak_gb"],
         "n_iter": dl["n_iter"], "syncs": dl["syncs"],

@@ -11,11 +11,13 @@ so each counterpart is easy to find:
               resampler, ACS op-mix probe) with their plain torch versions
               and launch counters; sources under ``kernels/csrc``
   pipeline.py ``make_batch_decoder`` (DL-SCH), ``make_batch_harq_decoder``
-              (HARQ-IR) and ``make_pusch_batch_decoder`` (UL-SCH): IQ -> TB
-              bits, CRC flags
+              (HARQ-IR), ``make_pusch_batch_decoder`` (UL-SCH) and
+              ``make_mimo_batch_decoder`` (2x2 TM3/TM4, MMSE or SIC): IQ ->
+              TB bits, CRC flags
   apps/ shard/ the multi-carrier cell scanner to the MIB
-  sim/        DL, UL, HARQ and cell test-signal generators
-  bench/      the PSS sweep and the ACS probe
+  sim/        DL, UL, HARQ, 2x2 MIMO and cell test-signal generators
+  bench/      DL and MIMO decode throughput, the PSS sweep, the ACS probe
+              and kernel studies
   io/ stack/ utils/   IQ files, EARFCN helpers, the MIB, checkpoint, metrics
 
 The package imports torch and numpy, never jax and nothing of ``lteax``: it

@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
+from lteax_torch.bench.timing import card_line
 from lteax_torch.kernels.acs_probe import acs_chain
 
 BLOCK = (256, 128)          # the reference's block per program
@@ -106,10 +106,7 @@ def main(argv=None):
     if res["device"] == "cpu":
         print("cpu (a dry run of the plain version: no measure of the card)")
     else:
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0])
+        print(card_line())
     for name in DTYPES:
         print(f"{name}: {res[name]['ms']:8.3f} ms   "
               f"{res[name]['tops']:6.2f} T add/max per s")

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lteax_torch.bench.timing import card_line
 from lteax_torch.pipeline import make_batch_decoder
 from lteax_torch.sim.dl_gen import DlCell, dl_subframes
 
@@ -35,9 +35,7 @@ def main(argv=None) -> None:
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     cell = DlCell()
     iq, _ = dl_subframes(cell, a.batch, 25.0, seed=0)
     dec = make_batch_decoder(*cell.decoder_args())

@@ -31,12 +31,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 import lteax_torch.kernels.polyphase as poly
+from lteax_torch.bench.timing import card_line
 
 SHAPES = ((16, 400_000, 192, 125), (1, 400_000, 192, 125),
           (1, 500_000, 768, 625))
@@ -44,13 +44,6 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 33.5e12       # f32 adds and multiplies that do not fuse
 FLUSH_BYTES = 64 << 20        # more than the 50 MB L2
 SPIN_CYCLES_PER_REP = 2_000_000
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
 
 
 def warm_ms(fn, reps: int) -> float:

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 import lteax_torch.kernels.turbo_mlm as tm
+from lteax_torch.bench.timing import card_line
 from lteax_torch.kernels._build import library
 
 
@@ -57,9 +57,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("turbo_variants: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     win, acq = 128, 16
     args = _inputs(a.c, a.k + 3, win, dev)
     ref = tm.half_iteration_plain(*args, win, acq)

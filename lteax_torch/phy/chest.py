@@ -1,12 +1,14 @@
-"""CRS channel estimation (ports 0-3, LS + 2-D linear interpolation),
-noise estimate, SISO / SFBC / SFBC+FSTD equalisation and the matching
+"""CRS channel estimation (ports 0-3, LS + 2-D linear interpolation, with
+an optional delay-domain denoise, or Wiener frequency interpolation), noise
+estimate, SISO / MRC / SFBC / SFBC+FSTD equalisation and the matching
 transmit precoders; counterpart of ``lteax.phy.chest``.
 
-The interpolation matrices and CRS reference values are numpy copies of the
-reference's host plan code (the tests hold them equal); the interpolation
-runs as real-decomposed float32 matmuls, as in the reference, in full
-float32 (``lteax_torch.phy.fec.crc.exact_f32_matmul``).  The equalisers
-and precoders are the reference's elementwise formulas in the same order.
+The interpolation and Wiener matrices and the CRS reference values are
+numpy copies of the reference's host plan code (the tests hold them
+equal); the interpolation runs as real-decomposed float32 matmuls, as in
+the reference, in full float32 (``lteax_torch.phy.fec.crc.
+exact_f32_matmul``).  The equalisers and precoders are the reference's
+elementwise formulas in the same order.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.grid import _crs_v, crs_flat_idx, crs_symbols
 from lteax_torch.phy import seq
+from lteax_torch.phy.channels.pusch import chest_denoise, chest_taps
 
 
 @lru_cache(maxsize=None)
@@ -99,16 +102,102 @@ def _ls(grid: torch.Tensor, cfg, n_cell_id, subframe, port):
     return flat[..., pidx] * ref_c, wf, wt          # (..., n_ps, n_p)
 
 
-def estimate_channel(grid: torch.Tensor, cfg: PhyConfig, n_cell_id: int,
-                     subframe: int, port: int = 0) -> torch.Tensor:
-    """LS at the CRS, then frequency and time linear interpolation.
-    grid (..., n_sym, n_sc) complex64 -> H of the same shape."""
-    h_ls, wf, wt = _ls(grid, cfg, n_cell_id, subframe, port)
-    fr = torch.einsum("...pj,pkj->...pk", h_ls.real, wf)
-    fi = torch.einsum("...pj,pkj->...pk", h_ls.imag, wf)
+@lru_cache(maxsize=8)
+def _taps(n_sc: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(chest_taps(n_sc), device=device)
+
+
+def _time_interp(wt: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor):
     tr = torch.einsum("sp,...pk->...sk", wt, fr)
     ti = torch.einsum("sp,...pk->...sk", wt, fi)
     return torch.complex(tr, ti)
+
+
+def estimate_channel(grid: torch.Tensor, cfg: PhyConfig, n_cell_id: int,
+                     subframe: int, port: int = 0,
+                     denoise: bool = False) -> torch.Tensor:
+    """LS at the CRS, then frequency and time linear interpolation.
+    grid (..., n_sym, n_sc) complex64 -> H of the same shape.
+
+    ``denoise`` projects each pilot symbol's frequency-interpolated
+    estimate onto the cyclic prefix's delay span
+    (``pusch.chest_denoise``) before the time interpolation."""
+    h_ls, wf, wt = _ls(grid, cfg, n_cell_id, subframe, port)
+    fr = torch.einsum("...pj,pkj->...pk", h_ls.real, wf)
+    fi = torch.einsum("...pj,pkj->...pk", h_ls.imag, wf)
+    if denoise:
+        h_f = chest_denoise(torch.complex(fr, fi), _taps(cfg.n_sc,
+                                                          grid.device))
+        fr, fi = h_f.real, h_f.imag
+    return _time_interp(wt, fr, fi)
+
+
+@lru_cache(maxsize=None)
+def _mmse_pilot_corr(cfg: PhyConfig, shift: int, tau_max_us: float
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Frequency correlations of a uniform power-delay profile over
+    [0, tau_max], r(dk) = exp(-j pi dk df tau) sinc(dk df tau), at the true
+    signed FFT frequencies (the band skips DC).  Returns (R_dp (n_sc, n_p),
+    R_pp (n_p, n_p))."""
+    df = 15e3
+    tau = tau_max_us * 1e-6
+    n_p = 2 * cfg.n_rb_dl
+    bins = cfg.sc_to_fft_bin.astype(np.int64)
+    f = ((bins + cfg.n_fft // 2) % cfg.n_fft) - cfg.n_fft // 2
+    pk = f[shift + 6 * np.arange(n_p)]
+
+    def r(dk):
+        x = dk * df * tau
+        return np.exp(-1j * np.pi * x) * np.sinc(x)
+
+    r_dp = r(f[:, None] - pk[None, :]).astype(np.complex64)
+    r_pp = r(pk[:, None] - pk[None, :]).astype(np.complex64)
+    return r_dp, r_pp
+
+
+@lru_cache(maxsize=None)
+def _wiener_matrix(cfg: PhyConfig, shift: int, tau_max_us: float,
+                   nv_prior: float) -> np.ndarray:
+    """W = R_dp (R_pp + nv I)^-1 (n_sc, n_p) for a static noise prior,
+    inverted on the host."""
+    r_dp, r_pp = _mmse_pilot_corr(cfg, shift, tau_max_us)
+    a = r_pp + np.complex64(nv_prior) * np.eye(r_pp.shape[0],
+                                               dtype=np.complex64)
+    return (r_dp @ np.linalg.inv(a)).astype(np.complex64)
+
+
+@lru_cache(maxsize=16)
+def _wiener_consts(cfg: PhyConfig, n_cell_id: int, port: int,
+                   tau_max_us: float, nv_q: float, device: torch.device):
+    """Per pilot symbol's Wiener matrix, stacked (n_ps, n_sc, n_p), as
+    real and imaginary float32 tensors."""
+    vs = n_cell_id % 6
+    w = np.stack([_wiener_matrix(
+        cfg, (_crs_v(port, sym % cfg.n_sym_slot, sym // cfg.n_sym_slot) + vs)
+        % 6, tau_max_us, nv_q) for sym in crs_symbols(port, cfg)])
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device)
+    return t(w.real), t(w.imag)
+
+
+def estimate_channel_mmse(grid: torch.Tensor, cfg: PhyConfig, n_cell_id: int,
+                          subframe: int, port: int, noise_var: float,
+                          tau_max_us: float = 5.0) -> torch.Tensor:
+    """Wiener (MMSE) frequency interpolation with a static noise prior,
+    then linear time interpolation.  grid (..., n_sym, n_sc) -> H.
+
+    The prior is rounded to a 1 dB grid (as in the reference, which keys
+    its cached host inverse by it); the complex product runs as four real
+    float32 matmuls."""
+    h_ls, _, wt = _ls(grid, cfg, n_cell_id, subframe, port)
+    nv_q = 10.0 ** (round(10.0 * np.log10(max(float(noise_var), 1e-12)))
+                    / 10.0)
+    wr, wi = _wiener_consts(cfg, n_cell_id, port, tau_max_us, nv_q,
+                            grid.device)
+    xr, xi = h_ls.real, h_ls.imag
+    mm = lambda x, w: torch.einsum("...pj,pkj->...pk", x, w)
+    fr = mm(xr, wr) - mm(xi, wi)
+    fi = mm(xr, wi) + mm(xi, wr)
+    return _time_interp(wt, fr, fi)
 
 
 def estimate_noise_var(grid: torch.Tensor, cfg: PhyConfig, n_cell_id: int,
@@ -136,6 +225,15 @@ def equalize_siso(grid: torch.Tensor, h: torch.Tensor, noise_var):
     x = grid * torch.conj(h) / (p + noise_var)
     scale = p / (p + noise_var)
     x = x / _guard(scale)
+    return x, noise_var / _guard(p)
+
+
+def equalize_mrc(y: torch.Tensor, h: torch.Tensor, noise_var):
+    """Maximum-ratio combining of one layer over the RX antennas.
+    y, h (..., n_rx, n_re) -> (x_hat (..., n_re), eff_nv (..., n_re)):
+    x = sum_r conj(h_r) y_r / sum_r |h_r|^2, eff_nv = nv / sum_r |h_r|^2."""
+    p = torch.sum(torch.abs(h) ** 2, dim=-2)
+    x = torch.sum(torch.conj(h) * y, dim=-2) / _guard(p)
     return x, noise_var / _guard(p)
 
 

@@ -6,6 +6,8 @@ the max-log subset minimum factorizes per axis into an L-level PAM
 problem, which ``_pam_axis`` describes.  The PDSCH's full-grid demap is
 the demap kernel (``lteax_torch.kernels.demap``); the short control and
 broadcast channels (PBCH: 240 QPSK symbols) use :func:`demodulate_maxlog`.
+:func:`modulate` is the test signals' numpy mapper; :func:`modulate_arith`
+maps on the device (the MIMO SIC re-modulation).
 """
 
 from __future__ import annotations
@@ -69,6 +71,27 @@ def modulate(bits: np.ndarray, scheme: str) -> np.ndarray:
     groups = np.asarray(bits).reshape(*np.shape(bits)[:-1], -1, m).astype(np.int64)
     weights = np.asarray([1 << (m - 1 - i) for i in range(m)], dtype=np.int64)
     return constellation(scheme)[groups @ weights]
+
+
+def modulate_arith(bits: torch.Tensor, scheme: str) -> torch.Tensor:
+    """bits (..., N*m) -> symbols (..., N) complex64, elementwise: the
+    36.211 §7.1 Gray formulas evaluated arithmetically (the same mapping
+    as :func:`modulate`), in the reference's order of operations."""
+    m = BITS_PER_SYM[scheme]
+    g = bits.reshape(*bits.shape[:-1], -1, m).to(torch.float32)
+    s = 1.0 - 2.0 * g                                 # +1 for bit 0
+    if scheme == "bpsk":
+        v = s[..., 0] / np.sqrt(2)
+        return torch.complex(v, v)
+    if scheme == "qpsk":
+        return torch.complex(s[..., 0] / np.sqrt(2), s[..., 1] / np.sqrt(2))
+    if scheme == "16qam":
+        i_ = s[..., 0] * (2.0 - s[..., 2]) / np.sqrt(10)
+        q_ = s[..., 1] * (2.0 - s[..., 3]) / np.sqrt(10)
+        return torch.complex(i_, q_)
+    i_ = s[..., 0] * (4.0 - s[..., 2] * (2.0 - s[..., 4])) / np.sqrt(42)
+    q_ = s[..., 1] * (4.0 - s[..., 3] * (2.0 - s[..., 5])) / np.sqrt(42)
+    return torch.complex(i_, q_)
 
 
 def _axis_llr(y: torch.Tensor, scheme: str) -> torch.Tensor:

@@ -22,9 +22,20 @@ class DecoderTuning:
     - ``retry_m``: compacted-retry subbatch size of the UL decoder; 0
       disables the retry.
     - ``retry_m_dl``: the same for the DL and HARQ decoders.
+    - ``retry_m_mimo``: the same for the 2x2 MIMO decoders (both tails of
+      SIC).
     - ``retry_levels``: full-batch iterations checked for compaction before
       the full-batch early-stop loop takes over.
     - ``mdtype``: trellis metric dtype; the port runs "f32" only.
+    - ``mimo_detector``: "mmse" (per-RE linear demix, both codewords in one
+      turbo batch) or "sic" (decode CW0, re-encode, cancel, decode CW1 from
+      an MRC of the clean layer; CW0-failed subframes keep the MMSE LLRs).
+    - ``mimo_chest``: "ls" (LS + linear interpolation) or "mmse" (Wiener
+      frequency interpolation with the static noise prior
+      ``mimo_chest_nv``); the MMSE decoder's front only, as in the
+      reference.
+    - ``mimo_denoise``: project the CRS estimate at the pilots onto the
+      cyclic-prefix delay span (LS chest only).
     """
 
     win: int = 128
@@ -34,8 +45,13 @@ class DecoderTuning:
     pinpad: bool = True
     retry_m: int = 128
     retry_m_dl: int = 64
+    retry_m_mimo: int = 192
     retry_levels: int = 2
     mdtype: str = "f32"
+    mimo_detector: str = "mmse"
+    mimo_chest: str = "ls"
+    mimo_denoise: bool = False
+    mimo_chest_nv: float = 3e-3
 
     def __post_init__(self):
         if self.mdtype != "f32":
@@ -44,6 +60,18 @@ class DecoderTuning:
             raise NotImplementedError("the port implements pinned padding only")
         if self.win % 2 or not 0 < self.acq <= self.win // 2:
             raise ValueError("need an even win and 0 < acq <= win/2")
+        if self.retry_m_mimo < 0:
+            raise ValueError("retry_m_mimo must be >= 0")
+        if self.mimo_detector not in ("mmse", "sic"):
+            raise ValueError(f"mimo_detector {self.mimo_detector!r}: "
+                             "\"mmse\" or \"sic\"")
+        if self.mimo_chest not in ("ls", "mmse"):
+            raise ValueError(f"mimo_chest {self.mimo_chest!r}: \"ls\" or "
+                             "\"mmse\"")
+        if not isinstance(self.mimo_denoise, bool):
+            raise ValueError("mimo_denoise is a bool")
+        if not self.mimo_chest_nv > 0:
+            raise ValueError("mimo_chest_nv must be > 0")
 
     def early_crc(self, cb_crc: bool) -> str | None:
         """CRC flavour for the decoder's early stop (None when disabled)."""

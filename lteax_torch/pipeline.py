@@ -21,6 +21,13 @@ Three decoders share one turbo + CRC tail (:class:`TurboTail`):
   estimate, denoised and interpolated -> MMSE equalizer -> IDFT -> demap
   kernel -> one gather composing the planar layout, the channel
   de-interleaver and the rate de-match -> the same tail.
+- 2x2 MIMO, TM3/TM4 (:func:`make_mimo_batch_decoder`), counterpart of
+  ``make_mimo_batch_decoder`` with ``mimo_planar_boundary=False``: OFDM
+  on 2 rx -> CRS chest per (rx, port) -> per-RE MMSE demix -> demap kernel
+  per codeword -> one de-match gather -> one tail over both codewords; its
+  SIC variant (:func:`make_mimo_sic_batch_decoder`, counterpart of
+  ``make_mimo_sic_batch_decoder``) decodes CW0, re-encodes and cancels it,
+  and decodes CW1 from the clean layer.
 
 A decoder runs on the current CUDA device unless the caller names another
 device; without a CUDA device and without ``device="cpu"`` the factories
@@ -32,18 +39,22 @@ two-program split) is not ported: it existed to avoid TPU relayouts.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from lteax_torch.kernels.demap import demap_planar, planar_sgn_np
 from lteax_torch.kernels.turbo_mlm import TurboStats, turbo_decode_batch
-from lteax_torch.phy import chest, seq
+from lteax_torch.phy import chest, mimo, seq
 from lteax_torch.phy.channels import pusch
-from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_inv,
-                                            desegment_device)
+from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_idx,
+                                            _global_rm_inv, desegment_device)
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.crc import check_crc, crc_matrix, exact_f32_matmul
+from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.grid import pdsch_flat_idx
+from lteax_torch.phy.mod import modulate_arith
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.phy.tuning import DecoderTuning
 
@@ -237,15 +248,17 @@ class TurboTail:
         self.m24b = t(m24b) if geom.info.cb_crc else None
         self.last_stats = TurboStats()
 
-    def __call__(self, llr_d: torch.Tensor):
+    def decode(self, llr_d: torch.Tensor):
+        """-> (codeblock bits (B*C, K) int8, tb_bits, ok, n_iter): the tail
+        with the turbo decoder's raw output (the SIC re-encode reads it)."""
         t, geom = self.tuning, self.geom
         info = geom.info
-        bits, stats = turbo_decode_batch(
+        cb_bits, stats = turbo_decode_batch(
             llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
             ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
             retry_m=self.retry_m, retry_levels=t.retry_levels)
         self.last_stats = stats
-        bits = bits.reshape(-1, info.c, geom.k)
+        bits = cb_bits.reshape(-1, info.c, geom.k)
         if info.cb_crc:
             payload, cb_ok = check_crc(bits, "24B", self.m24b)
         else:
@@ -254,7 +267,10 @@ class TurboTail:
                                device=bits.device)
         tb_bits, ok = check_crc(desegment_device(payload, info), "24A",
                                 self.m24a)
-        return tb_bits, ok & torch.all(cb_ok, dim=-1), stats.n_iter
+        return cb_bits, tb_bits, ok & torch.all(cb_ok, dim=-1), stats.n_iter
+
+    def __call__(self, llr_d: torch.Tensor):
+        return self.decode(llr_d)[1:]
 
 
 def _crc_plans(geom: PdschGeometry):
@@ -476,3 +492,266 @@ def make_pusch_batch_decoder(alloc: pusch.PuschAlloc, rnti: int,
         w, pusch.chest_taps(m_sc), sgn,
         ul_rm_inv_planar(geom, qm, m_sc, npad), *_crc_plans(geom), n_iter,
         noise_var, tuning, device)
+
+
+# -- 2x2 MIMO (TM3 / TM4), MMSE and SIC --------------------------------------
+
+def rm_inv_planar(geom: PdschGeometry, npad: int) -> np.ndarray:
+    """De-match gather indices reading the planar demap output of the
+    extracted PDSCH REs: interleaved codeword bit g = s*qm + j lives at
+    planar flat position j*npad + s.  Untransmitted positions point at
+    ``qm * npad``, the zero column the front appends."""
+    inv, injective = _global_rm_inv(geom)
+    if not injective:
+        raise NotImplementedError("the planar MIMO de-match needs an "
+                                  "injective rate match (no circular-buffer "
+                                  "wrap)")
+    m = geom.qm
+    out = (inv % m).astype(np.int64) * npad + inv // m
+    out[inv == geom.g] = m * npad
+    return out
+
+
+class MimoFront:
+    """Two receive antennas' IQ (2, B, n_samps, 2) -> per-RE 2x2 MMSE
+    demix of the PDSCH REs, the demap kernel once per codeword (each with
+    its own sign planes) and one de-match gather over both codewords.
+
+    ``chest_kind`` is "ls" (with ``denoise``) or "mmse" (the Wiener matrix
+    of the static prior ``chest_nv``); ``sgn`` (2, qm, npad) holds the
+    codewords' planar descramble signs and ``rm_inv`` the de-match map
+    (:func:`rm_inv_planar`)."""
+
+    def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
+                 scheme: str, geom: PdschGeometry, tm: int, cb_index: int,
+                 re_idx: np.ndarray, sgn: np.ndarray, rm_inv: np.ndarray,
+                 chest_kind: str, denoise: bool, chest_nv: float,
+                 device: torch.device):
+        self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
+        self.scheme, self.d_len = scheme, geom.k + 4
+        self.tm, self.cb_index = tm, cb_index
+        self.chest_kind, self.denoise, self.chest_nv = (chest_kind, denoise,
+                                                        chest_nv)
+        t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
+                                          device=device)
+        self.re_idx = t(re_idx, torch.int64)
+        self.sgn = t(sgn, torch.float32)
+        self.rm_inv = t(rm_inv, torch.int64)
+
+    def _estimate(self, grids: torch.Tensor, port: int) -> torch.Tensor:
+        if self.chest_kind == "mmse":
+            return chest.estimate_channel_mmse(grids, self.cfg,
+                                               self.n_cell_id, self.subframe,
+                                               port, self.chest_nv)
+        return chest.estimate_channel(grids, self.cfg, self.n_cell_id,
+                                      self.subframe, port, self.denoise)
+
+    def equalize(self, batch_iq: torch.Tensor):
+        """-> (y (B, rx, M), heff (B, rx, layer, M), nvar (B,), x_hat
+        (B, layer, M), eff_nv (B, layer, M)): the received PDSCH REs, the
+        effective channel, the noise from rx 0 and the MMSE demix."""
+        if batch_iq.shape[0] != 2:
+            raise ValueError(f"2 receive antennas expected, got "
+                             f"{batch_iq.shape[0]}")
+        grids = samples_to_subframe(_iq_to_complex(batch_iq), self.cfg)
+        flat = lambda g: g.reshape(*g.shape[:-2], -1)[..., self.re_idx]
+        # (rx, B, port, M) -> (B, rx, port, M)
+        h = torch.stack([flat(self._estimate(grids, port))
+                         for port in range(2)], dim=2).permute(1, 0, 2, 3)
+        nvar = chest.estimate_noise_var(grids[0], self.cfg, self.n_cell_id,
+                                        self.subframe)
+        y = flat(grids).permute(1, 0, 2)
+        heff = (mimo.heff_tm3(h) if self.tm == 3
+                else mimo.heff_tm4(h, self.cb_index))
+        x, eff = mimo.mmse_demix_2layers(y, heff, nvar[:, None])
+        return y, heff, nvar, x, eff
+
+    def demap(self, x: torch.Tensor, eff: torch.Tensor, q: int):
+        """One codeword's symbols (B, M) and effective noise -> planar LLRs
+        (B, qm, npad) descrambled with codeword q's signs."""
+        return demap_planar(x.real.contiguous(), x.imag.contiguous(),
+                            (1.0 / eff).contiguous(), self.sgn[q],
+                            self.scheme)
+
+    def dematch(self, llr: torch.Tensor) -> torch.Tensor:
+        """Planar LLRs (B', qm, npad) -> (B'*C, 3, K+4)."""
+        return _gather_dematch(llr, self.rm_inv, self.d_len)
+
+    def __call__(self, batch_iq: torch.Tensor) -> torch.Tensor:
+        """-> (2B*C, 3, K+4) de-matched LLRs, b-major in (subframe,
+        codeword)."""
+        _, _, _, x, eff = self.equalize(batch_iq)
+        llr = torch.stack([self.demap(x[:, q], eff[:, q], q)
+                           for q in range(2)], dim=1)
+        return self.dematch(llr.flatten(0, 1))
+
+
+class MimoBatchDecoder(_Decoder):
+    """2x2 MMSE dual-codeword decoder on one device.  Build with
+    :func:`make_mimo_batch_decoder`; call on (2 rx, B, n_samps, 2) IQ;
+    returns (tb_bits (2B, TBS) int8, ok (2B,) bool, n_iter), rows b-major
+    in (subframe, codeword)."""
+
+    def __init__(self, mimo_front: MimoFront, tail: TurboTail,
+                 device: torch.device):
+        super().__init__(tail, device)
+        self.mimo_front = mimo_front
+
+    def front(self, batch_iq: torch.Tensor) -> torch.Tensor:
+        return self.mimo_front(batch_iq)
+
+
+@dataclasses.dataclass
+class SicFront:
+    """What the SIC front hands on: CW0's de-matched LLRs (B*C, 3, K+4),
+    CW1's planar MMSE LLRs (B, qm, npad), and the received REs, effective
+    channel and noise the cancellation needs."""
+    d0: torch.Tensor
+    llr1: torch.Tensor
+    y: torch.Tensor
+    heff: torch.Tensor
+    nvar: torch.Tensor
+
+
+class MimoSicBatchDecoder(_Decoder):
+    """2x2 successive-interference-cancellation decoder: decode CW0 from
+    the MMSE demix, re-encode it (:func:`turbo_reencode_batch`), rate-match,
+    scramble and modulate it, cancel it from the received REs, and decode
+    CW1 from the maximum-ratio combine of layer 1's clean column.
+    Subframes whose CW0 failed its CRC keep CW1's MMSE LLRs.  Same input
+    and output as :class:`MimoBatchDecoder`; ``last_stats`` merges the two
+    tails' schedules (n_iter the larger), ``tail_stats`` keeps both."""
+
+    def __init__(self, mimo_front: MimoFront, tail: TurboTail,
+                 scr0: np.ndarray, rm_idx: np.ndarray, device: torch.device):
+        super().__init__(tail, device)
+        self.mimo_front = mimo_front
+        self.scr0 = torch.as_tensor(scr0, dtype=torch.int32, device=device)
+        self.rm_idx = torch.as_tensor(rm_idx, dtype=torch.int64,
+                                      device=device)
+        self.tail_stats = (TurboStats(), TurboStats())
+
+    @property
+    def last_stats(self) -> TurboStats:
+        s0, s1 = self.tail_stats
+        return TurboStats(n_iter=max(s0.n_iter, s1.n_iter),
+                          syncs=s0.syncs + s1.syncs,
+                          retries=s0.retries + s1.retries)
+
+    def front(self, batch_iq: torch.Tensor) -> SicFront:
+        f = self.mimo_front
+        y, heff, nvar, x, eff = f.equalize(batch_iq)
+        return SicFront(f.dematch(f.demap(x[:, 0], eff[:, 0], 0)),
+                        f.demap(x[:, 1], eff[:, 1], 1), y, heff, nvar)
+
+    def turbo0(self, d0: torch.Tensor):
+        """CW0's tail -> (codeblock bits (B*C, K), tb_bits, ok, n_iter)."""
+        out = self.tail.decode(d0)
+        self.tail_stats = (self.tail.last_stats, self.tail_stats[1])
+        return out
+
+    def cancel(self, cb_bits0: torch.Tensor, ok0: torch.Tensor,
+               f: SicFront) -> torch.Tensor:
+        """CW0's decoded codeblocks -> CW1's de-matched LLRs (B*C, 3, K+4)
+        after the cancellation (the MMSE LLRs where CW0 failed)."""
+        mf, geom = self.mimo_front, self.tail.geom
+        bsz = f.llr1.shape[0]
+        d = turbo_reencode_batch(cb_bits0, geom.k)
+        e = d.reshape(bsz, -1)[:, self.rm_idx]
+        s0 = modulate_arith(torch.remainder(e + self.scr0, 2), mf.scheme)
+        y2 = f.y - f.heff[:, :, 0, :] * s0[:, None, :]
+        x1, eff1 = chest.equalize_mrc(y2, f.heff[:, :, 1, :],
+                                      f.nvar[:, None])
+        llr1 = torch.where(ok0[:, None, None], mf.demap(x1, eff1, 1), f.llr1)
+        return mf.dematch(llr1)
+
+    def turbo1(self, d1: torch.Tensor):
+        """CW1's tail -> (tb_bits, ok, n_iter)."""
+        out = self.tail(d1)
+        self.tail_stats = (self.tail_stats[0], self.tail.last_stats)
+        return out
+
+    def turbo(self, f: SicFront):
+        cb0, tb0, ok0, it0 = self.turbo0(f.d0)
+        tb1, ok1, it1 = self.turbo1(self.cancel(cb0, ok0, f))
+        bsz = tb0.shape[0]
+        return (torch.stack([tb0, tb1], dim=1).reshape(2 * bsz, -1),
+                torch.stack([ok0, ok1], dim=1).reshape(2 * bsz),
+                max(it0, it1))
+
+
+def _mimo_front(cfg: PhyConfig, n_cell_id: int, cfi: int,
+                prbs: tuple[int, ...], subframe: int, rnti: int,
+                geom: PdschGeometry, scheme: str, tm: int, cb_index: int,
+                chest_kind: str, tuning: DecoderTuning,
+                device: torch.device) -> MimoFront:
+    if cfg.n_ant != 2:
+        raise ValueError("2x2 MIMO needs a 2-port cell (PhyConfig(n_ant=2))")
+    if tm not in (3, 4):
+        raise ValueError(f"tm {tm}: 3 (large-delay CDD) or 4 (codebook)")
+    if tm == 4:
+        mimo.codebook_2l(cb_index)
+    re_idx = pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, subframe)
+    if len(re_idx) != geom.n_re:
+        raise ValueError(f"geometry of {geom.n_re} REs, allocation of "
+                         f"{len(re_idx)}")
+    npad = -(-geom.n_re // 128) * 128
+    sgn = np.stack([planar_sgn_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
+                                                   q), geom.g, geom.qm, npad)
+                    for q in range(2)])
+    return MimoFront(cfg, n_cell_id, subframe, scheme, geom, tm, cb_index,
+                     re_idx, sgn, rm_inv_planar(geom, npad), chest_kind,
+                     tuning.mimo_denoise, tuning.mimo_chest_nv, device)
+
+
+def make_mimo_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
+                            prbs: tuple[int, ...], subframe: int, rnti: int,
+                            geom: PdschGeometry, scheme: str, n_iter: int = 6,
+                            tuning: DecoderTuning | None = None, tm: int = 3,
+                            cb_index: int = 0, device=None):
+    """2x2 dual-codeword DL-SCH decoder on a 2-port cell: TM3 (large-delay
+    CDD) or TM4 (codebook ``cb_index``, 0-2).
+
+    The returned callable takes (2 rx, B, n_samps, 2) float IQ on
+    ``device`` (default: the current CUDA device) and returns (tb_bits
+    (2B, TBS) int8, ok (2B,) bool, n_iter), rows b-major in (subframe,
+    codeword).  Per batch: OFDM on both antennas, a CRS chest per (rx,
+    port) (``tuning.mimo_chest``, ``mimo_denoise``), the noise from rx 0,
+    the per-RE MMSE demix, the demap kernel per codeword and one turbo tail
+    over both codewords with retry size ``tuning.retry_m_mimo``.
+    ``tuning.mimo_detector="sic"`` returns
+    :func:`make_mimo_sic_batch_decoder`'s decoder."""
+    tuning = tuning or DecoderTuning()
+    if tuning.mimo_detector == "sic":
+        return make_mimo_sic_batch_decoder(cfg, n_cell_id, cfi, prbs,
+                                           subframe, rnti, geom, scheme,
+                                           n_iter, tuning, tm, cb_index,
+                                           device)
+    device = _resolve_device(device)
+    front = _mimo_front(cfg, n_cell_id, cfi, prbs, subframe, rnti, geom,
+                        scheme, tm, cb_index, tuning.mimo_chest, tuning,
+                        device)
+    return MimoBatchDecoder(front, TurboTail(
+        geom, n_iter, tuning, tuning.retry_m_mimo, *_crc_plans(geom),
+        device), device)
+
+
+def make_mimo_sic_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
+                                prbs: tuple[int, ...], subframe: int,
+                                rnti: int, geom: PdschGeometry, scheme: str,
+                                n_iter: int = 6,
+                                tuning: DecoderTuning | None = None,
+                                tm: int = 3, cb_index: int = 0,
+                                device=None) -> MimoSicBatchDecoder:
+    """The SIC variant of :func:`make_mimo_batch_decoder`, same input and
+    output.  Its front estimates the channel by LS (``mimo_denoise``
+    applies, ``mimo_chest`` does not), as the reference's SIC front does."""
+    tuning = tuning or DecoderTuning()
+    device = _resolve_device(device)
+    front = _mimo_front(cfg, n_cell_id, cfi, prbs, subframe, rnti, geom,
+                        scheme, tm, cb_index, "ls", tuning, device)
+    scr0 = seq.gold_sequence_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
+                                                 0), geom.g)
+    return MimoSicBatchDecoder(front, TurboTail(
+        geom, n_iter, tuning, tuning.retry_m_mimo, *_crc_plans(geom),
+        device), scr0, _global_rm_idx(geom), device)

@@ -46,21 +46,23 @@ def rate_matched_bits(cbs: np.ndarray, geom: PdschGeometry) -> np.ndarray:
 
 
 def pdsch_encode_cbs(cbs: np.ndarray, geom: PdschGeometry, rnti: int,
-                     subframe: int, n_cell_id: int, scheme: str) -> np.ndarray:
+                     subframe: int, n_cell_id: int, scheme: str,
+                     codeword: int = 0) -> np.ndarray:
     """(..., C, K_payload) codeblock payloads -> (..., n_re) complex64
-    symbols in RE-mapping order."""
+    symbols in RE-mapping order, scrambled as codeword ``codeword``."""
     e = rate_matched_bits(cbs, geom)
-    c = seq.gold_sequence_np(seq.pdsch_c_init(rnti, subframe, n_cell_id),
-                             geom.g)
+    c = seq.gold_sequence_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
+                                              codeword), geom.g)
     return modulate((e + c) % 2, scheme)
 
 
-def crs_grid_values(cfg: PhyConfig, n_cell_id: int, subframe: int) -> np.ndarray:
-    """Port-0 CRS values in ``crs_flat_idx`` order."""
+def crs_grid_values(cfg: PhyConfig, n_cell_id: int, subframe: int,
+                    port: int = 0) -> np.ndarray:
+    """The CRS values of ``port`` in ``crs_flat_idx`` order."""
     return np.concatenate([
         seq.crs_values(n_cell_id, 2 * subframe + sym // cfg.n_sym_slot,
                        sym % cfg.n_sym_slot, cfg.n_rb_dl)
-        for sym in crs_symbols(0, cfg)])
+        for sym in crs_symbols(port, cfg)])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -385,3 +385,46 @@ def test_harq_decoder_on_card_matches_cpu(dev):
     ok0 = make_batch_decoder(*cells[0].decoder_args())(
         torch.from_numpy(iq[0]).to(dev))[1]
     assert not ok0.any()                         # rv 0 alone decodes none
+
+
+@pytest.mark.parametrize("detector", ["mmse", "sic"])
+def test_mimo_decoder_on_card_matches_cpu(dev, detector):
+    """TM3 at 25 PRB, MCS 28 (C=3), 4 subframes at 25 dB: as
+    ``_card_vs_cpu``; the SIC front's two LLR sets each within 1e-4 of
+    their largest."""
+    from lteax_torch.phy.tuning import DecoderTuning
+    from lteax_torch.pipeline import make_mimo_batch_decoder
+    from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
+    cell = MimoCell(n_rb_dl=25, mcs=28)
+    iq, tb = mimo_subframes(cell, 4, snr_db=25.0, seed=7)
+    t = DecoderTuning(mimo_detector=detector, retry_m_mimo=4)
+    before = (demap.LAUNCHES, tm.LAUNCHES)
+    dec = make_mimo_batch_decoder(*cell.decoder_args(), tuning=t)
+    dec_cpu = make_mimo_batch_decoder(*cell.decoder_args(), tuning=t,
+                                      device="cpu")
+    x = torch.from_numpy(iq)
+    if detector == "mmse":
+        _card_vs_cpu(dec, dec_cpu, x, decoder_rows(tb))
+    else:
+        f_gpu, f_cpu = dec.front(x.to(dev)), dec_cpu.front(x)
+        for a, b in ((f_gpu.d0, f_cpu.d0), (f_gpu.llr1, f_cpu.llr1)):
+            assert float((a.cpu() - b).abs().max()) <= \
+                1e-4 * float(b.abs().max())
+        out_gpu, out_cpu = dec.turbo(f_gpu), dec_cpu.turbo(f_cpu)
+        assert torch.equal(out_gpu[0].cpu(), out_cpu[0])
+        assert torch.equal(out_gpu[1].cpu(), out_cpu[1])
+        assert out_gpu[2] == out_cpu[2]
+        assert out_cpu[1].all() and np.array_equal(out_cpu[0].numpy(),
+                                                   decoder_rows(tb))
+    assert demap.LAUNCHES == before[0] + (2 if detector == "mmse" else 3)
+    assert tm.LAUNCHES > before[1]
+
+
+def test_reencode_on_card_is_exact(dev):
+    """The f32 0/1 matmul with TF32 off at K = 6144: equal to the numpy
+    encoder."""
+    from lteax_torch.phy.fec.reencode import turbo_reencode_batch
+    from lteax_torch.phy.fec.turbo import turbo_encode
+    bits = np.random.default_rng(1).integers(0, 2, (64, 6144)).astype(np.int8)
+    got = turbo_reencode_batch(torch.from_numpy(bits).to(dev), 6144)
+    np.testing.assert_array_equal(got.cpu().numpy(), turbo_encode(bits, 6144))

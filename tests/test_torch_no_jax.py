@@ -64,7 +64,9 @@ def test_no_import_statement_names_lteax_or_jax():
 
 @pytest.mark.parametrize("factory", ["make_batch_decoder",
                                      "make_pusch_batch_decoder",
-                                     "make_batch_harq_decoder"])
+                                     "make_batch_harq_decoder",
+                                     "make_mimo_batch_decoder",
+                                     "make_mimo_sic_batch_decoder"])
 def test_decoders_need_a_card_unless_asked_for_the_cpu(factory):
     """Without a ``device`` and without CUDA the factory raises instead of
     running on the CPU; ``device="cpu"`` builds."""
@@ -72,6 +74,7 @@ def test_decoders_need_a_card_unless_asked_for_the_cpu(factory):
     import lteax_torch.pipeline as pipeline
     from lteax_torch.phy.channels.pusch import PuschAlloc
     from lteax_torch.sim.dl_gen import DlCell, harq_decoder_args
+    from lteax_torch.sim.mimo_gen import MimoCell
     from lteax_torch.sim.ul_gen import UlCell
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -82,6 +85,10 @@ def test_decoders_need_a_card_unless_asked_for_the_cpu(factory):
             UlCell(alloc=PuschAlloc(6, 0, 712, 2)).decoder_args(),
         "make_batch_harq_decoder": harq_decoder_args(
             [cell, dataclasses.replace(cell, subframe=2, rv=2)]),
+        "make_mimo_batch_decoder":
+            MimoCell(n_rb_dl=6, cfi=2, mcs=15).decoder_args(),
+        "make_mimo_sic_batch_decoder":
+            MimoCell(n_rb_dl=6, cfi=2, mcs=15).decoder_args(),
     }[factory]
     make = getattr(pipeline, factory)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -846,3 +846,46 @@ def test_harq_transmissions_match_reference_encoder(mcs, rvs):
             jnp.asarray(cb), geom_r, c.rnti, c.subframe, c.n_cell_id,
             c.scheme)) for cb in cbs])
         np.testing.assert_array_equal(syms, syms_r)
+
+
+def test_mimo_codebooks_and_cdd_sign():
+    from lteax.phy import mimo as mimo_ref
+    from lteax_torch.phy import mimo
+    for mine, ref in ((mimo.CODEBOOK_2TX_1L, mimo_ref.CODEBOOK_2TX_1L),
+                      (mimo.CODEBOOK_2TX_2L, mimo_ref.CODEBOOK_2TX_2L)):
+        assert len(mine) == len(ref)
+        for a, r in zip(mine, ref):
+            assert a.dtype == r.dtype
+            np.testing.assert_array_equal(a, r)
+    for n in (1, 2, 7, 14400):
+        got, ref = mimo._cdd_sign(n), mimo_ref._cdd_sign(n)
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("k", [40, 6144])
+def test_rsc_matrix(k):
+    from lteax.phy.fec import reencode as reencode_ref
+    from lteax_torch.phy.fec import reencode
+    got, ref = reencode._rsc_matrix(k), reencode_ref._rsc_matrix(k)
+    assert got.dtype == ref.dtype and got.shape == (k, k + 6)
+    np.testing.assert_array_equal(got, ref)
+    for s in range(8):
+        assert reencode._rsc_tails_np(s) == reencode_ref._rsc_tails_np(s)
+        for b in (0, 1):
+            assert reencode._rsc_step_np(s, b) == reencode_ref._rsc_step_np(s, b)
+
+
+@pytest.mark.parametrize("n_rb", N_RBS, ids=lambda n: f"{n}prb")
+def test_wiener_matrices(n_rb):
+    """The MMSE chest's correlations and host-inverted Wiener matrices."""
+    cfg, cfg_r = PhyConfig(n_rb_dl=n_rb, n_ant=2), \
+        RefPhyConfig(n_rb_dl=n_rb, n_ant=2)
+    for shift, tau, nv in ((0, 5.0, 3e-3), (3, 5.0, 1e-2), (5, 2.5, 3e-3)):
+        for a, r in zip(chest._mmse_pilot_corr(cfg, shift, tau),
+                        chest_ref._mmse_pilot_corr(cfg_r, shift, tau)):
+            np.testing.assert_array_equal(a, r)
+        got = chest._wiener_matrix(cfg, shift, tau, nv)
+        ref = chest_ref._wiener_matrix(cfg_r, shift, tau, nv)
+        assert got.dtype == ref.dtype == np.complex64
+        np.testing.assert_array_equal(got, ref)
