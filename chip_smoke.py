@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-seven paths, each with the launch counters set to 0 just before it and
+nine paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -19,8 +19,11 @@ read just after:
    16 captures of 20 ms at 20 Msps from ``lteax_torch.sim.cell_gen``
    (seed 0), 12 live cells and 4 dead channels, resampled 192/125 to
    30.72 Msps; every live cell must report the cell id, antenna count and
-   MIB it was made with, every dead channel none; one capture's scan on
-   the card must match its scan on the CPU.
+   MIB it was made with and the SIB its first subframe 5 carries (SIB1 in
+   an even frame, SIB2 in an odd one) with no SI CRC failure, every dead
+   channel none; one capture's scan on the card must match its scan on the
+   CPU; each live capture is also scanned with and without the SI stage,
+   in turns, to give the SI stage's cost.
    The PSS correlator runs its default, the bf16 tensor-core kernel;
    ``lteax_torch.phy.sync.find_pss(..., mdtype="f32")`` on one capture
    drives the direct f32 kernel and must give the same root within one
@@ -51,6 +54,19 @@ read just after:
    the same IQ, SIC decoding all 384 and no fewer than MMSE; both decoders'
    card decode of 4 subframes equal to the CPU's; the SIC stages and the
    re-encode timed; the turbo kernel at the MIMO shape, C = 6656.
+8. SI decode (``[si]``) through ``scan_channels(..., prescan=True)``: four
+   40 ms captures of 20 MHz cells (SNR 10-20 dB, CFO within 5 kHz): one
+   port with DCI 1A grants, two ports with DCI 1C grants and two paged
+   S-TMSIs, four ports, and one at 20 Msps through the resampler; each
+   must report the SIB1, SIB2 and paging it was made with, and one
+   channel's scan on the card must equal its scan on the CPU in every
+   integer field, the MIB and the SIBs.  The turbo kernel at the SI shape
+   (C = 1, K 224 and 408, window 32) bit for bit against its plain version.
+9. A wrapping rate match (``[dl-wrap]``): the DL decoder at 100 PRB MCS 0
+   (TBS 2792, C=1, K=2816, G 30000 over 3 * 2820: four cycles of the
+   circular buffer) on 256 subframes at ``WRAP_SNR_DB``, every transport
+   block decoded to the bits sent, the card's decode of 4 equal to the
+   CPU's.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -64,6 +80,7 @@ below.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -71,6 +88,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import lteax_torch.apps.file_scan as file_scan
 import lteax_torch.apps.scanner as scanner
@@ -114,6 +132,15 @@ MIMO_TM3 = MimoCell()                    # bench/mimo_throughput.py defaults
 MIMO_TM4 = MimoCell(mcs=24, tm=4, cb_index=0)
 MIMO_TM4_BATCH, MIMO_TM4_SNR_DB = 192, 28.0
 MIMO_REPS = 20
+SI_S = 0.04                              # 40 ms per [si] capture
+SI_TMSI = (0x0123456789, 0x0200000042)   # S-TMSIs paged on one [si] cell
+WRAP_CELL = DlCell(mcs=0)    # 100 PRB MCS 0: TBS 2792, C=1, K=2816, 4 cycles
+WRAP_CYCLES = 4
+WRAP_SNR_DB = -1.0           # 256/256 in 2 iterations (one compacted retry)
+WRAP_REPS = 20
+# (C, n, win, acq) of the SI path's turbo decode: one codeblock, K 224 and
+# 408, the single-subframe window of 32
+TURBO_SI = ((1, 227, 32, 16), (1, 411, 32, 16))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet and the Hopper
 # white paper): device memory, f32 outside the tensor cores counted as
@@ -174,6 +201,26 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float | None:
+    """Mean device time of the kernels whose name holds ``kernel`` in one
+    call of ``fn``, from ``torch.profiler`` over ``reps`` calls (CUDA
+    events around back-to-back calls of a tiny launch measure the host's
+    launch rate instead); None when the profiler sees no such kernel."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -318,6 +365,32 @@ def check_turbo_mimo(dev) -> dict:
         u, v, a0, b0, win, acq), 1)
     return {"shape": [c, n, win, acq], "max_abs_err": max(errs), "ms": ms,
             "plain_ms": plain_ms,
+            **bound(4 * (3 * c * n + 4 * c * n_w * 8),
+                    c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)}
+
+
+def check_turbo_si(dev) -> dict:
+    """The half-iteration kernel vs plain at the SI path's shapes (C = 1,
+    K 224 and 408, win 32, acq 16), timed at K 408; counted as
+    :func:`check_turbo`.  Thirteen windows in four blocks of one warp:
+    back-to-back calls time the wrapper's launch rate (``ms``), the
+    profiler the kernel's own device time (``device_ms``)."""
+    errs = []
+    for c, n, win, acq in TURBO_SI:
+        errs += turbo_equal_plain(turbo_inputs(c, n, win, SEED + n, dev), win,
+                                  acq)
+    c, n, win, acq = TURBO_SI[-1]
+    n_w = -(-n // win)
+    u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 6, dev)
+    ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
+                                                           win, acq), 100)
+    plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
+        u, v, a0, b0, win, acq), 3)
+    dev_ms = device_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
+                                                            win, acq), 20,
+                       "turbo_half")
+    return {"shape": [c, n, win, acq], "max_abs_err": max(errs), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
             **bound(4 * (3 * c * n + 4 * c * n_w * 8),
                     c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)}
 
@@ -536,7 +609,18 @@ def scanner_captures() -> tuple[list, list]:
     return chans, caps
 
 
-def check_scan_reports(reports: list, caps: list) -> None:
+def _as_json(msg) -> dict:
+    """A message dataclass as the scan report serialises it."""
+    return json.loads(json.dumps(dataclasses.asdict(msg)))
+
+
+def check_scan_reports(reports: list, caps: list, all_si: bool = False
+                       ) -> None:
+    """Each live channel reports the cell id, n_ant and MIB it was made
+    with, no SI CRC failure, every SIB it reports equal to the one sent,
+    and at least the SIB of its first whole frame's subframe 5 (SIB1 in an
+    even frame, SIB2 in an odd one) — with ``all_si``, SIB1, SIB2 and the
+    paging sent.  Each dead channel reports nothing."""
     for d, c in zip(reports, caps):
         if c is None:
             if d.get("mib") is not None or \
@@ -554,6 +638,18 @@ def check_scan_reports(reports: list, caps: list) -> None:
             raise AssertionError(f"channel {d['channel']}: reported "
                                  f"(cell, n_ant, n_rb, phich, sfn) {got}, "
                                  f"sent {want}")
+        sent = {"sib1": _as_json(cell.sib1()), "sib2": _as_json(cell.sib2())}
+        need = ("sib1", "sib2") if all_si else \
+            ("sib1" if cap.sfn % 2 == 0 else "sib2",)
+        paging = [hex(x) for x in cell.paging_tmsi] or None
+        if d.get("sib_crc_fails") != 0 or \
+                any(d.get(k) is None for k in need) or \
+                any(d.get(k) not in (None, sent[k]) for k in sent) or \
+                (all_si and d.get("paging") != paging):
+            raise AssertionError(
+                f"channel {d['channel']}: SI {d.get('sib1')}, "
+                f"{d.get('sib2')}, paging {d.get('paging')}, CRC failures "
+                f"{d.get('sib_crc_fails')}; sent {sent}, paging {paging}")
 
 
 def scan_card_vs_cpu(chan, dev, card: str) -> dict:
@@ -613,50 +709,92 @@ def run_scanner(dev, card: str) -> dict:
     chans, caps = scanner_captures()
     print(f"[scan-gen] {len(chans)} captures of {SCAN_S * 1e3:.0f} ms at "
           f"{SDR_RATE / 1e6:.0f} Msps: {time.perf_counter() - t0:.2f} s")
-    runs = []
-    for tag in ("first", "second"):
-        scanner.STAGE_SECONDS.clear()
-        host.READS = 0
-        poly_mod.LAUNCHES = 0
-        pss_mod.CORR_LAUNCHES = pss_mod.CORR_BF16_LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reports = scanner.scan_channels(chans, SCAN_CFG, prescan=True,
-                                        device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"resample_poly": poly_mod.LAUNCHES,
-                    "pss_corr_mag_bf16": pss_mod.CORR_BF16_LAUNCHES}
-        check_scan_reports(reports, caps)
-        for name, cnt in launches.items():
-            if cnt <= 0:
-                raise AssertionError(f"the scanner path never launched "
-                                     f"{name}")
-        if pss_mod.CORR_LAUNCHES:
-            raise AssertionError("the scanner path launched the f32 "
-                                 "correlator: bf16 is its default")
-        runs.append({"tag": tag, "wall_s": wall, "stages":
-                     dict(scanner.STAGE_SECONDS), "reads": host.READS,
-                     "launches": launches})
-    n = len(chans)
-    for r in runs:
-        st = r["stages"]
-        print(f"[scanner] {r['tag']} run: {N_LIVE}/{N_LIVE} live cells with "
-              f"the sent id, n_ant and MIB, {N_DEAD}/{N_DEAD} dead flagged; "
-              f"wall {r['wall_s'] * 1e3 / n:.2f} ms per channel (resample "
-              f"{st.get('resample', 0) * 1e3 / n:.2f}, prescan "
-              f"{st.get('prescan', 0) * 1e3 / n:.2f}, scan "
-              f"{st.get('scan', 0) * 1e3 / N_LIVE:.2f} per live channel); "
-              f"host reads {r['reads']} ({r['reads'] / n:.2f} per channel); "
-              f"launches {r['launches']} ({card})")
+    runs = [scan_counted(tag, chans, caps, dev, card)
+            for tag in ("first", "second")]
     f32 = find_pss_f32(chans[0], dev)
     diffs = scan_card_vs_cpu(chans[0], dev, card)
+    si = si_cost(chans, caps, dev, card)
     return {"wall_s": runs[1]["wall_s"], "stages": runs[1]["stages"],
             "reads": runs[1]["reads"],
             "launches": {**runs[1]["launches"],
                          "pss_corr_mag": f32["launches"]},
+            "turbo_launches": runs[1]["turbo_launches"],
+            "demap_launches": runs[1]["demap_launches"],
             "first_wall_s": runs[0]["wall_s"],
-            "find_pss_f32_idx_moved": f32["idx_moved"], "cpu_vs_card": diffs}
+            "find_pss_f32_idx_moved": f32["idx_moved"], "cpu_vs_card": diffs,
+            "si_cost": si}
+
+
+def scan_counted(tag: str, chans: list, caps: list, dev, card: str,
+                 all_si: bool = False) -> dict:
+    """One run of ``scan_channels(prescan=True)`` with the counts set to 0
+    just before it and read just after, its reports checked."""
+    scanner.STAGE_SECONDS.clear()
+    host.READS = 0
+    poly_mod.LAUNCHES = turbo_mod.LAUNCHES = demap_mod.LAUNCHES = 0
+    pss_mod.CORR_LAUNCHES = pss_mod.CORR_BF16_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports = scanner.scan_channels(chans, SCAN_CFG, prescan=True,
+                                    device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"resample_poly": poly_mod.LAUNCHES,
+                "pss_corr_mag_bf16": pss_mod.CORR_BF16_LAUNCHES}
+    turbo, demap = turbo_mod.LAUNCHES, demap_mod.LAUNCHES
+    check_scan_reports(reports, caps, all_si)
+    for name, cnt in {**launches, "turbo_half_iteration": turbo}.items():
+        if cnt <= 0:
+            raise AssertionError(f"the scanner path never launched {name}")
+    if pss_mod.CORR_LAUNCHES:
+        raise AssertionError("the scanner path launched the f32 "
+                             "correlator: bf16 is its default")
+    if demap:
+        raise AssertionError(f"the scanner path launched the demap kernel "
+                             f"{demap} times: its SI stage demaps each RE "
+                             f"set in plain torch, as the reference does")
+    n = len(chans)
+    n_live = sum(c is not None for c in caps)
+    st = dict(scanner.STAGE_SECONDS)
+    sibs = sum((d.get("sib1") is not None) + (d.get("sib2") is not None)
+               for d in reports)
+    print(f"[{'si' if all_si else 'scanner'}] {tag} run: {n_live}/{n_live} "
+          f"live cells with the sent id, n_ant, MIB and SIBs ({sibs} SIBs"
+          f"{', paging' if all_si else ''}), {n - n_live}/{n - n_live} dead "
+          f"flagged; wall {wall * 1e3 / n:.2f} ms per channel (resample "
+          f"{st.get('resample', 0) * 1e3 / n:.2f}, prescan "
+          f"{st.get('prescan', 0) * 1e3 / n:.2f}, scan "
+          f"{st.get('scan', 0) * 1e3 / n_live:.2f} per live channel); host "
+          f"reads {host.READS} ({host.READS / n_live:.2f} per live channel); "
+          f"launches {launches}, turbo_half_iteration {turbo} "
+          f"({turbo / n_live:.1f} per live scan) ({card})")
+    return {"tag": tag, "wall_s": wall, "stages": st, "reads": host.READS,
+            "launches": launches, "turbo_launches": turbo,
+            "demap_launches": demap, "reports": reports}
+
+
+def si_cost(chans: list, caps: list, dev, card: str) -> dict:
+    """Each live capture, resampled on the card, scanned without the SI
+    stage (``max_si_subframes=0``) and with it, in turns, three times:
+    median ms per live channel of each and their difference."""
+    xs = [poly_mod.resample_poly(torch.from_numpy(read_iq(ch.path)).to(dev),
+                                 192, 125)
+          for ch, c in zip(chans, caps) if c is not None]
+    times = {0: [], 64: []}
+    for _ in range(3):
+        for x in xs:
+            for m in (0, 64):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                file_scan.scan(x, SCAN_CFG, max_si_subframes=m)
+                torch.cuda.synchronize()
+                times[m].append(time.perf_counter() - t0)
+    no_si, with_si = (float(np.median(times[m])) * 1e3 for m in (0, 64))
+    print(f"[scanner] scan per live channel (median of {len(times[0])}, in "
+          f"turns): without SI {no_si:.2f} ms, with SI {with_si:.2f} ms, SI "
+          f"stage {with_si - no_si:.2f} ms ({card})")
+    return {"no_si_ms": no_si, "with_si_ms": with_si,
+            "si_ms": with_si - no_si}
 
 
 def run_sweep(dev, card: str) -> dict:
@@ -973,6 +1111,107 @@ def run_mimo(dev, card: str) -> dict:
                         **stages}}
 
 
+def si_captures() -> tuple[list, list]:
+    """Four 40 ms captures of 20 MHz cells (seed SEED + 7) under
+    ``WORK/si``: one port with DCI 1A grants; two ports with DCI 1C grants
+    and ``SI_TMSI`` paged; four ports; two ports at 20 Msps (the scanner
+    resamples it).  CFO uniform in +-5 kHz, SNR in 10-20 dB, start offset
+    in [0, 10 ms), a random start SFN."""
+    rng = np.random.default_rng(SEED + 7)
+    work = WORK / "si"
+    work.mkdir(parents=True, exist_ok=True)
+    nsf10 = 10 * SCAN_CFG.n_samps_subframe
+    specs = ((1, "1a", (), None), (2, "1c", SI_TMSI, None),
+             (4, "1a", (), None), (2, "1a", (), SDR_RATE))
+    chans, caps = [], []
+    for k, (n_ant, dci, tmsi, rate) in enumerate(specs):
+        cell = cell_gen.Cell(n_rb_dl=100, n_cell_id=int(rng.integers(504)),
+                             n_ant=n_ant, si_dci=dci, paging_tmsi=tmsi,
+                             tac=0x3000 + k)
+        cap = cell_gen.capture(
+            cell, SI_S, sfn0=int(rng.integers(1024)),
+            offset=int(rng.integers(0, nsf10)),
+            cfo_hz=float(rng.uniform(-5e3, 5e3)),
+            snr_db=float(rng.uniform(10.0, 20.0)), rate_hz=rate,
+            seed=SEED + 20 + k)
+        path = work / f"si{k}.fc32"
+        write_iq(str(path), cap.iq)
+        chans.append(scanner.Channel(str(4000 + k), str(path), rate_hz=rate))
+        caps.append((cell, cap))
+    return chans, caps
+
+
+def run_si(dev, card: str) -> dict:
+    """The SI path: four captures through ``scan_channels(prescan=True)``,
+    twice (the first run warms caches, the second is reported), each
+    reporting the SIB1, SIB2 and paging it was made with; the 1C /
+    paging channel's report on the card equal to its report on the CPU in
+    every integer field, the MIB, the SIBs and paging."""
+    t0 = time.perf_counter()
+    chans, caps = si_captures()
+    print(f"[si-gen] {len(chans)} captures of {SI_S * 1e3:.0f} ms at 20 MHz:"
+          f" {time.perf_counter() - t0:.2f} s")
+    runs = [scan_counted(tag, chans, caps, dev, card, all_si=True)
+            for tag in ("first", "second")]
+    run = runs[1]
+    k6 = run["launches"]["resample_poly"]
+    if k6 <= 0:
+        raise AssertionError("the SI path's SDR capture never launched "
+                             "resample_poly")
+    card_rep = run["reports"][1]
+    t0 = time.perf_counter()
+    cpu_rep = scanner.scan_channels([chans[1]], SCAN_CFG, device="cpu")[0]
+    cpu_s = time.perf_counter() - t0
+    floats = ("cfo_hz", "rsrp_dbfs", "snr_db", "evm_pct")
+    differ = [k for k in card_rep if k not in floats
+              and card_rep[k] != cpu_rep.get(k)]
+    gaps = {k: abs(card_rep[k] - cpu_rep[k]) for k in floats}
+    print(f"[si-cpu-vs-card] channel {chans[1].label}: every integer field, "
+          f"the MIB, SIB1, SIB2 and paging equal: {not differ}; |diff| "
+          f"{gaps}; CPU scan {cpu_s:.2f} s ({card})")
+    if differ or gaps["cfo_hz"] > 1.0 or gaps["rsrp_dbfs"] > 0.1 or \
+            gaps["snr_db"] > 0.1:
+        raise AssertionError(f"SI scan on the card vs the CPU: {differ}, "
+                             f"{gaps}")
+    n = len(chans)
+    return {"wall_ms_per_channel": run["wall_s"] * 1e3 / n,
+            "first_wall_ms_per_channel": runs[0]["wall_s"] * 1e3 / n,
+            "stages": run["stages"], "reads": run["reads"],
+            "launches": {**run["launches"],
+                         "turbo_half_iteration": run["turbo_launches"],
+                         "demap": run["demap_launches"]}}
+
+
+def run_dl_wrap(dev, card: str) -> dict:
+    """A rate match that wraps: 256 subframes of 100 PRB MCS 0 through the
+    DL decoder (the demap kernel, the de-match as a sum of 4 cycle gathers,
+    the turbo kernel), every transport block decoded to the bits sent."""
+    geom = WRAP_CELL.geom
+    t0 = time.perf_counter()
+    iq, tb_ref = dl_subframes(WRAP_CELL, BATCH, WRAP_SNR_DB, seed=SEED)
+    print(f"[dl-wrap-gen] {BATCH} subframes, MCS {WRAP_CELL.mcs}, TBS "
+          f"{geom.tbs}, C={geom.info.c}, K={geom.k}, G={geom.g}, "
+          f"{WRAP_SNR_DB} dB: {time.perf_counter() - t0:.2f} s")
+    dec = make_batch_decoder(*WRAP_CELL.decoder_args(), device=dev)
+    cycles = dec.dl_front.grid_inv.shape[0]
+    if cycles != WRAP_CYCLES:
+        raise AssertionError(f"dl-wrap: a plan of {cycles} cycles, "
+                             f"{WRAP_CYCLES} expected")
+    x = torch.from_numpy(iq).to(dev)
+    out = decode_counted("dl-wrap", dec, x, tb_ref, BATCH)
+    card_vs_cpu("dl-wrap", dec, make_batch_decoder(
+        *WRAP_CELL.decoder_args(), device="cpu"), x[:4])
+    t_med, t_p90 = time_decode(dec, x, WRAP_REPS)
+    front_ms = cuda_time_ms(lambda: dec.front(x), 5)
+    mbps = BATCH * geom.tbs / t_med / 1e6
+    print(f"[dl-wrap] decode B={BATCH}, {cycles} cycles: median "
+          f"{t_med * 1e3:.3f} ms/batch, p90 {t_p90 * 1e3:.3f} (n={WRAP_REPS})"
+          f", {mbps:.2f} Mbit/s; front {front_ms:.3f} ms ({card})")
+    return {**out, "cycles": cycles, "decode_ms": t_med * 1e3,
+            "decode_p90_ms": t_p90 * 1e3, "mbit_per_s": mbps,
+            "front_ms": front_ms}
+
+
 def run_probe(dev, card: str) -> dict:
     """The probe's entry point, as its CLI drives it."""
     acs_mod.LAUNCHES = 0
@@ -1032,6 +1271,7 @@ def main() -> None:
                      ul_dec.ul_front.sgn.numpy(), ul_cell.alloc.n_re,
                      ul_cell.alloc.scheme, dev)
     turbo_mimo = timed("check_turbo", check_turbo_mimo, dev)
+    turbo_si = timed("check_turbo", check_turbo_si, dev)
     kernels = [timed("check_demap", check_demap, "demap", dl_sgn,
                      cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
                timed("check_turbo", check_turbo, cell, dev),
@@ -1064,6 +1304,14 @@ def main() -> None:
           f"bound {turbo_mimo['bound_ms']:.4f} ms by {turbo_mimo['bound_by']} "
           f"({turbo_mimo['bytes'] / 1e6:.1f} MB, {turbo_mimo['ops'] / 1e9:.2f}"
           f" G operations) ({card})")
+    print(f"[kernel] turbo_half_iteration at the SI shapes {TURBO_SI}: "
+          f"bit-exact vs plain; kernel at {turbo_si['shape']} "
+          f"{turbo_si['ms']:.4f} ms a call back to back, device time "
+          f"{_ms(turbo_si['device_ms'])} (profiler), plain "
+          f"{turbo_si['plain_ms']:.4f} ms, "
+          f"bound {turbo_si['bound_ms']:.6f} ms by {turbo_si['bound_by']} "
+          f"({turbo_si['bytes'] / 1e3:.1f} kB, {turbo_si['ops'] / 1e6:.3f} M "
+          f"operations) ({card})")
     print(f"[kernel] demap (UL shape) is also the MIMO decoders' launch: "
           f"(256, 14400) 64QAM, npad 14464, one a codeword ({card})")
     acs = kernels[-1]
@@ -1079,10 +1327,12 @@ def main() -> None:
     launches = dict(dl["launches"])
     scan_out = timed("scanner", run_scanner, dev, card)
     launches.update(scan_out["launches"])
+    si_out = timed("si", run_si, dev, card)
     sweep = timed("sweep", run_sweep, dev, card)
     launches["pss_detect_bf16"] = sweep["launches"]
     launches["pss_detect"] = sweep["f32"]["launches"]
     ul = timed("ul", run_ul, ul_cell, dev, card)
+    wrap = timed("dl_wrap", run_dl_wrap, dev, card)
     harq = timed("harq", run_harq, cell, dev, card)
     probe = timed("probe", run_probe, dev, card)
     mimo_out = timed("mimo", run_mimo, dev, card)
@@ -1094,8 +1344,12 @@ def main() -> None:
     by_path = {name: {"dl": dl["launches"][name], "ul": ul["launches"][name],
                       "harq": harq["launches"][name],
                       "mimo": mimo_out["tm3"]["launches"][name],
-                      "mimo_sic": mimo_out["tm4_sic"]["launches"][name]}
+                      "mimo_sic": mimo_out["tm4_sic"]["launches"][name],
+                      "dl_wrap": wrap["launches"][name],
+                      "si": si_out["launches"][name]}
                for name in ("demap", "turbo_half_iteration")}
+    by_path["turbo_half_iteration"]["scanner"] = scan_out["turbo_launches"]
+    by_path["demap"]["scanner"] = scan_out["demap_launches"]
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
@@ -1115,6 +1369,17 @@ def main() -> None:
         "turbo_mimo_shape": {key: turbo_mimo[key] for key in
                              ("shape", "ms", "plain_ms", "bound_ms",
                               "bound_by", "max_abs_err")},
+        "turbo_si_shape": {key: turbo_si[key] for key in
+                           ("shape", "ms", "device_ms", "plain_ms",
+                            "bound_ms", "bound_by", "max_abs_err")},
+        "si": {key: si_out[key] for key in
+               ("wall_ms_per_channel", "first_wall_ms_per_channel",
+                "stages", "reads", "launches")},
+        "dl_wrap": {key: wrap[key] for key in
+                    ("cycles", "decode_ms", "decode_p90_ms", "mbit_per_s",
+                     "front_ms", "n_iter", "syncs", "retries", "peak_gb")},
+        "scan_si_cost": scan_out["si_cost"],
+        "scan_turbo_launches": scan_out["turbo_launches"],
         "mimo": {
             "tm3": {key: mimo_out["tm3"][key] for key in
                     ("decode_ms", "decode_p90_ms", "mbit_per_s", "front_ms",

@@ -4,8 +4,9 @@ counterpart of ``lteax.apps.scanner`` (single process, one device).
 Captures at other rates are polyphase-resampled to the native LTE rate
 (the resampler kernel), an optional batched PSS prescan (the correlator
 kernel) skips dead channels, and each live channel runs the capture
-scanner :func:`lteax_torch.apps.file_scan.scan` up to the MIB.  The
-reference's multi-host worker (``--multihost``) is not ported.
+scanner :func:`lteax_torch.apps.file_scan.scan`: cell search, MIB, SIBs
+and paging.  The reference's multi-host worker (``--multihost``) is not
+ported.
 
     python -m lteax_torch.apps.scanner LABEL=PATH[:FMT[:RATE_HZ]] ... \\
         [--n-rb 100] [--prescan] [--checkpoint FILE] [--device cuda]
@@ -72,7 +73,7 @@ def _native(ch: Channel, cfg: PhyConfig, device) -> torch.Tensor:
 def scan_channel(ch: Channel, cfg: PhyConfig, device="cuda") -> ScanResult:
     x = _native(ch, cfg, device)
     with _stage("scan", torch.device(device)):
-        return scan(x, cfg, max_si_subframes=0)
+        return scan(x, cfg)
 
 
 def prescan_channels(chans: list[Channel], cfg: PhyConfig,
@@ -151,7 +152,7 @@ def _parse_channels(specs) -> list[Channel]:
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="multi-carrier LTE cell scanner over IQ captures "
-                    "(cell search + MIB)")
+                    "(cell search, MIB, SIBs, paging)")
     p.add_argument("captures", nargs="+",
                    help="LABEL=PATH[:FMT[:RATE_HZ]] per channel")
     p.add_argument("--n-rb", type=int, default=6)

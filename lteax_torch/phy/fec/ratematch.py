@@ -1,8 +1,8 @@
 """Turbo and convolutional rate-matching plans (36.212 §5.1.4.1-2).
 
-Numpy copies of ``lteax.phy.fec.ratematch.turbo_rm_indices`` and
-``conv_rm_indices`` (whose module imports jax); the tests hold them equal
-to the originals.  The whole rate match — sub-block interleave, circular
+Numpy copies of ``lteax.phy.fec.ratematch.turbo_rm_indices``,
+``conv_rm_indices`` and ``unmatch_inv_cycles`` (whose module imports jax);
+the tests hold them equal to the originals.  The whole rate match — sub-block interleave, circular
 buffer, NULL skipping, rv offset — is one index vector
 ``e = d_flat[idx]``; de-matching is its inverse (turbo:
 ``lteax_torch.phy.channels.pdsch``; convolutional: :func:`rate_unmatch`).
@@ -86,36 +86,51 @@ def rate_match(d: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return d.reshape(*d.shape[:-2], -1)[..., idx]
 
 
-@lru_cache(maxsize=None)
-def _unmatch_cycles(idx_key: bytes, d_total: int) -> np.ndarray:
-    """(n_cycles, d_total) int64: row k holds, for each d-flat position,
-    the e-position of its (k+1)-th transmission, or E (a zero slot)."""
-    idx = np.frombuffer(idx_key, dtype=np.int32)
+def unmatch_inv_cycles(idx: np.ndarray, d_total: int) -> np.ndarray:
+    """Occurrence-rank inverse maps: a soft de-match scatter-add as a SUM
+    OF GATHERS.
+
+    Returns inv (n_cycles, d_total) int32 with inv[k, p] = the e-position of
+    the (k+1)-th transmission of d-flat bit p, or ``len(idx)`` (a zero slot
+    appended to e).  n_cycles is the largest repetition count: 1 when the
+    rate match is injective, ceil(E/L) when the circular buffer wraps."""
+    idx = np.asarray(idx, dtype=np.int64)
     e_len = len(idx)
-    counts = np.bincount(idx, minlength=d_total)
-    inv = np.full((max(int(counts.max()), 1), d_total), e_len, np.int64)
-    seen = np.zeros(d_total, np.int64)
-    for e, p in enumerate(idx):
-        inv[seen[p], p] = e
-        seen[p] += 1
+    order = np.argsort(idx, kind="stable")
+    si = idx[order]
+    first = np.r_[True, si[1:] != si[:-1]]
+    grp_start = np.maximum.accumulate(np.where(first, np.arange(e_len), 0))
+    rank = np.arange(e_len) - grp_start
+    n_cycles = int(rank.max()) + 1 if e_len else 1
+    inv = np.full((n_cycles, d_total), e_len, dtype=np.int32)
+    inv[rank, si] = order.astype(np.int32)
     return inv
+
+
+# bounded: one (n_cycles, 3D) int32 entry per live de-match geometry
+@lru_cache(maxsize=64)
+def _unmatch_cycles(idx_key: bytes, d_total: int) -> np.ndarray:
+    return unmatch_inv_cycles(np.frombuffer(idx_key, dtype=np.int32), d_total)
+
+
+def sum_gathers(ext: torch.Tensor, inv) -> torch.Tensor:
+    """The soft de-match of ``ext`` (..., E+1), whose last slot is a zero,
+    through occurrence-rank maps ``inv`` (n_cycles, N): one gather a cycle,
+    summed in the order the repeats were sent — not a scatter-add, whose
+    atomic additions on a CUDA device come in no fixed order — so a card
+    and a CPU give the same LLRs.  -> (..., N)."""
+    out = ext[..., inv[0]]
+    for row in inv[1:]:
+        out = out + ext[..., row]
+    return out
 
 
 def rate_unmatch(e_llrs: torch.Tensor, idx: np.ndarray,
                  d_len: int) -> torch.Tensor:
     """e_llrs (..., E) -> d LLRs (..., 3, D); repeats soft-combine by
-    addition.
-
-    The repeats of each position are summed in the order they were sent,
-    as a sum of gathers — not a scatter-add, whose atomic additions on a
-    CUDA device come in no fixed order — so a card and a CPU give the same
-    LLRs."""
+    addition (:func:`sum_gathers`)."""
     inv = torch.as_tensor(_unmatch_cycles(np.asarray(idx, np.int32)
                                           .tobytes(), 3 * d_len),
-                          device=e_llrs.device)
+                          dtype=torch.int64, device=e_llrs.device)
     ext = torch.nn.functional.pad(e_llrs, (0, 1))      # the zero slot
-    out = torch.zeros((*e_llrs.shape[:-1], 3 * d_len), dtype=e_llrs.dtype,
-                      device=e_llrs.device)
-    for row in inv:
-        out = out + ext[..., row]
-    return out.reshape(*e_llrs.shape[:-1], 3, d_len)
+    return sum_gathers(ext, inv).reshape(*e_llrs.shape[:-1], 3, d_len)

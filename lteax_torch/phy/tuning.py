@@ -19,6 +19,9 @@ class DecoderTuning:
     - ``earlystop``: CRC-based half-iteration early termination.
     - ``pinpad``: dead trellis positions carry u=+PIN in the beta sweep
       instead of a freeze blend (the only form the port implements).
+    - ``n_iter``: full turbo iterations of the single-subframe decode
+      (``pdsch.pdsch_decode_device``; the batch decoders take theirs as an
+      argument).
     - ``retry_m``: compacted-retry subbatch size of the UL decoder; 0
       disables the retry.
     - ``retry_m_dl``: the same for the DL and HARQ decoders.
@@ -43,6 +46,7 @@ class DecoderTuning:
     ext_scale: float = 0.75
     earlystop: bool = True
     pinpad: bool = True
+    n_iter: int = 6
     retry_m: int = 128
     retry_m_dl: int = 64
     retry_m_mimo: int = 192
@@ -60,6 +64,8 @@ class DecoderTuning:
             raise NotImplementedError("the port implements pinned padding only")
         if self.win % 2 or not 0 < self.acq <= self.win // 2:
             raise ValueError("need an even win and 0 < acq <= win/2")
+        if self.n_iter < 1:
+            raise ValueError("n_iter must be >= 1")
         if self.retry_m_mimo < 0:
             raise ValueError("retry_m_mimo must be >= 0")
         if self.mimo_detector not in ("mmse", "sic"):
@@ -78,3 +84,12 @@ class DecoderTuning:
         if not self.earlystop:
             return None
         return "24B" if cb_crc else "24A"
+
+
+SINGLE_SUBFRAME = DecoderTuning(win=32, earlystop=False, retry_m=0,
+                                retry_m_dl=0, retry_m_mimo=0)
+"""The reference's single-subframe turbo settings
+(``lteax.phy.fec.turbo.turbo_decode_batch`` as ``pdsch_decode_llrs``
+calls it): win 32, acq 16, ext_scale 0.75, a fixed 6 iterations (no
+CRC early stop) and no compacted retry.  The SI decode and
+:func:`lteax_torch.phy.channels.pdsch.pdsch_decode_device` run with it."""

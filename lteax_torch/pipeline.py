@@ -48,10 +48,11 @@ from lteax_torch.kernels.demap import demap_planar, planar_sgn_np
 from lteax_torch.kernels.turbo_mlm import TurboStats, turbo_decode_batch
 from lteax_torch.phy import chest, mimo, seq
 from lteax_torch.phy.channels import pusch
-from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_idx,
-                                            _global_rm_inv, desegment_device)
+from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_cycles,
+                                            _global_rm_idx, desegment_device)
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.crc import check_crc, crc_matrix, exact_f32_matmul
+from lteax_torch.phy.fec.ratematch import sum_gathers
 from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.grid import pdsch_flat_idx
 from lteax_torch.phy.mod import modulate_arith
@@ -63,16 +64,14 @@ def dl_demap_plans(cfg: PhyConfig, re_idx: np.ndarray, geom: PdschGeometry,
                    c_init: int):
     """Planar sign planes and the grid de-match map of the full-grid demap.
 
-    Returns (sgn (qm, npad) f32, grid_inv (C*3*(K+4),) int64):
+    Returns (sgn (qm, npad) f32, grid_inv (n_cycles, C*3*(K+4)) int64):
     - every column that carries no PDSCH gets sign 0, so the demap emits
       exact 0.0 there; npad keeps >= 1 pad column;
-    - grid_inv maps d-flat position p to planar flat position
-      j*npad + re_idx[s] of interleaved codeword bit g = s*qm + j, or to
-      qm*npad (one appended zero column) when p was never transmitted."""
-    inv_g, injective = _global_rm_inv(geom)
-    if not injective:
-        raise NotImplementedError("the full-grid demap needs an injective "
-                                  "rate match (no circular-buffer wrap)")
+    - grid_inv[k] maps d-flat position p to planar flat position
+      j*npad + re_idx[s] of interleaved codeword bit g = s*qm + j of its
+      (k+1)-th transmission, or to qm*npad (one appended zero column) when
+      p was sent fewer than k+1 times.  One row when the rate match is
+      injective; one a cycle of the circular buffer when it wraps."""
     qm = geom.qm
     n_grid = cfg.n_sym_subframe * cfg.n_sc
     npad = -(-n_grid // 128) * 128
@@ -81,32 +80,30 @@ def dl_demap_plans(cfg: PhyConfig, re_idx: np.ndarray, geom: PdschGeometry,
     sgn = np.zeros((qm, npad), dtype=np.float32)
     sgn[:, np.asarray(re_idx)] = seq.scrambling_symbols_np(
         c_init, geom.g).reshape(-1, qm).T
-    g_idx = inv_g.astype(np.int64)
-    s_sym, j_bit = g_idx // qm, g_idx % qm
+    cyc = _global_rm_cycles(geom).astype(np.int64)
+    s_sym, j_bit = cyc // qm, cyc % qm
     re_np = np.asarray(re_idx, dtype=np.int64)
     grid_inv = j_bit * npad + re_np[np.minimum(s_sym, len(re_np) - 1)]
-    grid_inv[inv_g == geom.g] = qm * npad            # zero sentinel
+    grid_inv[cyc == geom.g] = qm * npad              # zero sentinel
     return sgn, grid_inv
 
 
 def ul_rm_inv_planar(geom: PdschGeometry, qm: int, m_sc: int,
                      npad: int) -> np.ndarray:
     """UL de-match gather indices reading straight from the planar demap
-    output: composes the planar layout, the data-only channel de-interleaver
-    of 36.212 §5.2.2.8 (a (12, m_sc, qm) -> (m_sc, 12, qm) transpose) and the
-    inverse rate match.  Untransmitted positions point at ``qm * npad``, the
-    zero column the front appends (never a pad column: an allocation whose
-    12 * m_sc is a multiple of 128 has none)."""
-    inv, injective = _global_rm_inv(geom)
-    if not injective:
-        raise NotImplementedError("the planar UL de-match needs an injective "
-                                  "rate match (no circular-buffer wrap)")
-    p = inv.astype(np.int64)
+    output, (n_cycles, C*3*(K+4)) int32 (as :func:`dl_demap_plans`): each
+    row composes the planar layout, the data-only channel de-interleaver
+    of 36.212 §5.2.2.8 (a (12, m_sc, qm) -> (m_sc, 12, qm) transpose) and
+    one cycle of the inverse rate match.  Untransmitted positions point at
+    ``qm * npad``, the zero column the front appends (never a pad column:
+    an allocation whose 12 * m_sc is a multiple of 128 has none)."""
+    cyc = _global_rm_cycles(geom)
+    p = cyc.astype(np.int64)
     k = p // (12 * qm)
     sym = (p % (12 * qm)) // qm
     j = p % qm
     out = j * npad + sym * m_sc + k
-    out[inv == geom.g] = qm * npad
+    out[cyc == geom.g] = qm * npad
     return out.astype(np.int32)
 
 
@@ -126,10 +123,18 @@ def _resolve_device(device) -> torch.device:
 def _gather_dematch(llr: torch.Tensor, inv: torch.Tensor,
                     d_len: int) -> torch.Tensor:
     """Planar LLRs (B, m, npad) -> (B*C, 3, d_len) through a de-match map
-    whose untransmitted positions point one past the planes, at a zero."""
+    (n_cycles, C*3*d_len) whose untransmitted positions point one past the
+    planes, at a zero: one gather a cycle, summed in the order the repeats
+    were sent (one gather when the rate match is injective)."""
     flat = llr.reshape(llr.shape[0], -1)
     ext = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=-1)
-    return ext[:, inv].reshape(-1, 3, d_len)
+    return sum_gathers(ext, inv).reshape(-1, 3, d_len)
+
+
+def _plan(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A de-match map on ``device`` as (n_cycles, N) int64; a 1-D map is
+    one cycle."""
+    return torch.as_tensor(np.atleast_2d(x), dtype=torch.int64, device=device)
 
 
 def _iq_to_complex(iq: torch.Tensor) -> torch.Tensor:
@@ -146,8 +151,7 @@ class DlFront:
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, k + 4
         self.sgn = torch.as_tensor(sgn, dtype=torch.float32, device=device)
-        self.grid_inv = torch.as_tensor(grid_inv, dtype=torch.int64,
-                                        device=device)
+        self.grid_inv = _plan(grid_inv, device)
 
     def equalize(self, samples_iq: torch.Tensor):
         """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
@@ -191,7 +195,7 @@ class PuschFront:
         self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
         self.ref0, self.ref1 = t(ref0, torch.complex64), t(ref1, torch.complex64)
         self.w, self.taps = t(w, torch.float32), t(taps, torch.float32)
-        self.sgn, self.ul_inv = t(sgn, torch.float32), t(ul_inv, torch.int64)
+        self.sgn, self.ul_inv = t(sgn, torch.float32), _plan(ul_inv, device)
         self.data_syms = t(pusch.DATA_SYMS, torch.int64)
 
     def equalize(self, grid_iq: torch.Tensor):
@@ -450,8 +454,8 @@ def make_batch_harq_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
 
     ``subframes``/``geoms``: one entry per transmission — the subframe it
     was sent in (scrambling and CRS positions differ) and its geometry
-    (same TBS, n_re and Qm, its own ``rv``).  Each transmission's rate match
-    must be injective, so combining is a sum of gathers.  Input
+    (same TBS, n_re and Qm, its own ``rv``).  Combining is a sum of
+    gathers, one per transmission and cycle of its circular buffer.  Input
     (n_tx, B, n_samps, 2) IQ; output as :func:`make_batch_decoder`."""
     if len(subframes) != len(geoms) or len(geoms) < 2 or \
             len({g.k for g in geoms}) != 1:
@@ -498,17 +502,14 @@ def make_pusch_batch_decoder(alloc: pusch.PuschAlloc, rnti: int,
 
 def rm_inv_planar(geom: PdschGeometry, npad: int) -> np.ndarray:
     """De-match gather indices reading the planar demap output of the
-    extracted PDSCH REs: interleaved codeword bit g = s*qm + j lives at
+    extracted PDSCH REs, (n_cycles, C*3*(K+4)) int64 (as
+    :func:`dl_demap_plans`): interleaved codeword bit g = s*qm + j lives at
     planar flat position j*npad + s.  Untransmitted positions point at
     ``qm * npad``, the zero column the front appends."""
-    inv, injective = _global_rm_inv(geom)
-    if not injective:
-        raise NotImplementedError("the planar MIMO de-match needs an "
-                                  "injective rate match (no circular-buffer "
-                                  "wrap)")
+    cyc = _global_rm_cycles(geom)
     m = geom.qm
-    out = (inv % m).astype(np.int64) * npad + inv // m
-    out[inv == geom.g] = m * npad
+    out = (cyc % m).astype(np.int64) * npad + cyc // m
+    out[cyc == geom.g] = m * npad
     return out
 
 
@@ -536,7 +537,7 @@ class MimoFront:
                                           device=device)
         self.re_idx = t(re_idx, torch.int64)
         self.sgn = t(sgn, torch.float32)
-        self.rm_inv = t(rm_inv, torch.int64)
+        self.rm_inv = _plan(rm_inv, device)
 
     def _estimate(self, grids: torch.Tensor, port: int) -> torch.Tensor:
         if self.chest_kind == "mmse":

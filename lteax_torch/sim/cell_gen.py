@@ -1,9 +1,15 @@
-"""Jax-free LTE cell captures for the scanner: PSS, SSS, CRS and PBCH.
+"""Jax-free LTE cell captures for the scanner: PSS, SSS, CRS, PBCH,
+PCFICH, PDCCH and the SI and paging PDSCH.
 
-The counterpart of the PSS/SSS/CRS/PBCH part of ``lteax.apps.file_gen``
-(``build_subframe_grid``, ``generate``): the same grids at those REs, in
-numpy and torch, so that a machine without jax can make scanner inputs.
-No PCFICH, PDCCH or SI is written.
+The counterpart of ``lteax.apps.file_gen`` (``build_subframe_grid``,
+``generate``): the same grids on every resource element, in numpy and
+torch, so that a machine without jax can make scanner inputs.  SIB1 goes
+in subframe 5 of even frames and the SI message carrying SIB2 in subframe
+5 of odd frames, each granted on the PDCCH by an SI-RNTI DCI 1A or 1C;
+with ``paging_tmsi`` a P-RNTI DCI 1C and a Paging message go in subframe
+9.  Two and four ports send the control channels and the PDSCH with SFBC
+and SFBC-FSTD.  (``file_gen``'s multi-SI schedules and extra SIBs are not
+ported.)
 
 :func:`capture` adds what a receiver sees: a start SFN and a start-sample
 offset (the capture begins mid-transmission), a carrier frequency offset,
@@ -23,42 +29,118 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from lteax_torch.phy.config import PhyConfig
-from lteax_torch.phy.grid import (crs_flat_idx, crs_symbols, pbch_flat_idx,
-                            pss_sym, sss_sym, sync_sc)
-from lteax_torch.sim.channel import awgn
-from lteax_torch.stack import rrc
 from lteax_torch.kernels.polyphase import resample_poly
 from lteax_torch.phy import seq
-from lteax_torch.phy.channels import pbch
+from lteax_torch.phy.channels import pbch, pcfich, pdcch, pdsch
+from lteax_torch.phy.channels.dci import (TBS_1C, Dci1A, Dci1C, _n_rb_step,
+                                          dci_1a_pack, dci_1c_pack)
+from lteax_torch.phy.chest import precode_sfbc, precode_sfbc_fstd
+from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.grid import (crs_flat_idx, crs_symbols, pbch_flat_idx,
+                                  pcfich_flat_idx, pdcch_flat_idx,
+                                  pdsch_flat_idx, pss_sym, sss_sym, sync_sc)
 from lteax_torch.phy.ofdm import subframe_to_samples
+from lteax_torch.phy.tables.tbs import tbs_1a
+from lteax_torch.sim.channel import awgn
+from lteax_torch.stack import rrc
+
+SI_RNTI = 0xFFFF
+P_RNTI = 0xFFFE
 
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
+    """A cell and its broadcast content; the SI fields, and the SIB1
+    fields that :meth:`sib1` fixes, are ``file_gen.GenConfig``'s
+    defaults."""
     n_rb_dl: int = 6
     n_cell_id: int = 0
     n_ant: int = 1
     phich_resource: float = 1.0
     phich_duration_extended: bool = False
+    cfi: int = 2
+    si_dci: str = "1a"          # "1a" | "1c": the DCI format of SI grants
+    paging_tmsi: tuple[int, ...] = ()   # S-TMSIs paged in subframe 9
+    tac: int = 0x1234
 
     @property
     def cfg(self) -> PhyConfig:
         return PhyConfig(n_rb_dl=self.n_rb_dl, n_ant=self.n_ant)
+
+    @property
+    def ctrl_syms(self) -> int:
+        return self.cfi + 1 if self.n_rb_dl <= 10 else self.cfi
 
     def mib(self, sfn: int) -> rrc.Mib:
         return rrc.Mib(n_rb_dl=self.n_rb_dl,
                        phich_duration_extended=self.phich_duration_extended,
                        phich_resource=self.phich_resource, sfn=sfn)
 
+    def sib1(self) -> rrc.Sib1:
+        return rrc.Sib1(mcc=(0, 0, 1), mnc=(0, 1), tac=self.tac,
+                        cell_identity=0x0050800, freq_band_indicator=1,
+                        scheduling=(rrc.SchedulingInfo(8, (3,)),))
+
+    def sib2(self) -> rrc.Sib2:
+        return rrc.Sib2()
+
+
+@dataclasses.dataclass(frozen=True)
+class SiBits:
+    """The broadcast messages of a cell as sent: SIB1, the SI message with
+    SIB2, the Paging message (or None) and the 1A grants' I_TBS."""
+    sib1: np.ndarray
+    sib2: np.ndarray
+    paging: np.ndarray | None
+    mcs: int
+
+
+def si_bits(cell: Cell) -> SiBits:
+    """Pack ``cell``'s SIB1, SI message and Paging; raise the 1A grants'
+    I_TBS until every message fits the N_PRB_1A = 2 TBS (as ``generate``
+    of the reference does)."""
+    sib1 = rrc.pack_sib1(cell.sib1())
+    sib2 = rrc.pack_si(cell.sib2())
+    paging = (rrc.pack_paging(rrc.Paging(ue_identities=cell.paging_tmsi))
+              if cell.paging_tmsi else None)
+    mcs = 4                     # file_gen's sib1_mcs, raised until SI fits
+    while tbs_1a(mcs, 2) < max(len(sib1), len(sib2)):
+        mcs += 1
+    return SiBits(sib1, sib2, paging, mcs)
+
 
 def build_subframe_grid(cell: Cell, sfn: int, sf: int,
-                        pbch_quarters: np.ndarray) -> np.ndarray:
+                        pbch_quarters: np.ndarray,
+                        si: SiBits | None = None) -> np.ndarray:
     """One subframe's (n_sym, n_sc) complex64 grid, ports superposed:
     CRS of every port, PSS/SSS (port 0) in subframes 0 and 5, and the PBCH
-    quarter ``sfn % 4`` in subframe 0."""
+    quarter ``sfn % 4`` in subframe 0; with ``si``, the PCFICH in every
+    subframe, the SI grant and PDSCH in subframe 5 and the paging grant and
+    PDSCH in subframe 9 when there is a Paging message."""
     cfg, cid, n_ant = cell.cfg, cell.n_cell_id, cell.n_ant
     ports = np.zeros((n_ant, cfg.n_sym_subframe * cfg.n_sc), np.complex64)
+
+    def sfbc_scatter(idx: np.ndarray, syms: np.ndarray):
+        x = torch.from_numpy(np.asarray(syms, np.complex64))
+        per_port = ((x,) if n_ant == 1 else precode_sfbc(x) if n_ant == 2
+                    else precode_sfbc_fstd(x))
+        for p, v in enumerate(per_port):
+            ports[p][idx] = v.numpy()
+
+    def grant(dci_bits: np.ndarray, rnti: int, prbs: tuple[int, ...],
+              tbs: int, rv: int, msg: np.ndarray):
+        """A DCI on CCEs 0-3 and its transport block on ``prbs``."""
+        ctrl, ng = cell.ctrl_syms, cell.phich_resource
+        pd_syms = pdcch.pdcch_encode([(dci_bits, rnti, 0, 4)], cfg, cid,
+                                     ctrl, ng, sf, n_ant=n_ant)
+        pd_idx = pdcch_flat_idx(cfg, cid, ctrl, ng).reshape(-1)
+        for p in range(pd_syms.shape[0]):
+            ports[p][pd_idx] = pd_syms[p]
+        re_idx = pdsch_flat_idx(cfg, cid, ctrl, prbs, sf)
+        geom = pdsch.pdsch_geometry(tbs, len(re_idx), 2, rv)
+        sfbc_scatter(re_idx, pdsch.pdsch_encode(rrc.pad_to(msg, tbs), geom,
+                                                rnti, sf, cid, "qpsk"))
+
     for p in range(n_ant):
         vals = [seq.crs_values(cid, 2 * sf + sym // cfg.n_sym_slot,
                                sym % cfg.n_sym_slot, cfg.n_rb_dl,
@@ -75,13 +157,42 @@ def build_subframe_grid(cell: Cell, sfn: int, sf: int,
                                              cid, n_ant)
         for p in range(n_ant):
             ports[p][pbch_flat_idx(cfg, cid)] = per_port[p]
+    if si is not None:
+        sfbc_scatter(pcfich_flat_idx(cfg, cid),
+                     pcfich.pcfich_encode(cell.cfi, cid, sf))
+        step = _n_rb_step(cfg.n_rb_dl)
+        ndl = cfg.n_rb_dl // step
+        if sf == 5:
+            msg = si.sib1 if sfn % 2 == 0 else si.sib2
+            # 36.321 §5.3.1: RV_K = ceil(3/2 k) mod 4, k = (SFN / 2) mod 4
+            rv = int(np.ceil(1.5 * ((sfn // 2) % 4))) % 4 \
+                if sfn % 2 == 0 else 0
+            if cell.si_dci == "1c":
+                i_tbs = next(i for i, t in enumerate(TBS_1C)
+                             if t >= max(len(si.sib1), len(si.sib2)))
+                grant(dci_1c_pack(Dci1C(rb_start=0, l_crb=ndl, i_tbs=i_tbs),
+                                  cfg.n_rb_dl), SI_RNTI,
+                      tuple(range(ndl * step)), TBS_1C[i_tbs], rv, msg)
+            else:
+                l_crb = min(cfg.n_rb_dl, 6)
+                grant(dci_1a_pack(Dci1A(rb_start=0, l_crb=l_crb, mcs=si.mcs,
+                                        rv=rv, tpc=0), cfg.n_rb_dl),
+                      SI_RNTI, tuple(range(l_crb)), tbs_1a(si.mcs, 2), rv,
+                      msg)
+        if sf == 9 and si.paging is not None:
+            i_tbs = next(i for i, t in enumerate(TBS_1C)
+                         if t >= len(si.paging))
+            grant(dci_1c_pack(Dci1C(rb_start=0, l_crb=ndl, i_tbs=i_tbs),
+                              cfg.n_rb_dl), P_RNTI, tuple(range(ndl * step)),
+                  TBS_1C[i_tbs], 0, si.paging)
     return ports.sum(axis=0).reshape(cfg.n_sym_subframe, cfg.n_sc)
 
 
 def generate(cell: Cell, n_subframes: int, sfn0: int = 0) -> np.ndarray:
     """-> (n_subframes * n_samps_subframe,) complex64 baseband starting at
-    subframe 0 of frame ``sfn0``."""
+    subframe 0 of frame ``sfn0``, broadcasting ``cell``'s SI."""
     cfg = cell.cfg
+    si = si_bits(cell)
     grids, quarters = [], {}
     for i in range(n_subframes):
         sfn = (sfn0 + i // 10) % 1024
@@ -90,7 +201,7 @@ def generate(cell: Cell, n_subframes: int, sfn0: int = 0) -> np.ndarray:
                 rrc.pack_mib(cell.mib(sfn)), cell.n_ant, cell.n_cell_id,
                 cfg.extended_cp)
         grids.append(build_subframe_grid(cell, sfn, i % 10,
-                                         quarters[sfn // 4]))
+                                         quarters[sfn // 4], si))
     x = subframe_to_samples(torch.from_numpy(np.stack(grids)), cfg)
     return x.reshape(-1).numpy()
 

@@ -19,41 +19,13 @@ import torch
 
 from lteax_torch.io.iq import to_iq_f32
 from lteax_torch.phy import seq
-from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_idx,
-                                            pdsch_geometry)
+from lteax_torch.phy.channels.pdsch import (PdschGeometry, pdsch_encode_cbs,
+                                            pdsch_geometry, pdsch_prepare_cbs)
 from lteax_torch.phy.config import PhyConfig
-from lteax_torch.phy.fec.crc import attach_crc_np
-from lteax_torch.phy.fec.segmentation import segment_bits
-from lteax_torch.phy.fec.turbo import turbo_encode
 from lteax_torch.phy.grid import crs_flat_idx, crs_symbols, pdsch_flat_idx
-from lteax_torch.phy.mod import BITS_PER_SYM, modulate
+from lteax_torch.phy.mod import BITS_PER_SYM
 from lteax_torch.phy.ofdm import subframe_to_samples
 from lteax_torch.phy.tables.tbs import get_tbs_for_mcs
-
-
-def pdsch_prepare_cbs(tb_bits: np.ndarray, geom: PdschGeometry) -> np.ndarray:
-    """TB payload (TBS,) -> codeblock payloads (C, K_payload)."""
-    return segment_bits(attach_crc_np(np.asarray(tb_bits), "24A"), geom.info)
-
-
-def rate_matched_bits(cbs: np.ndarray, geom: PdschGeometry) -> np.ndarray:
-    """(..., C, K_payload) codeblock payloads -> (..., G) coded bits e:
-    CRC24B where segmented, turbo encode, rate match at ``geom.rv``."""
-    if geom.info.cb_crc:
-        cbs = attach_crc_np(cbs, "24B")
-    d = turbo_encode(cbs, geom.k)                   # (..., C, 3, K+4)
-    return d.reshape(*d.shape[:-3], -1)[..., _global_rm_idx(geom)]
-
-
-def pdsch_encode_cbs(cbs: np.ndarray, geom: PdschGeometry, rnti: int,
-                     subframe: int, n_cell_id: int, scheme: str,
-                     codeword: int = 0) -> np.ndarray:
-    """(..., C, K_payload) codeblock payloads -> (..., n_re) complex64
-    symbols in RE-mapping order, scrambled as codeword ``codeword``."""
-    e = rate_matched_bits(cbs, geom)
-    c = seq.gold_sequence_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
-                                              codeword), geom.g)
-    return modulate((e + c) % 2, scheme)
 
 
 def crs_grid_values(cfg: PhyConfig, n_cell_id: int, subframe: int,

@@ -27,8 +27,9 @@ from lteax_torch.phy.grid import crs_flat_idx, pdsch_flat_idx
 from lteax_torch.phy.mod import BITS_PER_SYM
 from lteax_torch.phy.ofdm import subframe_to_samples
 from lteax_torch.phy.tables.tbs import get_tbs_for_mcs
-from lteax_torch.sim.dl_gen import (crs_grid_values, pdsch_encode_cbs,
-                                    pdsch_prepare_cbs)
+from lteax_torch.phy.channels.pdsch import (pdsch_encode_cbs,
+                                            pdsch_prepare_cbs)
+from lteax_torch.sim.dl_gen import crs_grid_values
 
 CHANNELS = {
     # well-conditioned fixed channel (the script's default)

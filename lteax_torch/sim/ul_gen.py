@@ -18,8 +18,9 @@ import torch
 from lteax_torch.phy import seq
 from lteax_torch.phy.channels import pusch
 from lteax_torch.phy.mod import modulate
-from lteax_torch.sim.dl_gen import (pdsch_prepare_cbs, rate_matched_bits,
-                                    tile_with_awgn)
+from lteax_torch.phy.channels.pdsch import (pdsch_prepare_cbs,
+                                            rate_matched_bits)
+from lteax_torch.sim.dl_gen import tile_with_awgn
 
 
 @dataclasses.dataclass(frozen=True)

@@ -293,6 +293,41 @@ def test_scan_on_card_matches_cpu(dev):
     assert abs(g.snr_db - c.snr_db) < 0.1
 
 
+def test_si_scan_on_card_matches_cpu(dev):
+    """The SI stage on the card: the same report as on the CPU, and the
+    SIBs and paging the capture carries."""
+    import dataclasses
+    from lteax_torch.phy.config import PhyConfig
+    from lteax_torch.apps.file_scan import scan
+    from lteax_torch.sim.cell_gen import Cell, capture
+    cell = Cell(n_rb_dl=6, n_cell_id=333, n_ant=2, si_dci="1c",
+                paging_tmsi=(0x42,))
+    cap = capture(cell, 0.04, sfn0=9, offset=100, cfo_hz=700.0, snr_db=15.0,
+                  seed=2)
+    cfg = PhyConfig(n_rb_dl=6)
+    g = scan(torch.from_numpy(cap.iq).to(dev), cfg)
+    c = scan(torch.from_numpy(cap.iq), cfg)
+    for f in ("n_cell_id", "frame_start", "n_ant", "sfn", "mib", "sib1",
+              "sib2", "sibs", "paging", "sib_crc_fails"):
+        assert getattr(g, f) == getattr(c, f), f
+    assert dataclasses.asdict(g.sib1) == dataclasses.asdict(cell.sib1())
+    assert g.sib2 == cell.sib2() and g.paging == ["0x42"]
+
+
+def test_pdsch_decode_on_card_matches_cpu(dev):
+    """The single-subframe decode of a wrapping TB (K1/K2 at win 32)."""
+    from lteax_torch.phy.channels import pdsch
+    geom = pdsch.pdsch_geometry(408, 792, 2, 0)
+    llr = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (3, geom.g)).astype(np.float32) * 3)
+    before = tm.LAUNCHES
+    got = pdsch.pdsch_decode_device(llr.to(dev), geom, 0xFFFF, 5, 77)
+    assert tm.LAUNCHES == before + 12          # 6 iterations, 2 halves each
+    ref = pdsch.pdsch_decode_device(llr, geom, 0xFFFF, 5, 77)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
 # -- the ACS probe kernel, the demap at the UL shape, UL-SCH and HARQ -------
 
 @pytest.mark.parametrize("rounds", [0, 8, 64, 512])

@@ -160,13 +160,20 @@ def test_factory_validates_inputs(signal):
         dec(torch.from_numpy(iq[:1]))
 
 
-def test_wrapping_rate_match_raises():
-    """A transmission whose rate match wraps the circular buffer is not a
-    gather; the full-grid demap plans refuse it as the reference does."""
+def test_wrapping_transmissions_combine():
+    """Transmissions whose rate match wraps the circular buffer (6 PRB MCS
+    0: four cycles each) de-match as sums of cycle gathers and combine in
+    the d domain: rv 0 + rv 2 at -3 dB decode 4/4, rv 0 alone 2/4."""
     cell = DlCell(n_rb_dl=6, n_cell_id=150, mcs=0, cfi=2)
     assert cell.geom.g > 3 * (cell.geom.k + 4)
-    with pytest.raises(NotImplementedError):
-        make_batch_decoder(*cell.decoder_args(), device="cpu")
+    iq, tb, cells = harq_transmissions(cell, (1, 2), (0, 2), 4, -3.0, seed=3)
+    dec = make_batch_harq_decoder(*harq_decoder_args(cells), device="cpu")
+    assert [f.grid_inv.shape[0] for f in dec.dl_fronts] == [4, 4]
+    bits, ok, _ = dec(torch.from_numpy(iq))
+    assert ok.all() and np.array_equal(bits.numpy(), tb)
+    _, ok1, _ = make_batch_decoder(*cells[0].decoder_args(),
+                                   device="cpu")(torch.from_numpy(iq[0]))
+    assert ok1.tolist() == [False, False, True, True]
 
 
 # -- decoders built from the reference's own plan arrays --------------------

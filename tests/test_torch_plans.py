@@ -76,10 +76,14 @@ def test_pdsch_geometry_and_rm_maps(tbs, n_re, qm, rv):
     assert (g.k, g.g) == (gr.k, gr.g)
     np.testing.assert_array_equal(pdsch._global_rm_idx(g),
                                   pdsch_ref._global_rm_idx(gr))
-    inv, inj = pdsch._global_rm_inv(g)
+    # the port keeps one plan, the occurrence-rank cycles: one row, the
+    # reference's injective inverse, when no bit is sent twice
+    cyc = pdsch._global_rm_cycles(g)
+    _same(cyc, pdsch_ref._global_rm_cycles(gr))
     inv_r, inj_r = pdsch_ref._global_rm_inv(gr)
-    assert inj == inj_r
-    np.testing.assert_array_equal(inv, inv_r)
+    assert inj_r == (cyc.shape[0] == 1)
+    if inj_r:
+        np.testing.assert_array_equal(cyc[0], inv_r)
 
 
 @pytest.mark.parametrize("scheme", ["qpsk", "16qam", "64qam"])
@@ -778,6 +782,8 @@ def test_ul_rm_inv_planar_and_sign_planes(n_prb, qm, tbs):
     geom_r = pdsch_ref.pdsch_geometry(tbs, 12 * m_sc, qm, 0)
     npad = -(-(12 * m_sc) // 128) * 128
     got = ul_rm_inv_planar(geom, qm, m_sc, npad)
+    assert got.shape[0] == 1                  # injective: one cycle
+    got = got[0]
     _same(got, _ul_rm_inv_planar(geom_r, qm, m_sc, npad))
     # transmitted positions read inside the planes, each once; the rest
     # read the appended zero column, never a pad column
@@ -889,3 +895,258 @@ def test_wiener_matrices(n_rb):
         ref = chest_ref._wiener_matrix(cfg_r, shift, tau, nv)
         assert got.dtype == ref.dtype == np.complex64
         np.testing.assert_array_equal(got, ref)
+
+
+# -- SI and paging: RRC codecs, DCI 1A / 1C, PCFICH, PDCCH plans -------------
+
+def _sib_bodies(m):
+    """SIB3..SIB13 bodies with their optional fields set, built with the
+    RRC module ``m`` (the reference's or the port's; test_stack.py's)."""
+    return (
+        m.Sib3(q_hyst_db=8, s_non_intra_search=None, p_max=23,
+               s_intra_search=12, allowed_meas_bandwidth=5,
+               presence_antenna_port1=True, neigh_cell_config=2,
+               speed_state=m.SpeedStateReselectionPars(
+                   m.MobilityStateParameters(1, 2, 3, 16), 0, 2),
+               t_resel_eutra_sf=m.SpeedStateScaleFactors(1, 2)),
+        m.Sib4(neigh_cells=(m.IntraFreqNeighCell(503, -24),
+                            m.IntraFreqNeighCell(7, 24)),
+               black_cells=(m.PhysCellIdRange(100, 12),
+                            m.PhysCellIdRange(400, None)),
+               csg_pci_range=m.PhysCellIdRange(0, 504)),
+        m.Sib5(carriers=(
+            m.InterFreqCarrier(dl_earfcn=6400, p_max=10,
+                               cell_resel_priority=3, q_offset_freq_db=-6,
+                               neigh_cells=(m.InterFreqNeighCell(44, 2),),
+                               black_cells=(m.PhysCellIdRange(5, 8),)),
+            m.InterFreqCarrier(dl_earfcn=65535))),
+        m.Sib6(carriers_fdd=(m.UtraCarrierFdd(10713, cell_resel_priority=2,
+                                              q_qual_min=-24),),
+               carriers_tdd=(m.UtraCarrierTdd(11504),), t_resel_utra_s=3,
+               t_resel_utra_sf=m.SpeedStateScaleFactors(0, 1)),
+        m.Sib7(t_resel_geran_s=2, carriers=(
+            m.GeranCarrierInfo(freqs=m.GeranCarrierFreqs(
+                512, 1, explicit_arfcns=(1, 2, 1023)),
+                cell_resel_priority=1, q_rx_lev_min=45, p_max_geran=39),
+            m.GeranCarrierInfo(freqs=m.GeranCarrierFreqs(
+                0, 0, equally_spaced=(8, 31))),
+            m.GeranCarrierInfo(freqs=m.GeranCarrierFreqs(
+                99, 0, bitmap=b"\xa5\x5a")))),
+        m.Sib8(cdma_eutra_sync=True, system_time=(1 << 39) - 5,
+               search_window_size=9,
+               pre_reg_hrpd=m.PreRegistrationInfoHrpd(True, 200, (1, 2)),
+               cell_resel_hrpd=m.CellReselParamsCdma(
+                   band_class_list=(m.BandClassInfoCdma(17, 4, 63, 0),),
+                   neigh_cell_list=(m.NeighCellCdma(
+                       1, (m.NeighCellsPerBandclassCdma(2047, (0, 511)),)),),
+                   t_resel_s=5),
+               params_1xrtt=True,
+               csfb_1xrtt=m.CsfbRegistrationParam1xrtt(
+                   sid=0x7FFF, nid=0xFFFF, home_reg=True, power_up_reg=True,
+                   registration_zone=0xABC, zone_timer=5),
+               long_code_state_1xrtt=(1 << 42) - 3),
+        m.Sib9(hnb_name=b"cell-one"),
+        m.Sib10(message_identifier=0x1100, serial_number=0x3000,
+                warning_type=b"\x01\x80",
+                warning_security_info=bytes(range(50))),
+        m.Sib11(message_identifier=0x1102, serial_number=0x3001,
+                last_segment=False, segment_number=2,
+                warning_segment=b"quake warning segment",
+                data_coding_scheme=b"\x01"),
+        m.Sib12(message_identifier=0x1112, serial_number=0x3000,
+                last_segment=False, segment_number=3,
+                warning_segment=b"CMAS presidential alert",
+                data_coding_scheme=b"\x01"),
+        m.Sib13(areas=(m.MbsfnAreaInfo(
+            mbsfn_area_id=5, non_mbsfn_region_length=2,
+            notification_indicator=3, mcch_repetition_period_rf=128,
+            mcch_offset=7, mcch_modification_period_rf=1024,
+            sf_alloc_info=0b101010, signalling_mcs=13),
+            m.MbsfnAreaInfo(mbsfn_area_id=200)),
+            notification=m.MbmsNotificationConfig(4, 10, 6)))
+
+
+def _asdicts(pairs):
+    return [(k, dataclasses.asdict(v)) for k, v in pairs]
+
+
+def test_rrc_sib1_sib2_paging_codecs():
+    """The reference's own SIB1, SIB2 and Paging bits unpack in the port to
+    the same messages, and the port packs the same bits."""
+    from lteax.stack import rrc as rrc_ref
+    from lteax_torch.stack import rrc
+    sib1 = lambda m: m.Sib1(mcc=(2, 6, 2), mnc=(0, 1, 5), tac=0xBEEF,
+                            cell_identity=0xABCDEF1, cell_barred=True,
+                            q_rx_lev_min=-64, freq_band_indicator=20,
+                            si_window_ms=40,
+                            scheduling=(m.SchedulingInfo(16, (3, 4)),
+                                        m.SchedulingInfo(32, (5,))))
+    b = rrc_ref.pack_sib1(sib1(rrc_ref))
+    _same(rrc.pack_sib1(sib1(rrc)), b)
+    assert dataclasses.asdict(rrc.unpack_sib1(b)) == \
+        dataclasses.asdict(rrc_ref.unpack_sib1(b))
+    s2_ref = rrc_ref.Sib2(number_of_ra_preambles=11, t300=2, ul_bandwidth=5)
+    s2 = rrc.Sib2(number_of_ra_preambles=11, t300=2, ul_bandwidth=5)
+    b = rrc_ref.pack_sib2(s2_ref)
+    _same(rrc.pack_sib2(s2), b)
+    assert _asdicts(rrc.unpack_si_list(b)) == \
+        _asdicts(rrc_ref.unpack_si_list(b))
+    assert dataclasses.asdict(rrc.unpack_si(b)[1]) == \
+        dataclasses.asdict(s2_ref)
+    for ids, sim in (((0xDEADBEEF, 0x12345678), True),
+                     (((0xA5 << 32) | 0xDEADBEEF,), False)):
+        b = rrc_ref.pack_paging(rrc_ref.Paging(ue_identities=ids,
+                                               system_info_modification=sim))
+        _same(rrc.pack_paging(rrc.Paging(ue_identities=ids,
+                                         system_info_modification=sim)), b)
+        assert dataclasses.asdict(rrc.unpack_paging(b)) == \
+            dataclasses.asdict(rrc_ref.unpack_paging(b))
+    assert rrc.unpack_paging(rrc.pack_paging(rrc.Paging())) is None
+    assert rrc.unpack_sib1(rrc.pack_sib2(s2)) is None
+    _same(rrc.pad_to(b, 200), rrc_ref.pad_to(b, 200))
+
+
+@pytest.mark.parametrize("split", [1, 3, 12])
+def test_rrc_sibs_codecs(split):
+    """SIB2..SIB13 in SystemInformation messages of ``split`` SIBs: the
+    same bits from both packers, the same bodies from both unpackers."""
+    from lteax.stack import rrc as rrc_ref
+    from lteax_torch.stack import rrc
+    ref = (rrc_ref.Sib2(),) + _sib_bodies(rrc_ref)
+    got = (rrc.Sib2(),) + _sib_bodies(rrc)
+    for i in range(0, len(ref), split):
+        b = rrc_ref.pack_si(*ref[i:i + split])
+        _same(rrc.pack_si(*got[i:i + split]), b)
+        padded = rrc_ref.pad_to(b, len(b) + 37)
+        assert _asdicts(rrc.unpack_si_list(padded)) == \
+            _asdicts(rrc_ref.unpack_si_list(padded))
+        assert [k for k, _ in rrc.unpack_si_list(b)] == \
+            [k for k, _ in rrc_ref.unpack_si_list(b)]
+
+
+def test_uper_primitives():
+    from lteax.stack import uper as uper_ref
+    from lteax_torch.stack import uper
+    outs = []
+    for m in (uper_ref, uper):
+        w = m.UperWriter()
+        w.bit(1)
+        w.cint(37, 3, 250)
+        w.enum(2, 5)
+        w.length(7, 1, 16)
+        w.bitstring(0xBEEF, 16)
+        w.small_index(9)
+        w.open_type([1, 0, 1])
+        outs.append(w.array())
+    _same(outs[1], outs[0])
+    r = uper.UperReader(outs[0])
+    assert (r.bit(), r.cint(3, 250), r.enum(5), r.length(1, 16),
+            r.bitstring(16), r.small_index()) == (1, 37, 2, 7, 0xBEEF, 9)
+
+
+@pytest.mark.parametrize("n_rb", [6, 15, 25, 50, 75, 100])
+def test_dci_1a_1c_codecs(n_rb):
+    """Pack and unpack over a grid of allocations and fields: the same
+    sizes, RIVs, bits and messages as the reference's."""
+    from lteax.phy.channels import dci as dci_ref
+    from lteax_torch.phy.channels import dci
+    assert dci.dci_1a_size(n_rb) == dci_ref.dci_1a_size(n_rb)
+    assert dci.dci_1c_size(n_rb) == dci_ref.dci_1c_size(n_rb)
+    assert dci._n_rb_step(n_rb) == dci_ref._n_rb_step(n_rb)
+    assert dci.TBS_1C == dci_ref.TBS_1C
+    rng = np.random.default_rng(n_rb)
+    for _ in range(12):
+        l_crb = int(rng.integers(1, n_rb + 1))
+        start = int(rng.integers(0, n_rb - l_crb + 1))
+        assert dci.riv_encode(n_rb, start, l_crb) == \
+            dci_ref.riv_encode(n_rb, start, l_crb)
+        f = dict(rb_start=start, l_crb=l_crb, mcs=int(rng.integers(32)),
+                 rv=int(rng.integers(4)), harq=int(rng.integers(8)),
+                 ndi=int(rng.integers(2)), tpc=int(rng.integers(4)),
+                 distributed=bool(rng.integers(2)))
+        b = dci_ref.dci_1a_pack(dci_ref.Dci1A(**f), n_rb)
+        _same(dci.dci_1a_pack(dci.Dci1A(**f), n_rb), b)
+        got = dci.dci_1a_unpack(b, n_rb)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            dci_ref.dci_1a_unpack(b, n_rb))
+        assert got.n_prb_1a == dci_ref.dci_1a_unpack(b, n_rb).n_prb_1a
+        ndl = n_rb // dci._n_rb_step(n_rb)
+        l1c = int(rng.integers(1, ndl + 1))
+        f = dict(rb_start=int(rng.integers(0, ndl - l1c + 1)), l_crb=l1c,
+                 i_tbs=int(rng.integers(32)),
+                 gap=int(rng.integers(2)) if n_rb >= 50 else 0)
+        b = dci_ref.dci_1c_pack(dci_ref.Dci1C(**f), n_rb)
+        _same(dci.dci_1c_pack(dci.Dci1C(**f), n_rb), b)
+        got = dci.dci_1c_unpack(b, n_rb)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            dci_ref.dci_1c_unpack(b, n_rb))
+        assert got.tbs() == dci_ref.dci_1c_unpack(b, n_rb).tbs()
+        noise = rng.integers(0, 2, len(b)).astype(np.int32)
+        for unpack, unpack_ref in ((dci.dci_1c_unpack, dci_ref.dci_1c_unpack),
+                                   (dci.dci_1a_unpack, dci_ref.dci_1a_unpack)):
+            bits = noise if unpack is dci.dci_1c_unpack else \
+                rng.integers(0, 2, dci.dci_1a_size(n_rb)).astype(np.int32)
+            a, r = unpack(bits, n_rb), unpack_ref(bits, n_rb)
+            assert (a is None) == (r is None)
+            if a is not None:
+                assert dataclasses.asdict(a) == dataclasses.asdict(r)
+
+
+@pytest.mark.parametrize("cid", [0, 77, 404, 503])
+def test_pcfich_codewords_and_scrambling(cid):
+    from lteax.phy.channels import pcfich as pcfich_ref
+    from lteax_torch.phy.channels import pcfich
+    _same(pcfich.cfi_codewords(), pcfich_ref.cfi_codewords())
+    for sf in (0, 5, 9):
+        assert pcfich._c_init(cid, sf) == pcfich_ref._c_init(cid, sf)
+        for cfi in (1, 2, 3):
+            np.testing.assert_array_equal(
+                pcfich.pcfich_encode(cfi, cid, sf),
+                np.asarray(pcfich_ref.pcfich_encode(cfi, cid, sf)))
+
+
+@pytest.mark.parametrize("n_rb,n_ant,cid", [(6, 1, 77), (6, 4, 1),
+                                            (15, 2, 150), (100, 2, 404)])
+def test_pdcch_plans_and_encoder(n_rb, n_ant, cid):
+    """Quadruplet permutation, CCE count, search spaces, and the encoded
+    per-port symbols of an SI-RNTI and a P-RNTI grant."""
+    from lteax.phy.channels import pdcch as pdcch_ref
+    from lteax_torch.phy.channels import dci, pdcch
+    from lteax_torch.phy.grid import pdcch_reg_list
+    cfg, cfg_r = PhyConfig(n_rb_dl=n_rb, n_ant=n_ant), \
+        RefPhyConfig(n_rb_dl=n_rb, n_ant=n_ant)
+    for cfi in (1, 2, 3):
+        for ng in (1 / 6, 1.0, 2.0):
+            n = pdcch.n_cce(cfg, cid, cfi, ng)
+            assert n == pdcch_ref.n_cce(cfg_r, cid, cfi, ng)
+            m = len(pdcch_reg_list(cfg, cid, cfi, ng))
+            _same(pdcch.quad_permutation(m, cid),
+                  pdcch_ref.quad_permutation(m, cid))
+            for rnti, sf in ((0xFFFF, None), (0x4601, 3)):
+                assert pdcch.search_candidates(n, rnti, sf) == \
+                    pdcch_ref.search_candidates(n, rnti, sf)
+    _same(pdcch.rnti_mask(0xFFFE), pdcch_ref.rnti_mask(0xFFFE))
+    cfi = 4 if n_rb <= 10 else 2             # control symbols
+    dcis = [(dci.dci_1c_pack(dci.Dci1C(0, 2, 9), n_rb), 0xFFFF, 0, 4)]
+    if pdcch.n_cce(cfg, cid, cfi, 1.0) >= 8:
+        dcis.append((dci.dci_1a_pack(dci.Dci1A(0, 3, 5, 1), n_rb), 0xFFFE,
+                     4, 4))
+    got = pdcch.pdcch_encode(dcis, cfg, cid, cfi, 1.0, 5, n_ant=n_ant)
+    ref = np.asarray(pdcch_ref.pdcch_encode(dcis, cfg_r, cid, cfi, 1.0, 5,
+                                            n_ant=n_ant))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    phys = torch.from_numpy(got[0])
+    logical = pdcch.unpermute_to_logical(phys, cfg, cid, cfi, 1.0).numpy()
+    np.testing.assert_array_equal(logical, np.asarray(
+        pdcch_ref.unpermute_to_logical(jnp.asarray(got[0]), cfg_r, cid, cfi,
+                                       1.0)))
+
+
+@pytest.mark.parametrize("d_total,e_len", [(540, 1656), (1308, 1584),
+                                           (900, 700)])
+def test_unmatch_inv_cycles(d_total, e_len):
+    idx = np.random.default_rng(e_len).integers(0, d_total, e_len
+                                                ).astype(np.int32)
+    _same(ratematch.unmatch_inv_cycles(idx, d_total),
+          rm_ref.unmatch_inv_cycles(idx, d_total))

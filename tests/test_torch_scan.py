@@ -1,8 +1,10 @@
 """The port's scanner against the reference's, on the CPU (plain kernel
-versions): cell_gen grids against file_gen's, the capture scan against
-``lteax.apps.file_scan.scan(x, cfg, max_si_subframes=0)`` (the MIB-level
-result), the batched prescan against ``lteax.apps.scanner``'s, and the
-port's multi-channel scanner end to end.
+versions): cell_gen grids against file_gen's (SI off and on), the capture
+scan against ``lteax.apps.file_scan.scan(x, cfg, max_si_subframes=0)``
+(the MIB-level result; the SI stage: ``tests/test_torch_si*.py``), the
+batched prescan against ``lteax.apps.scanner``'s, cell_gen captures with SI
+scanned to what they carry, and the port's multi-channel scanner end to
+end.
 
 Integer fields and the MIB must be equal.  Tolerances: CFO 1 Hz (CP
 correlation sums in other orders and dtypes), RSRP and SNR 0.1 dB, EVM
@@ -94,6 +96,42 @@ def test_cell_gen_grid_matches_file_gen(n_ant, sfn, sf):
     assert not np.any(got[rest])               # nothing else is written
 
 
+@pytest.mark.parametrize("n_ant,si_dci", [(1, "1a"), (1, "1c"), (2, "1a"),
+                                          (2, "1c"), (4, "1a"), (4, "1c")])
+def test_cell_gen_si_grid_matches_file_gen(n_ant, si_dci):
+    """With SI on, every RE of subframes 0, 5 (SIB1 in frame 6, the SI
+    message in frame 7) and 9 (paging) equals file_gen's."""
+    from lteax.phy.channels import pbch as pbch_ref
+    from lteax.stack import rrc as rrc_ref
+    from lteax_torch.stack import rrc
+    cid = 300 + n_ant
+    tmsi = (0x1234567, 0x0200000042)
+    cfi = 3 if n_ant == 4 else 2
+    cell = cell_gen.Cell(n_rb_dl=6, n_cell_id=cid, n_ant=n_ant, cfi=cfi,
+                         si_dci=si_dci, paging_tmsi=tmsi)
+    si = cell_gen.si_bits(cell)
+    gc = file_gen.GenConfig(n_rb_dl=6, n_cell_id=cid, n_ant=n_ant, cfi=cfi,
+                            si_dci=si_dci, paging_tmsi=tmsi, sib1_mcs=si.mcs)
+    sib1_r = rrc_ref.pack_sib1(rrc_ref.Sib1(
+        mcc=gc.mcc, mnc=gc.mnc, tac=gc.tac, cell_identity=gc.cell_identity,
+        freq_band_indicator=gc.band,
+        scheduling=(rrc_ref.SchedulingInfo(8, (3,)),)))
+    sib2_r = rrc_ref.pack_si(rrc_ref.Sib2())
+    paging_r = rrc_ref.pack_paging(rrc_ref.Paging(ue_identities=tmsi))
+    for a, b in ((si.sib1, sib1_r), (si.sib2, sib2_r), (si.paging, paging_r)):
+        np.testing.assert_array_equal(a, b)
+    mib = rrc.pack_mib(cell.mib(4))
+    q = cell_gen.pbch.pbch_encode_40ms(mib, n_ant, cid)
+    q_ref = np.asarray(pbch_ref.pbch_encode_40ms(jnp.asarray(mib), n_ant, cid))
+    for sfn, sf in ((6, 0), (6, 5), (7, 5), (6, 9)):
+        ref = file_gen.build_subframe_grid(gc, sfn, sf, q_ref, sib1_r, sib2_r,
+                                           paging_r)
+        got = cell_gen.build_subframe_grid(cell, sfn, sf, q, si)
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        assert np.count_nonzero(got) > np.count_nonzero(
+            cell_gen.build_subframe_grid(cell, sfn, sf, q))
+
+
 def _file_gen(n_ant, cid, n_frames=4):
     return np.array(file_gen.generate(file_gen.GenConfig(
         n_rb_dl=6, n_cell_id=cid, n_ant=n_ant, n_frames=n_frames,
@@ -133,16 +171,41 @@ def test_scan_matches_reference_cfo_and_sdr_rate():
     assert abs(got.cfo_hz - 1234.5) < 50.0 and got.n_cell_id == 404
 
 
-def test_scan_needs_si_off():
-    with pytest.raises(NotImplementedError):
-        fs.scan(np.zeros(3 * CFG.n_samps_subframe, np.complex64), CFG)
+def test_scan_without_si_stops_at_the_mib():
+    """``max_si_subframes=0`` on an SI-bearing capture: the MIB-level
+    report, in the 4 reads of stages 1-5."""
+    cell = cell_gen.Cell(n_rb_dl=6, n_cell_id=9, n_ant=1)
+    cap = cell_gen.capture(cell, 0.03, sfn0=2, offset=300, snr_db=20.0)
+    host.READS = 0
+    res = fs.scan(torch.from_numpy(cap.iq), CFG, max_si_subframes=0)
+    assert host.READS == 4
+    assert (res.n_cell_id, res.sfn) == (9, cap.sfn)
+    assert res.sib1 is None and res.sib2 is None and not res.si_decodes
+
+
+@pytest.mark.parametrize("n_ant,si_dci", [(1, "1c"), (4, "1a")])
+def test_cell_gen_capture_scans_si(n_ant, si_dci):
+    """A cell_gen capture with SI, CFO, noise and an SDR rate scans to the
+    SIB1, SIB2 and paging it was made with (the port alone)."""
+    tmsi = (0x0AB0000001,)
+    cell = cell_gen.Cell(n_rb_dl=6, n_cell_id=61, n_ant=n_ant,
+                         cfi=3 if n_ant == 4 else 2, si_dci=si_dci,
+                         paging_tmsi=tmsi, tac=0x2BCD)
+    cap = cell_gen.capture(cell, 0.04, sfn0=101, offset=4000,
+                           cfo_hz=1500.0, snr_db=15.0, rate_hz=2.4e6, seed=4)
+    res = fs.scan(resample_poly(torch.from_numpy(cap.iq), 4, 5), CFG)
+    assert (res.n_cell_id, res.n_ant, res.sfn) == (61, n_ant, cap.sfn)
+    assert dataclasses.asdict(res.sib1) == dataclasses.asdict(cell.sib1())
+    assert dataclasses.asdict(res.sib2) == dataclasses.asdict(cell.sib2())
+    assert res.paging == [hex(t) for t in tmsi] and res.sib_crc_fails == 0
 
 
 def test_cell_gen_capture_scans():
     """A cell_gen capture with SFN, offset, CFO, noise and an SDR rate
     scans to what it was made with."""
+    # cfi 3, as file_gen's 4-port cells: the SI grant's 4 CCEs need it
     cell = cell_gen.Cell(n_rb_dl=6, n_cell_id=137, n_ant=4,
-                         phich_resource=0.5)
+                         phich_resource=0.5, cfi=3)
     cap = cell_gen.capture(cell, 0.025, sfn0=1021, offset=5000,
                            cfo_hz=-3000.0, snr_db=12.0, rate_hz=2.4e6,
                            seed=1)
@@ -199,14 +262,17 @@ def test_scan_channels_prescan_and_checkpoint(two_channels, tmp_path):
     host.READS = 0
     reps = scanner.scan_channels(chans, CFG, checkpoint_path=ck,
                                  prescan=True, device="cpu")
-    assert host.READS == 1 + 4          # the prescan's, then the live scan's
+    # the prescan's, then the live scan's: 4 to the MIB, 2 for each of the
+    # two paging attempts and 3 for each of the two SI subframes
+    assert host.READS == 1 + 14
+    assert reps[0]["sib1"]["tac"] == 0x1234 and reps[0]["sib2"] is not None
     assert reps[0]["n_cell_id"] == 44 and reps[0]["freq_mhz"] == 2140.0
     assert reps[0]["mib"]["n_rb_dl"] == 6
     assert reps[1]["mib"] is None and not reps[1]["prescan"]["detected"]
     again = scanner.scan_channels([scanner.Channel("300", "/nonexistent"),
                                    scanner.Channel("301", "/nonexistent")],
                                   CFG, checkpoint_path=ck, device="cpu")
-    assert again == reps and host.READS == 5
+    assert again == reps and host.READS == 15
 
 
 def test_scanner_cli(two_channels, capsys):
