@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-nine paths, each with the launch counters set to 0 just before it and
+fourteen paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -67,6 +67,32 @@ read just after:
    circular buffer) on 256 subframes at ``WRAP_SNR_DB``, every transport
    block decoded to the bits sent, the card's decode of 4 equal to the
    CPU's.
+10. The UE-specific control decode (``[ctrl]``): two 20 MHz subframes
+    (100 PRB, cfi 3, one port, 20 dB) from ``lteax_torch.sim.ctrl_gen``
+    carrying a C-RNTI DCI of each of formats 0, 1, 1B, 1D, 2 and 2A at
+    UE-space candidates of L 1, 2, 4 and 8 (2 and 2A at 2, 4 and 8), DCI 3
+    and 3A on TPC-RNTIs in the common space, and all 8 HI bits of every
+    PHICH group; OFDM, the CRS channel estimate, the PCFICH, every blind
+    decode (``pdcch.pdcch_blind_decode_*``) and the PHICH decode
+    (``phich.phich_decode_subframe``) on the card: every DCI found at its
+    (start, L) with its fields, every HI bit right, the card's result equal
+    to the CPU's.
+11. The single-subframe UL decodes (``[ul-single]``, ``[ul-uci]``): 8
+    subframes of the UL cell at 25 dB through ``pusch.pusch_decode`` and,
+    with 2 HARQ-ACK and 1 RI bit multiplexed, ``pusch.pusch_decode_uci``:
+    CRC, bits, ACK and RI right; 12 turbo launches a subframe, the demap
+    kernel none; the card equal to the CPU on one subframe.
+12. The UL bench CLI (``[ul-bench]``): ``lteax_torch.bench.ul_throughput``
+    at B=256, its JSON line, 256/256 CRC.
+13. Config #2 (``[bler]``): the gate of ``tests/test_snr_sweep.py`` through
+    ``lteax_torch.bench.snr_sweep.bler_gate`` for the stored 6-PRB MCS 4
+    and 25-PRB MCS 10 curves, each point within its ±0.5 dB band, BER 0 at
+    the zero + 0.5 dB point; then config #2's own sweep (25 PRB, MCS 10,
+    50 blocks, 7 points).
+14. Config #3 (``[config3]``): the three gates of
+    ``lteax_torch.bench.config3`` on the card (the noise estimate and
+    MMSE-below-LS under EVA, the 2-port SFBC loopback with MIB, SIB1, SIB2
+    and no SI CRC failure) at 50 PRB.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -80,7 +106,9 @@ below.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import sys
 import time
@@ -99,20 +127,25 @@ import lteax_torch.kernels.pss as pss_mod
 import lteax_torch.kernels.turbo_mlm as turbo_mod
 import lteax_torch.phy.sync as sync
 from lteax_torch import host
-from lteax_torch.bench import acs_probe, resample_bench, scan_throughput
+from lteax_torch.bench import (acs_probe, config3, resample_bench,
+                               scan_throughput, snr_sweep, ul_throughput)
 from lteax_torch.bench.timing import card_line, time_decode
 from lteax_torch.io.iq import read_iq, write_iq
 from lteax_torch.kernels._build import library
-from lteax_torch.phy import seq
+from lteax_torch.phy import chest, seq
+from lteax_torch.phy.channels import pcfich, pdcch, phich, pusch
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.fec.turbo import turbo_encode
+from lteax_torch.phy.grid import pcfich_flat_idx, pdcch_flat_idx
+from lteax_torch.phy.mod import demodulate_maxlog
+from lteax_torch.phy.ofdm import samples_to_subframe, subframe_to_samples
 from lteax_torch.phy.tuning import DecoderTuning
 from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
                                   make_mimo_batch_decoder,
                                   make_pusch_batch_decoder)
-from lteax_torch.sim import cell_gen
+from lteax_torch.sim import cell_gen, ctrl_gen
 from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
                                     harq_transmissions)
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
@@ -138,6 +171,18 @@ WRAP_CELL = DlCell(mcs=0)    # 100 PRB MCS 0: TBS 2792, C=1, K=2816, 4 cycles
 WRAP_CYCLES = 4
 WRAP_SNR_DB = -1.0           # 256/256 in 2 iterations (one compacted retry)
 WRAP_REPS = 20
+CTRL_CFG = PhyConfig(n_rb_dl=100)
+CTRL_CID, CTRL_CFI, CTRL_NG, CTRL_SNR_DB = 301, 3, 1.0, 20.0
+# subframe -> the aggregation levels of its UE DCIs: every UE format at
+# both, but formats 2 and 2A (51 and 48 payload bits at 100 PRB) never at
+# L = 1 (72 coded bits)
+CTRL_LEVELS = {1: (8, 1), 6: (4, 2)}
+CTRL_TPC = [("3", 0xFFF0, 0, 4), ("3a", 0xFFF1, 4, 4)]
+UL_SINGLE_N = 8
+UCI = pusch.PuschUci(n_ack=2, n_ri=1)
+UCI_ACK, UCI_RI = (1, 0), (1,)
+BLER_CURVES = ((6, 4), (25, 10))
+CONFIG2 = dict(n_rb=25, mcs=10, n_blocks=50)     # configs/config2_*.yaml
 # (C, n, win, acq) of the SI path's turbo decode: one codeblock, K 224 and
 # 408, the single-subframe window of 32
 TURBO_SI = ((1, 227, 32, 16), (1, 411, 32, 16))
@@ -1227,6 +1272,265 @@ def run_probe(dev, card: str) -> dict:
     return {**res, "launches": launches}
 
 
+def _reset_counts() -> None:
+    demap_mod.LAUNCHES = turbo_mod.LAUNCHES = 0
+    pss_mod.CORR_LAUNCHES = pss_mod.CORR_BF16_LAUNCHES = 0
+    host.READS = 0
+
+
+def _counts() -> dict:
+    return {"demap": demap_mod.LAUNCHES,
+            "turbo_half_iteration": turbo_mod.LAUNCHES,
+            "pss_corr_mag_bf16": pss_mod.CORR_BF16_LAUNCHES,
+            "host_reads": host.READS}
+
+
+def ctrl_signal() -> dict:
+    """The ``[ctrl]`` subframes: {subframe: (samples (n,) complex64, DCIs,
+    HI bits (n_groups, 8))}, AWGN at ``CTRL_SNR_DB`` per RE (seed
+    SEED + 11)."""
+    rng = np.random.default_rng(SEED + 11)
+    n_g = phich.phich_subframe_idx(CTRL_CFG, CTRL_CID, CTRL_NG).shape[0]
+    out = {}
+    for sf, levels in CTRL_LEVELS.items():
+        ue = [(f, l) for f in ctrl_gen.UE_FORMATS for l in levels
+              if not (l == 1 and f in ("2", "2a"))]
+        dcis = ctrl_gen.ue_dci_plan(CTRL_CFG, CTRL_CID, CTRL_CFI, CTRL_NG, sf,
+                                    ue, CTRL_TPC, rng)
+        hi = rng.integers(0, 2, (n_g, 8))
+        grid = ctrl_gen.ctrl_subframe(CTRL_CFG, CTRL_CID, CTRL_CFI, CTRL_NG,
+                                      sf, dcis, hi)
+        x = subframe_to_samples(torch.from_numpy(grid), CTRL_CFG).numpy()
+        nv = 10 ** (-CTRL_SNR_DB / 10)
+        x = x + np.sqrt(nv / 2) * (rng.standard_normal(x.shape)
+                                   + 1j * rng.standard_normal(x.shape))
+        out[sf] = (x.astype(np.complex64), dcis, hi)
+    return out
+
+
+def ctrl_decode(x: torch.Tensor, sf: int, dcis: list) -> dict:
+    """One control subframe's samples on their device: OFDM, the port-0
+    CRS estimate and noise, the MMSE-equalised grid; the PCFICH's CFI;
+    the SISO PDCCH LLRs de-interleaved (``pdcch_llrs_to_logical``); each
+    DCI's blind decode on its RNTI (C-RNTIs with the UE space, TPC-RNTIs
+    the common space), timed; every PHICH group's 8 metrics in one read."""
+    cfg, cid, ng = CTRL_CFG, CTRL_CID, CTRL_NG
+    dev = x.device
+    g = samples_to_subframe(x, cfg)
+    h = chest.estimate_channel(g, cfg, cid, sf, port=0).reshape(-1)
+    nv = chest.estimate_noise_var(g, cfg, cid, sf)
+    x_eq, eff = chest.equalize_siso(g.reshape(-1), h, nv)
+    t = lambda i: torch.as_tensor(np.asarray(i).reshape(-1).astype(np.int64),
+                                  device=dev)
+    pc = t(pcfich_flat_idx(cfg, cid))
+    cfi = host.read(pcfich.pcfich_decode(
+        demodulate_maxlog(x_eq[pc], "qpsk", eff[pc]), cid, sf)[0])
+    pd = t(pdcch_flat_idx(cfg, cid, cfi, ng))
+    logical = pdcch.pdcch_llrs_to_logical(
+        demodulate_maxlog(x_eq[pd], "qpsk", eff[pd]), cfg, cid, cfi, ng, sf)
+    n_cce = pdcch.n_cce(cfg, cid, cfi, ng)
+    found, times = [], []
+    for d in dcis:
+        kw = {} if d.fmt in ctrl_gen.TPC_FORMATS else {"subframe": sf}
+        t0 = time.perf_counter()
+        found.append(getattr(pdcch, f"pdcch_blind_decode_{d.fmt}")(
+            logical, cfg.n_rb_dl, d.rnti, n_cce, **kw))
+        times.append(time.perf_counter() - t0)
+    hi = phich.phich_decode_subframe(x_eq, cfg, cid, ng, sf)
+    return {"cfi": cfi, "found": found, "hi": hi, "times": times}
+
+
+def _plain(m):
+    return dataclasses.asdict(m) if dataclasses.is_dataclass(m) else m
+
+
+def run_ctrl(dev, card: str) -> dict:
+    """The ``[ctrl]`` path on the card (counted), then on the CPU: every
+    DCI at its (start, L) with its message, every HI bit right, the card's
+    found lists and HI bits equal to the CPU's, its metrics within 1e-4 of
+    the largest."""
+    t0 = time.perf_counter()
+    sig = ctrl_signal()
+    print(f"[ctrl-gen] {len(sig)} subframes, {CTRL_CFG.n_rb_dl} PRB, cfi "
+          f"{CTRL_CFI}, {sum(len(v[1]) for v in sig.values())} DCIs, "
+          f"{sig[1][2].size} HI bits each: {time.perf_counter() - t0:.2f} s")
+    ctrl_decode(torch.from_numpy(sig[1][0]).to(dev), 1, sig[1][1][:1])
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_out = {sf: ctrl_decode(torch.from_numpy(x).to(dev), sf, dcis)
+                for sf, (x, dcis, _) in sig.items()}
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    times = [t for o in card_out.values() for t in o["times"]]
+    n_dci = n_hi = 0
+    for sf, (x, dcis, hi) in sig.items():
+        got, cpu = card_out[sf], ctrl_decode(torch.from_numpy(x), sf, dcis)
+        if got["cfi"] != CTRL_CFI or cpu["cfi"] != CTRL_CFI:
+            raise AssertionError(f"ctrl: CFI {got['cfi']} / {cpu['cfi']}")
+        for d, f_card, f_cpu in zip(dcis, got["found"], cpu["found"]):
+            hits = {(s, l): _plain(m) for m, s, l in f_card}
+            if hits.get((d.start, d.l_agg)) != _plain(d.msg):
+                raise AssertionError(f"ctrl: DCI {d.fmt} on {d.rnti:#x} at "
+                                     f"({d.start}, {d.l_agg}) not found: "
+                                     f"{list(hits)}")
+            if [(_plain(m), s, l) for m, s, l in f_card] != \
+                    [(_plain(m), s, l) for m, s, l in f_cpu]:
+                raise AssertionError(f"ctrl: card and CPU blind decodes of "
+                                     f"{d.fmt} on {d.rnti:#x} differ")
+            n_dci += 1
+        bits = (got["hi"] < 0).astype(int)
+        gap = float(np.abs(got["hi"] - cpu["hi"]).max())
+        if not np.array_equal(bits, hi) or \
+                not np.array_equal((cpu["hi"] < 0).astype(int), hi) or \
+                gap > 1e-4 * float(np.abs(cpu["hi"]).max()):
+            raise AssertionError(f"ctrl: HI bits wrong or card != CPU "
+                                 f"(|diff| {gap})")
+        n_hi += hi.size
+    if counts["demap"] or counts["turbo_half_iteration"]:
+        raise AssertionError(f"ctrl: kernels launched {counts}")
+    per = {f"L{l}": sorted({d.fmt for v in sig.values() for d in v[1]
+                            if d.l_agg == l}) for l in (1, 2, 4, 8)}
+    med = float(np.median(times)) * 1e3
+    print(f"[ctrl] {n_dci}/{n_dci} DCIs at their (start, L) with their "
+          f"fields (formats by L: {per}), {n_hi}/{n_hi} HI bits right, CFI "
+          f"{CTRL_CFI}; card = CPU (found lists, HI bits); blind decode "
+          f"median {med:.3f} ms (n={len(times)}, max "
+          f"{max(times) * 1e3:.3f}); two subframes {wall * 1e3:.1f} ms; host "
+          f"reads {counts['host_reads']} ({card})")
+    return {"dcis": n_dci, "hi_bits": n_hi, "blind_decode_ms": med,
+            "wall_ms": wall * 1e3, "host_reads": counts["host_reads"],
+            "launches": counts}
+
+
+def run_ul_single(dev, card: str) -> dict:
+    """``[ul-single]`` and ``[ul-uci]``: ``UL_SINGLE_N`` subframes of the
+    UL cell at 25 dB, one decode call each, counted; then the first
+    subframe on the CPU, whose bits, TB and code-block CRC flags (and, in
+    ``[ul-uci]``, ACK and RI) must equal the card's."""
+    cell = UlCell()
+    args = cell.decoder_args()
+    out = {}
+    for name, uci in (("ul-single", None), ("ul-uci", UCI)):
+        t0 = time.perf_counter()
+        iq, tb = ul_subframes(cell, UL_SINGLE_N, SNR_DB, seed=SEED + 9,
+                              uci=uci, ack=UCI_ACK, ri=UCI_RI)
+        g = torch.from_numpy(iq[..., 0] + 1j * iq[..., 1])
+        print(f"[{name}-gen] {UL_SINGLE_N} subframes, TBS {cell.alloc.mcs_tbs}"
+              f", {cell.alloc.scheme}{', UCI ' + str(uci) if uci else ''}: "
+              f"{time.perf_counter() - t0:.2f} s")
+        if uci is None:
+            decode = lambda x: (*pusch.pusch_decode(x, *args), None, None)
+            want = (None, None)
+        else:
+            decode = lambda x: pusch.pusch_decode_uci(x, *args, uci)
+            want = (UCI_ACK, UCI_RI)
+        gd = g.to(dev)
+        decode(gd[0])                                  # warm-up
+        _reset_counts()
+        rows, times = [], []
+        for i in range(UL_SINGLE_N):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bits, ok, cb_oks, ack, ri = decode(gd[i])
+            rows.append((bits.cpu().numpy(), bool(ok), cb_oks.cpu().numpy(),
+                         ack, ri))
+            times.append(time.perf_counter() - t0)
+        counts = _counts()
+        good = sum(ok and np.array_equal(b, tb[i]) and (a, r) == want
+                   for i, (b, ok, _, a, r) in enumerate(rows))
+        k12 = counts["turbo_half_iteration"] / UL_SINGLE_N
+        cpu = decode(g[0])
+        same = (np.array_equal(cpu[0].numpy(), rows[0][0])
+                and bool(cpu[1]) == rows[0][1]
+                and np.array_equal(cpu[2].numpy(), rows[0][2])
+                and cpu[3:] == rows[0][3:])
+        med = float(np.median(times)) * 1e3
+        print(f"[{name}] {good}/{UL_SINGLE_N} with CRC, bits"
+              f"{', ACK and RI' if uci else ''} right; median {med:.3f} ms a "
+              f"subframe (n={UL_SINGLE_N}, host clock, read included); "
+              f"turbo_half_iteration {k12:.1f} launches a subframe, demap "
+              f"{counts['demap']}; card = CPU on subframe 0 (bits, TB and CB "
+              f"CRC flags{', ACK, RI' if uci else ''}): {same} ({card})")
+        if good != UL_SINGLE_N or k12 != 12 or counts["demap"] or not same:
+            raise AssertionError(f"{name}: {good}/{UL_SINGLE_N} right, "
+                                 f"{counts}, card = CPU {same}")
+        out[name] = {"n_ok": good, "ms_per_subframe": med,
+                     "turbo_per_subframe": k12, "launches": counts}
+    return out
+
+
+def run_ul_bench(card: str) -> dict:
+    """``[ul-bench]``: the UL bench CLI at B=256 on the card, counted; its
+    JSON line printed after the tag."""
+    _reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = ul_throughput.main(["--batch", str(BATCH), "--reps", "10"])
+    counts = _counts()
+    print(f"[ul-bench] {buf.getvalue().strip()}")
+    print(f"[ul-bench] launches {counts} ({card})")
+    if res["crc_ok"] != BATCH or res["unit"] != "Mbit/s/GPU" or \
+            counts["demap"] <= 0 or counts["turbo_half_iteration"] <= 0:
+        raise AssertionError(f"ul-bench: {res}, {counts}")
+    return {**res, "launches": counts}
+
+
+def run_bler(dev, card: str) -> dict:
+    """``[bler]``: the config #2 gate at both stored curves, then config
+    #2's own sweep, on the card, counted together."""
+    _reset_counts()
+    out = {}
+    for n_rb, mcs in BLER_CURVES:
+        t0 = time.perf_counter()
+        gate = snr_sweep.bler_gate(n_rb, mcs, device=dev)
+        pts = "; ".join(f"{s:+.1f} dB BLER {bl:.3f} in [{lo:.3f}, {hi:.3f}] "
+                        f"BER {be:.5f}" for s, lo, hi, bl, be
+                        in gate["points"])
+        print(f"[bler] gate {n_rb} PRB MCS {mcs} ({gate['scheme']}, 2 seeds x "
+              f"24 blocks, production decoder): {pts}; "
+              f"{'pass' if gate['ok'] else 'FAIL'}; "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+        if not gate["ok"]:
+            raise AssertionError(f"bler gate {n_rb} PRB MCS {mcs}: {gate}")
+        out[f"{n_rb}prb_mcs{mcs}"] = gate["points"]
+    t0 = time.perf_counter()
+    tbs, scheme, res = snr_sweep.sweep(**CONFIG2, device=dev)
+    print(f"[bler] config #2 sweep, {CONFIG2}, TBS {tbs} {scheme}, "
+          f"single-subframe decoder: " + "; ".join(
+              f"{e:.2f},{ber:.5f},{bler:.3f}" for e, ber, bler in res)
+          + f" (esn0_db,ber,bler); {time.perf_counter() - t0:.2f} s ({card})")
+    if res[0][2] != 1.0 or not res[-1][2] < 1.0:
+        raise AssertionError(f"config #2 sweep shows no waterfall: {res}")
+    counts = _counts()
+    if counts["demap"] or counts["turbo_half_iteration"] <= 0:
+        raise AssertionError(f"bler: launches {counts}")
+    return {"gates": out, "config2": res, "launches": counts}
+
+
+def run_config3(dev, card: str) -> dict:
+    """``[config3]``: the three gates at 50 PRB on the card, counted."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    nv = config3.noise_estimate(dev)
+    mse = config3.chest_mse(dev)
+    loop = config3.sfbc_loopback(dev)
+    counts = _counts()
+    print(f"[config3] 50 PRB EVA 10 dB: noise estimate / true "
+          f"{nv['ratio']:.4f} (gate 0.5-2); MSE MMSE {mse['mmse_mse']:.3e} < "
+          f"LS {mse['ls_mse']:.3e}: {mse['ok']}; 2-port SFBC loopback: cell "
+          f"{loop['n_cell_id']}, n_ant {loop['n_ant']}, MIB {loop['mib']}, "
+          f"SIB1 (TAC {loop['sib1_tac']:#x}) {loop['sib1']}, SIB2 "
+          f"{loop['sib2']}, SI CRC failures {loop['sib_crc_fails']}; "
+          f"launches {counts}; {time.perf_counter() - t0:.2f} s ({card})")
+    if not (nv["ok"] and mse["ok"] and loop["ok"]) or counts["demap"] or \
+            counts["turbo_half_iteration"] <= 0:
+        raise AssertionError(f"config3: {nv}, {mse}, {loop}, {counts}")
+    return {"noise_ratio": nv["ratio"], "ls_mse": mse["ls_mse"],
+            "mmse_mse": mse["mmse_mse"], "loopback": loop,
+            "launches": counts}
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -1336,6 +1640,11 @@ def main() -> None:
     harq = timed("harq", run_harq, cell, dev, card)
     probe = timed("probe", run_probe, dev, card)
     mimo_out = timed("mimo", run_mimo, dev, card)
+    ctrl = timed("ctrl", run_ctrl, dev, card)
+    ul_single = timed("ul_single", run_ul_single, dev, card)
+    ul_bench = timed("ul_bench", run_ul_bench, card)
+    bler = timed("bler", run_bler, dev, card)
+    cfg3 = timed("config3", run_config3, dev, card)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -1350,6 +1659,14 @@ def main() -> None:
                for name in ("demap", "turbo_half_iteration")}
     by_path["turbo_half_iteration"]["scanner"] = scan_out["turbo_launches"]
     by_path["demap"]["scanner"] = scan_out["demap_launches"]
+    for name, c in (("ctrl", ctrl["launches"]),
+                    ("ul_single", ul_single["ul-single"]["launches"]),
+                    ("ul_uci", ul_single["ul-uci"]["launches"]),
+                    ("ul_bench", ul_bench["launches"]),
+                    ("bler", bler["launches"]),
+                    ("config3", cfg3["launches"])):
+        for kernel in ("demap", "turbo_half_iteration"):
+            by_path[kernel][name] = c[kernel]
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
@@ -1375,6 +1692,18 @@ def main() -> None:
         "si": {key: si_out[key] for key in
                ("wall_ms_per_channel", "first_wall_ms_per_channel",
                 "stages", "reads", "launches")},
+        "ctrl": {key: ctrl[key] for key in
+                 ("dcis", "hi_bits", "blind_decode_ms", "wall_ms",
+                  "host_reads")},
+        "ul_single": {name: {key: v[key] for key in
+                             ("n_ok", "ms_per_subframe", "turbo_per_subframe")}
+                      for name, v in ul_single.items()},
+        "ul_bench": {key: ul_bench[key] for key in
+                     ("value", "unit", "vs_baseline", "crc_ok", "n_iter",
+                      "batch")},
+        "bler": {"gates": bler["gates"], "config2": bler["config2"]},
+        "config3": {key: cfg3[key] for key in
+                    ("noise_ratio", "ls_mse", "mmse_mse")},
         "dl_wrap": {key: wrap[key] for key in
                     ("cycles", "decode_ms", "decode_p90_ms", "mbit_per_s",
                      "front_ms", "n_iter", "syncs", "retries", "peak_gb")},

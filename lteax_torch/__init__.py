@@ -4,8 +4,9 @@ The JAX package ``lteax`` is the reference; this package mirrors its layout
 so each counterpart is easy to find:
 
   phy/        receive chains in plain torch (OFDM, chest, equalizers, sync,
-              PBCH, PUSCH, CRC, rate de-match plans, turbo decode loop) with
-              their numpy plans, configuration, grid maps and tables
+              PBCH, PCFICH, PDCCH / DCI, PHICH, PDSCH, PUSCH with UCI, CRC,
+              rate de-match plans, turbo decode loop) with their numpy
+              plans, configuration, grid maps and tables
   kernels/    hand-written CUDA kernels for sm_90a (demap, turbo
               half-iteration, PSS correlator and detect, polyphase
               resampler, ACS op-mix probe) with their plain torch versions
@@ -14,11 +15,14 @@ so each counterpart is easy to find:
               (HARQ-IR), ``make_pusch_batch_decoder`` (UL-SCH) and
               ``make_mimo_batch_decoder`` (2x2 TM3/TM4, MMSE or SIC): IQ ->
               TB bits, CRC flags
-  apps/ shard/ the multi-carrier cell scanner to the MIB
-  sim/        DL, UL, HARQ, 2x2 MIMO and cell test-signal generators
-  bench/      DL and MIMO decode throughput, the PSS sweep, the ACS probe
-              and kernel studies
-  io/ stack/ utils/   IQ files, EARFCN helpers, the MIB, checkpoint, metrics
+  apps/ shard/ the multi-carrier cell scanner to the MIB, SIBs and paging
+  sim/        DL, UL (with UCI), HARQ, 2x2 MIMO, cell and control-region
+              test-signal generators
+  bench/      DL, UL and MIMO decode throughput, config #2's sweep and BLER
+              gate, config #3's gates, the PSS sweep, the ACS probe and
+              kernel studies
+  io/ stack/ utils/   IQ files, EARFCN helpers, the RRC codecs, checkpoint,
+              metrics
 
 The package imports torch and numpy, never jax and nothing of ``lteax``: it
 keeps its own copy of every module it needs from there, and

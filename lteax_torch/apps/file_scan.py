@@ -40,6 +40,7 @@ from lteax_torch.phy.grid import (crs_flat_idx, pbch_flat_idx, pcfich_flat_idx,
 from lteax_torch.phy.mod import demodulate_maxlog
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.phy.tables.tbs import tbs_1a
+from lteax_torch.pipeline import _resolve_device
 from lteax_torch.stack import rrc
 
 SI_RNTI = 0xFFFF
@@ -110,17 +111,22 @@ def _evm_pct(x: torch.Tensor) -> torch.Tensor:
 
 def scan(x, cfg: PhyConfig, correct_cfo: bool = True,
          cfi_hint: int | None = None, ng: float = 1.0,
-         max_si_subframes: int = 64) -> ScanResult:
+         max_si_subframes: int = 64, device=None) -> ScanResult:
     """Cell search, MIB and SI of a capture x (L,) complex: a torch tensor
-    (the scan runs on its device) or a numpy array (scanned on the CPU).
+    (the scan runs on its device, or on ``device`` when one is named) or a
+    numpy array, which goes to ``device``: by default the current CUDA
+    device (without one the call raises unless ``device="cpu"``).
 
     The SI stage looks at the first ``max_si_subframes`` subframes (0:
     none); ``cfi_hint`` skips the PCFICH decode.  ``ng`` is unused, as in
     the reference: the PHICH resource comes from the MIB."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x)).to(_resolve_device(device))
+    elif device is not None:
+        x = x.to(device)
     exact_f32_matmul()
     res = ScanResult()
-    xt = (x if isinstance(x, torch.Tensor)
-          else torch.from_numpy(np.array(x))).to(torch.complex64)
+    xt = x.to(torch.complex64)
     dev = xt.device
     nsf = cfg.n_samps_subframe
 

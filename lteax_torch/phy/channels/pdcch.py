@@ -1,5 +1,5 @@
 """PDCCH: CCE/REG multiplexing, the quadruplet interleaver and the blind
-decode of DCI formats 1A and 1C (36.212 §5.3.3, 36.211 §6.8, 36.213
+decode of every DCI format of ``dci`` (36.212 §5.3.3, 36.211 §6.8, 36.213
 §9.1.1), counterpart of ``lteax.phy.channels.pdcch``.
 
 The search-space and interleaver plans and the encoder (for the cell
@@ -19,8 +19,7 @@ import torch
 
 from lteax_torch.host import read
 from lteax_torch.phy import seq
-from lteax_torch.phy.channels.dci import (dci_1a_size, dci_1a_unpack,
-                                          dci_1c_size, dci_1c_unpack)
+from lteax_torch.phy.channels import dci
 from lteax_torch.phy.chest import precode_sfbc
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.conv import conv_encode
@@ -200,6 +199,21 @@ def pdcch_descramble_logical(llrs_logical: torch.Tensor, cfg: PhyConfig,
     return llrs_logical * sgn
 
 
+def pdcch_llrs_to_logical(llrs_phys: torch.Tensor, cfg: PhyConfig,
+                          n_cell_id: int, cfi: int, ng: float,
+                          subframe: int) -> torch.Tensor:
+    """(m*8,) physical-REG-order LLRs -> descrambled logical-CCE-order LLRs.
+
+    (SISO path: LLRs can be deinterleaved directly.  The SFBC path must
+    deinterleave SYMBOLS first — use unpermute_to_logical + equalize +
+    demod + pdcch_descramble_logical.)"""
+    inv = torch.as_tensor(_inverse_quad_permutation(cfg, n_cell_id, cfi, ng)
+                          .astype(np.int64), device=llrs_phys.device)
+    logical = llrs_phys.reshape(-1, 2 * 4)[inv].reshape(-1)
+    return pdcch_descramble_logical(logical, cfg, n_cell_id, cfi, ng,
+                                    subframe)
+
+
 def candidate_llrs(logical_llrs: torch.Tensor, cands, d_len: int
                    ) -> torch.Tensor:
     """Every candidate's CCEs de-matched: (len(cands), 3, d_len), in the
@@ -249,12 +263,72 @@ def pdcch_blind_decode_1a(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
     """Blind-decode DCI format 1A in the common search space.
 
     Returns list of (dci, cce_start, L) that passed CRC for ``rnti``."""
-    return _blind_decode(logical_llrs, dci_1a_size(n_rb), rnti, n_cces,
-                         lambda b: dci_1a_unpack(b, n_rb), subframe)
+    return _blind_decode(logical_llrs, dci.dci_1a_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_1a_unpack(b, n_rb), subframe)
 
 
 def pdcch_blind_decode_1c(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
                           n_cces: int, subframe: int | None = None) -> list:
     """Blind-decode DCI format 1C (compact SI/paging/RA grants)."""
-    return _blind_decode(logical_llrs, dci_1c_size(n_rb), rnti, n_cces,
-                         lambda b: dci_1c_unpack(b, n_rb), subframe)
+    return _blind_decode(logical_llrs, dci.dci_1c_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_1c_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_1(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                         n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 1 (type-0 RBG-bitmap grants)."""
+    return _blind_decode(logical_llrs, dci.dci_1_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_1_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_2a(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                          n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 2A (TM3 two-codeword grants)."""
+    return _blind_decode(logical_llrs, dci.dci_2a_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_2a_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_2(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                         n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 2 (TM4 two-codeword grants)."""
+    return _blind_decode(logical_llrs, dci.dci_2_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_2_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_0(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                         n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 0 (UL grants; same padded size as 1A)."""
+    return _blind_decode(logical_llrs, dci.dci_1a_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_0_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_1b(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                          n_cces: int, subframe: int | None = None,
+                          n_ant: int = 2) -> list:
+    """Blind-decode DCI format 1B (TM6 rank-1 closed-loop grants)."""
+    return _blind_decode(logical_llrs, dci.dci_1b_size(n_rb, n_ant), rnti,
+                         n_cces, lambda b: dci.dci_1b_unpack(b, n_rb, n_ant),
+                         subframe)
+
+
+def pdcch_blind_decode_1d(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                          n_cces: int, subframe: int | None = None,
+                          n_ant: int = 2) -> list:
+    """Blind-decode DCI format 1D (TM5 MU-MIMO grants)."""
+    return _blind_decode(logical_llrs, dci.dci_1d_size(n_rb, n_ant), rnti,
+                         n_cces, lambda b: dci.dci_1d_unpack(b, n_rb, n_ant),
+                         subframe)
+
+
+def pdcch_blind_decode_3(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                         n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 3 (2-bit group TPC on a TPC-RNTI)."""
+    return _blind_decode(logical_llrs, dci.dci_1a_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_3_unpack(b, n_rb), subframe)
+
+
+def pdcch_blind_decode_3a(logical_llrs: torch.Tensor, n_rb: int, rnti: int,
+                          n_cces: int, subframe: int | None = None) -> list:
+    """Blind-decode DCI format 3A (1-bit group TPC on a TPC-RNTI)."""
+    return _blind_decode(logical_llrs, dci.dci_1a_size(n_rb), rnti, n_cces,
+                         lambda b: dci.dci_3a_unpack(b, n_rb), subframe)

@@ -11,9 +11,10 @@ The whole rate match of a transport block is one index vector
 is a sum of occurrence-rank gathers (``_global_rm_cycles``): one gather
 when no bit is sent twice, one a cycle of the circular buffer when the
 rate match wraps (G > 3(K+4)C: low MCS, SI, small transport blocks).
-:func:`pdsch_decode_device` descrambles, de-matches, turbo-decodes at the
-reference's single-subframe settings (``phy.tuning.SINGLE_SUBFRAME``) and
-checks CRC24B / CRC24A, all on the LLRs' device; :func:`pdsch_decode_llrs`
+:func:`pdsch_decode_device` descrambles, then :func:`decode_codeword`
+de-matches, turbo-decodes at the reference's single-subframe settings
+(``phy.tuning.SINGLE_SUBFRAME``) and checks CRC24B / CRC24A, all on the
+LLRs' device (the single-subframe PUSCH decodes share it); :func:`pdsch_decode_llrs`
 brings one transport block home in one read.  The encoder (numpy) feeds
 the signal generators.
 """
@@ -169,21 +170,18 @@ def desegment_device(payload: torch.Tensor, info: SegmentInfo) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def pdsch_decode_device(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,
-                        subframe: int, n_cell_id: int):
-    """Descramble, de-match, turbo-decode and CRC-check codeword 0 on the
-    LLRs' device, with no host read.  llrs (..., G) channel LLRs in
-    codeword bit order -> (tb_bits (..., TBS) int8, tb_ok (...,) bool — the
-    CRC24A —, cb_oks (..., C) bool — the CRC24B, all True when
-    unsegmented).  The turbo decoder runs at ``SINGLE_SUBFRAME``."""
+def decode_codeword(llrs_scr: torch.Tensor, geom: PdschGeometry,
+                    n_iter: int = SINGLE_SUBFRAME.n_iter):
+    """De-match, turbo-decode and CRC-check descrambled codeword LLRs on
+    their device, with no host read: llrs_scr (..., G) -> (tb_bits (...,
+    TBS) int8, tb_ok (...,) bool — the CRC24A —, cb_oks (..., C) bool — the
+    CRC24B, all True when unsegmented).  The turbo decoder runs at
+    ``SINGLE_SUBFRAME`` with ``n_iter`` full iterations."""
     t = SINGLE_SUBFRAME
-    info, lead = geom.info, llrs.shape[:-1]
-    sgn = torch.as_tensor(seq.scrambling_symbols_np(
-        seq.pdsch_c_init(rnti, subframe, n_cell_id, 0), geom.g),
-        device=llrs.device)
-    d_llr = soft_dematch(llrs.to(torch.float32) * sgn, geom)
+    info, lead = geom.info, llrs_scr.shape[:-1]
+    d_llr = soft_dematch(llrs_scr.to(torch.float32), geom)
     bits, _ = turbo_decode_batch(d_llr.reshape(-1, 3, geom.k + 4), geom.k,
-                                 n_iter=t.n_iter, win=t.win, acq=t.acq,
+                                 n_iter=n_iter, win=t.win, acq=t.acq,
                                  ext_scale=t.ext_scale,
                                  early_crc=t.early_crc(info.cb_crc),
                                  retry_m=t.retry_m_dl)
@@ -195,6 +193,19 @@ def pdsch_decode_device(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,
         cb_oks = torch.ones((*lead, 1), dtype=torch.bool, device=bits.device)
     tb, ok = check_crc(desegment_device(payload, info), "24A")
     return tb, ok, cb_oks
+
+
+def pdsch_decode_device(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,
+                        subframe: int, n_cell_id: int,
+                        n_iter: int = SINGLE_SUBFRAME.n_iter):
+    """Descramble codeword 0, then :func:`decode_codeword`, on the LLRs'
+    device with no host read.  llrs (..., G) channel LLRs in codeword bit
+    order -> (tb_bits (..., TBS) int8, tb_ok (...,) bool, cb_oks (..., C)
+    bool)."""
+    sgn = torch.as_tensor(seq.scrambling_symbols_np(
+        seq.pdsch_c_init(rnti, subframe, n_cell_id, 0), geom.g),
+        device=llrs.device)
+    return decode_codeword(llrs.to(torch.float32) * sgn, geom, n_iter)
 
 
 def pdsch_decode_llrs(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,

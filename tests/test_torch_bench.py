@@ -1,12 +1,12 @@
 """The decode bench CLIs (``lteax_torch.bench.dl_throughput``,
-``mimo_throughput``): on the CPU a dry run, labelled so in its unit and
+``ul_throughput``, ``mimo_throughput``): on the CPU a dry run, labelled so in its unit and
 card, that decodes the bench configuration; without a card and without
 ``--device cpu`` they raise instead of measuring the CPU."""
 
 import pytest
 import torch
 
-from lteax_torch.bench import dl_throughput, mimo_throughput
+from lteax_torch.bench import dl_throughput, mimo_throughput, ul_throughput
 
 torch.set_num_threads(1)
 
@@ -24,6 +24,17 @@ def test_dl_bench_dry_run(capsys):
     assert '"vs_baseline"' in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("args", [[], ["--static-nv"]],
+                         ids=["estimated_nv", "static_nv"])
+def test_ul_bench_dry_run(args, capsys):
+    out = ul_throughput.main(["--batch", "1", "--reps", "1", "--device",
+                              "cpu", *args])
+    _dry_run(out, 1)
+    assert out["vs_baseline"] == round(out["value"] / 75.376, 3)
+    assert out["batch"] == 1 and "UL-SCH" in out["metric"]
+    assert '"Mbit/s/CPU (dry run)"' in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("args", [[], ["--detector", "sic", "--tm", "4",
                                         "--cmat", "corr", "--mcs", "24",
                                         "--snr-db", "28"]],
@@ -35,8 +46,8 @@ def test_mimo_bench_dry_run(args):
     assert out["batch"] == 1 and "dual-codeword" in out["metric"]
 
 
-@pytest.mark.parametrize("bench", [dl_throughput, mimo_throughput],
-                         ids=["dl", "mimo"])
+@pytest.mark.parametrize("bench", [dl_throughput, ul_throughput,
+                                   mimo_throughput], ids=["dl", "ul", "mimo"])
 def test_benches_need_a_card(bench):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

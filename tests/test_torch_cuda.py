@@ -328,6 +328,47 @@ def test_pdsch_decode_on_card_matches_cpu(dev):
         assert torch.equal(a.cpu(), b)
 
 
+def _ul_grids(alloc, b, snr_db, seed, uci=None, ack=(), ri=()):
+    from lteax_torch.sim.ul_gen import UlCell, ul_subframes
+    cell = UlCell(alloc=alloc)
+    iq, tb = ul_subframes(cell, b, snr_db=snr_db, seed=seed, uci=uci,
+                          ack=ack, ri=ri)
+    return cell, torch.from_numpy(iq[..., 0] + 1j * iq[..., 1]), tb
+
+
+def test_pusch_decode_on_card_matches_cpu(dev):
+    """The single-subframe UL decode: the turbo kernel at win 32, 6
+    iterations (12 launches a call), no demap kernel; bits and flags equal
+    to the CPU's and to the bits sent."""
+    from lteax_torch.phy.channels import pusch
+    alloc = pusch.PuschAlloc(15, 0, 11064, 6)
+    cell, g, tb = _ul_grids(alloc, 2, 25.0, 7)
+    args = (alloc, cell.rnti, cell.subframe, cell.n_cell_id)
+    before = (demap.LAUNCHES, tm.LAUNCHES)
+    got = pusch.pusch_decode(g.to(dev), *args)
+    assert (demap.LAUNCHES, tm.LAUNCHES) == (before[0], before[1] + 12)
+    ref = pusch.pusch_decode(g, *args)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert ref[1].all() and np.array_equal(ref[0].numpy(), tb)
+
+
+def test_pusch_decode_uci_on_card_matches_cpu(dev):
+    from lteax_torch.phy.channels import pusch
+    alloc = pusch.PuschAlloc(15, 0, 11064, 6)
+    uci = pusch.PuschUci(n_ack=2, n_ri=1)
+    cell, g, tb = _ul_grids(alloc, 1, 25.0, 8, uci, (1, 0), (1,))
+    args = (alloc, cell.rnti, cell.subframe, cell.n_cell_id, uci)
+    before = tm.LAUNCHES
+    got = pusch.pusch_decode_uci(g[0].to(dev), *args)
+    assert tm.LAUNCHES == before + 12
+    ref = pusch.pusch_decode_uci(g[0], *args)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a.cpu(), b)
+    assert got[3:] == ref[3:] == ((1, 0), (1,))
+    assert bool(ref[1]) and np.array_equal(ref[0].numpy(), tb[0])
+
+
 # -- the ACS probe kernel, the demap at the UL shape, UL-SCH and HARQ -------
 
 @pytest.mark.parametrize("rounds", [0, 8, 64, 512])

@@ -37,7 +37,11 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 68, mods\n" + _FOREIGN)
+        "assert len(mods) >= 74, mods\n"
+        "for m in ('phy.channels.phich', 'phy.channels.pucch',"
+        " 'bench.ul_throughput', 'bench.snr_sweep', 'bench.config3',"
+        " 'sim.ctrl_gen'):\n"
+        "    assert 'lteax_torch.' + m in mods, m\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
 
@@ -94,6 +98,27 @@ def test_decoders_need_a_card_unless_asked_for_the_cpu(factory):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make(*args)
     assert make(*args, device="cpu").device == torch.device("cpu")
+
+
+def test_scan_needs_a_card_unless_asked_for_the_cpu():
+    """``scan`` of a numpy capture runs on the current CUDA device: without
+    one it raises unless the caller passes ``device="cpu"``; a torch
+    tensor is scanned on its own device."""
+    import numpy as np
+    import torch
+    from lteax_torch.apps.file_scan import scan
+    from lteax_torch.phy.config import PhyConfig
+    from lteax_torch.sim.cell_gen import Cell, capture
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = PhyConfig(n_rb_dl=6)
+    iq = capture(Cell(n_rb_dl=6, n_cell_id=137), 0.012, offset=300).iq
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scan(iq, cfg, max_si_subframes=0)
+    on_cpu = scan(iq, cfg, max_si_subframes=0, device="cpu")
+    assert on_cpu.n_cell_id == 137 and on_cpu.mib is not None
+    got = scan(torch.from_numpy(np.array(iq)), cfg, max_si_subframes=0)
+    assert (got.n_cell_id, got.mib) == (on_cpu.n_cell_id, on_cpu.mib)
 
 
 def test_chip_smoke_fails_without_cuda():

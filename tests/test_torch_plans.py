@@ -1150,3 +1150,47 @@ def test_unmatch_inv_cycles(d_total, e_len):
                                                 ).astype(np.int32)
     _same(ratematch.unmatch_inv_cycles(idx, d_total),
           rm_ref.unmatch_inv_cycles(idx, d_total))
+
+
+# -- UE-specific control, PHICH, UCI on PUSCH, the 1-PRB base sequence -------
+
+def test_pucch_phi_m12_table():
+    """The length-12 base-sequence phase table (36.211 Table 5.5.1.2-1)."""
+    from lteax.phy.channels import pucch as pucch_ref
+    from lteax_torch.phy.channels import pucch
+    _same(pucch.PHI_M12, pucch_ref.PHI_M12)
+    assert len(pucch.PHI_M12) == 30 and {len(r) for r in pucch.PHI_M12} == {12}
+
+
+@pytest.mark.parametrize("cid,sf", [(0, 0), (137, 5), (503, 9)])
+def test_phich_tables(cid, sf):
+    """The orthogonal sequences, the scrambler init and the port's
+    despread matrix (each column the per-call decode's weights)."""
+    from lteax.phy.channels import phich as phich_ref
+    from lteax_torch.phy.channels import phich
+    _same(phich.W_SEQS, phich_ref.W_SEQS)
+    assert phich.N_SF == phich_ref.N_SF
+    assert phich._c_init(cid, sf) == phich_ref._c_init(cid, sf)
+    m = phich.despread_matrix(cid, sf)
+    eye = np.eye(12, dtype=np.complex64)
+    for s in range(8):
+        want = [phich_ref.phich_group_decode(e, cid, sf, s) for e in eye]
+        np.testing.assert_allclose(m[:, s].real, want, rtol=0, atol=1e-6)
+
+
+def test_dci_and_uci_constants():
+    from lteax.phy.channels import dci as dci_ref
+    from lteax.phy.channels import pusch as pusch_ref
+    from lteax_torch.phy.channels import dci, pusch
+    assert dci.AMBIGUOUS_SIZES == dci_ref.AMBIGUOUS_SIZES
+    assert dci.TBS_1C == dci_ref.TBS_1C
+    assert (pusch.RI_COLS, pusch.ACK_COLS) == (pusch_ref.RI_COLS,
+                                               pusch_ref.ACK_COLS)
+    assert dataclasses.asdict(pusch.PuschUci()) == \
+        dataclasses.asdict(pusch_ref.PuschUci())
+    for n in (1, 2):
+        for n_coded in (3, 8, 30):
+            _same(pusch._hypothesis_signs(n, n_coded), np.stack(
+                [1.0 - 2.0 * pusch_ref._uci_word(
+                    tuple((h >> i) & 1 for i in range(n)), n_coded)
+                 for h in range(2 ** n)]).astype(np.float32))

@@ -219,7 +219,10 @@ def test_from_plans_takes_the_reference_plans():
 
 def test_short_allocations_and_wrong_devices_raise():
     with pytest.raises(NotImplementedError):
-        pusch.dmrs_pusch(214, 8, 12)              # 1 PRB: length-12 table
+        pusch.dmrs_pusch(214, 8, 24)              # 2 PRB: no length-24 table
+    # 1 PRB: the length-12 phase table, as in the reference
+    np.testing.assert_array_equal(pusch.dmrs_pusch(214, 8, 12),
+                                  pusch_ref.dmrs_pusch(214, 8, 12))
     # a rate below 1/3 wraps the circular buffer: no raise, the planar
     # de-match sums one gather per cycle
     wrap = make_pusch_batch_decoder(pusch.PuschAlloc(6, 0, 504, 2), 0x3D, 4,
