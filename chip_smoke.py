@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-fourteen paths, each with the launch counters set to 0 just before it and
+eighteen paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -94,6 +94,29 @@ read just after:
     MMSE-below-LS under EVA, the 2-port SFBC loopback with MIB, SIB1, SIB2
     and no SI CRC failure) at 50 PRB.
 
+15. Config #1 (``[loopback]``): ``python -m lteax_torch.apps.file_gen``
+    then ``python -m lteax_torch.apps.file_scan`` as subprocesses on the
+    card, for config #1 (6 PRB, cell 214, 8 frames), the same at 100 PRB
+    (4 frames) and as an sc8 file, in parallel: cell 214, the MIB, SIB1,
+    SIB2, no SI CRC failure, the report equal (parsed) to the CPU's scan
+    and to a counted in-process scan on the card of the same file; then
+    ``file_gen.generate()`` at 100 PRB with extended CP and with SIB3/5/9
+    on a three-message SI schedule, every SIB recovered.
+16. The streaming scanner (``[stream]``): a 20 MHz fc32 file of 24 frames
+    (7.37 M samples, 59 MB) through ``StreamScanService`` in windows of 60
+    subframes: one run with ``status`` read over the ctrl socket while it
+    runs; 2 windows, stop, resume to 4, the reports equal the one-shot
+    run's; the native reader against numpy (MB/s); TCP ingest of the file
+    (Msps, drops); one window streamed over TCP from a local sender
+    thread, no drop, its report equal to the file window's; the
+    recorder's sc8 -> fc32 equal to ``read_iq``'s.
+17. IQ staging (``[iq]``): the DL bench CLI at B=256 with ``--iq`` f32,
+    bf16 and sc8, each 256/256 with the bits sent; ``prefetch_to_device``
+    feeding 8 batches of 256, against a plain copy before each decode.
+18. Tracing (``[trace]``): the DL bench CLI's ``--trace`` around one
+    decode of 32 subframes; the Chrome trace holds the ``decode_batch``
+    range and the turbo and demap kernels.
+
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
 device; the one before it lists the kernels with their launch counts,
@@ -110,8 +133,13 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
+import socket
+import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -120,6 +148,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import lteax_torch.apps.file_scan as file_scan
 import lteax_torch.apps.scanner as scanner
+from lteax_torch.apps import file_gen, recorder
+from lteax_torch.apps.stream_scan import StreamScanService
 import lteax_torch.kernels.acs_probe as acs_mod
 import lteax_torch.kernels.demap as demap_mod
 import lteax_torch.kernels.polyphase as poly_mod
@@ -127,10 +157,13 @@ import lteax_torch.kernels.pss as pss_mod
 import lteax_torch.kernels.turbo_mlm as turbo_mod
 import lteax_torch.phy.sync as sync
 from lteax_torch import host
-from lteax_torch.bench import (acs_probe, config3, resample_bench,
-                               scan_throughput, snr_sweep, ul_throughput)
-from lteax_torch.bench.timing import card_line, time_decode
-from lteax_torch.io.iq import read_iq, write_iq
+from lteax_torch.bench import (acs_probe, config3, dl_throughput,
+                               resample_bench, scan_throughput, snr_sweep,
+                               ul_throughput)
+from lteax_torch.bench.timing import (IQ_FORMATS, card_line, stage_iq,
+                                      time_decode)
+from lteax_torch.io import native
+from lteax_torch.io.iq import prefetch_to_device, read_iq, write_iq
 from lteax_torch.kernels._build import library
 from lteax_torch.phy import chest, seq
 from lteax_torch.phy.channels import pcfich, pdcch, phich, pusch
@@ -150,6 +183,7 @@ from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
                                     harq_transmissions)
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
 from lteax_torch.sim.ul_gen import UlCell, ul_subframes
+from lteax_torch.stack import rrc
 
 BATCH = 256
 SNR_DB = 25.0
@@ -210,7 +244,17 @@ PSS_CHECK_SHAPE = (4, 20 * SCAN_CFG.n_samps_subframe)   # K4/K5 vs plain
 # live positions (K = 1152), a block grid with dead windows (K = 5824)
 TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
                 (5, 43, 32, 8))
-WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+REPO = Path(__file__).resolve().parent
+WORK = REPO / "build" / "chip_smoke"
+# [loopback]: config #1 (configs/config1_loopback_1p4.yaml) and its 100-PRB
+# (4 frames: the CPU's plain PSS correlator is the comparison's cost) and
+# sc8 variants, as (name, n_rb, frames, fmt)
+LOOP_CELL = 214
+LOOP_CASES = (("config1", 6, 8, "fc32"), ("config1_100prb", 100, 4, "fc32"),
+              ("config1_sc8", 6, 8, "sc8"))
+STREAM_CELL, STREAM_FRAMES, STREAM_WINDOW_SF = 301, 24, 60
+IQ_REPS = 20
+TRACE_BATCH = 32
 
 SOURCES = {
     "demap": ("lteax_torch/kernels/csrc/demap.cu",
@@ -1531,6 +1575,409 @@ def run_config3(dev, card: str) -> dict:
             "launches": counts}
 
 
+# -- slices G and J: loopback CLIs, the streaming scanner, IQ staging, trace
+
+
+def _run_cli(args: list[str], timeout: float = 600) -> str:
+    """``python -m`` one of the port's CLIs from the repository root, on
+    the card (the CLIs' default); its standard output.  A failure raises
+    with its output; a timeout kills it."""
+    res = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode:
+        raise AssertionError(f"{' '.join(args[:1])} failed ({res.returncode})"
+                             f":\n{res.stdout}\n{res.stderr}")
+    return res.stdout
+
+
+def _loopback_case(name: str, n_rb: int, frames: int, fmt: str) -> dict:
+    """``file_gen`` then ``file_scan`` as subprocesses: the file, the
+    generator's ms per subframe (its own clock) and the parsed report."""
+    path = WORK / f"{name}.{fmt}"
+    t0 = time.perf_counter()
+    gen = _run_cli(["lteax_torch.apps.file_gen", "--out", str(path),
+                    "--n-rb", str(n_rb), "--cell-id", str(LOOP_CELL),
+                    "--frames", str(frames), "--fmt", fmt])
+    t1 = time.perf_counter()
+    out = _run_cli(["lteax_torch.apps.file_scan", str(path), "--n-rb",
+                    str(n_rb), "--fmt", fmt])
+    return {"name": name, "path": path, "n_rb": n_rb, "frames": frames,
+            "fmt": fmt, "gen_ms_per_sf": float(gen.split("generated in ")[1]
+                                               .split(" ms")[0]),
+            "gen_wall_s": t1 - t0, "scan_wall_s": time.perf_counter() - t1,
+            "report": json.loads(out.strip().splitlines()[-1])}
+
+
+def _check_loopback_report(rep: dict, n_rb: int, tag: str) -> None:
+    if (rep["n_cell_id"], rep["n_ant"], (rep["mib"] or {}).get("n_rb_dl"),
+            rep["sib1"] is None, rep["sib2"] is None,
+            rep["sib_crc_fails"]) != (LOOP_CELL, 1, n_rb, False, False, 0):
+        raise AssertionError(f"[loopback] {tag}: {rep}")
+
+
+def run_loopback(dev, card: str) -> dict:
+    """``[loopback]``: config #1 and its 100-PRB and sc8 variants through
+    the port's ``file_gen`` and ``file_scan`` CLIs as subprocesses on the
+    card (the three in parallel), each report checked and equal to the
+    CPU's scan of the same file and to a counted in-process scan on the
+    card; then ``generate()`` at 100 PRB with extended CP and with extra
+    SIBs on a three-message SI schedule, scanned on the card, counted."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LOOP_CASES)) as pool:
+        cases = list(pool.map(lambda c: _loopback_case(*c), LOOP_CASES))
+    cli_s = time.perf_counter() - t0
+    _reset_counts()
+    cpu_s = 0.0
+    for c in cases:
+        tag = f"{c['name']} ({c['n_rb']} PRB, {c['frames']} frames, " \
+              f"{c['fmt']})"
+        _check_loopback_report(c["report"], c["n_rb"], tag)
+        x = read_iq(str(c["path"]), c["fmt"])
+        cfg = PhyConfig(n_rb_dl=c["n_rb"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card_rep = json.loads(file_scan.scan(x, cfg, device=dev).to_json())
+        c["scan_ms"] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        cpu_rep = json.loads(file_scan.scan(x, cfg, device="cpu").to_json())
+        cpu_s += time.perf_counter() - t1
+        if not c["report"] == card_rep == cpu_rep:
+            raise AssertionError(f"[loopback] {tag}: CLI report "
+                                 f"{c['report']}, in-process card "
+                                 f"{card_rep}, CPU {cpu_rep}")
+        print(f"[loopback] {tag}: CLIs on the card: cell {LOOP_CELL}, MIB, "
+              f"SIB1 (TAC {c['report']['sib1']['tac']:#x}), SIB2, 0 SI CRC "
+              f"failures; report equal to the CPU's scan (parsed); "
+              f"file_gen {c['gen_ms_per_sf']:.3f} ms per subframe (its "
+              f"clock, cold), in-process card scan {c['scan_ms']:.1f} ms "
+              f"({len(x) / c['scan_ms'] / 1e3:.2f} Msps) ({card})")
+    counts = _counts()
+    sibs = (rrc.Sib3(q_hyst_db=6),
+            rrc.Sib5(carriers=(rrc.InterFreqCarrier(dl_earfcn=2850),)),
+            rrc.Sib9(hnb_name=b"win-cell"))
+    gen_cases = (
+        ("extended CP", file_gen.GenConfig(
+            n_rb_dl=100, n_cell_id=77, n_frames=4, tac=0xECB,
+            extended_cp=True)),
+        # the scan locks to frame 1 at 100 PRB (the PSS peak sits 5
+        # samples early: frame_start wraps), after SI message 2's window
+        # in frame 2: 12 frames carry its next window, in frame 10
+        ("extra SIBs, 3 SI messages", file_gen.GenConfig(
+            n_rb_dl=100, n_cell_id=99, n_frames=12, tac=0xC0DE,
+            extra_sibs=sibs,
+            si_schedule=((8, (3,)), (8, (5,)), (8, (9,))))))
+    gen_out = {}
+    _reset_counts()
+    for tag, gc in gen_cases:
+        file_gen.generate(gc, device=dev)            # plans warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = file_gen.generate(gc, device=dev)
+        gen_ms = (time.perf_counter() - t1) * 1e3 / (10 * gc.n_frames)
+        t1 = time.perf_counter()
+        r = file_scan.scan(x, gc.phy, max_si_subframes=10 * gc.n_frames,
+                           device=dev)
+        scan_ms = (time.perf_counter() - t1) * 1e3
+        sent = {f"sib{cell_gen._sib_type(s)}": s for s in gc.extra_sibs}
+        if (r.n_cell_id, r.sib_crc_fails) != (gc.n_cell_id, 0) or \
+                r.sib1 != gc.sib1() or r.sib2 != rrc.Sib2() or \
+                r.sibs != sent:
+            raise AssertionError(f"[loopback] generate() {tag}: "
+                                 f"{r.to_json()}")
+        gen_out[tag] = {"gen_ms_per_sf": gen_ms, "scan_ms": scan_ms,
+                        "sfn": r.sfn, "sibs": sorted(r.sibs)}
+        print(f"[loopback] generate() 100 PRB, {tag}, {gc.n_frames} frames: "
+              f"{gen_ms:.3f} ms per subframe (warm, host grids + card OFDM); "
+              f"scan {scan_ms:.1f} ms: cell {r.n_cell_id} from SFN {r.sfn}, "
+              f"SIB1, SIB2{', ' if sent else ''}{', '.join(sorted(sent))}, "
+              f"0 SI CRC failures ({card})")
+    gen_counts = _counts()
+    if counts["turbo_half_iteration"] <= 0 or \
+            counts["pss_corr_mag_bf16"] != len(cases) or counts["demap"] or \
+            gen_counts["turbo_half_iteration"] <= 0 or gen_counts["demap"]:
+        raise AssertionError(f"[loopback] launches {counts}, {gen_counts}")
+    print(f"[loopback] launches (in-process card scans of the 3 files) "
+          f"{counts}, (the 2 generate() scans) {gen_counts}; CLIs "
+          f"{cli_s:.1f} s in parallel, CPU scans {cpu_s:.1f} s ({card})")
+    return {"cases": {c["name"]: {k: c[k] for k in
+                                  ("n_rb", "frames", "fmt", "gen_ms_per_sf",
+                                   "gen_wall_s", "scan_wall_s", "scan_ms")}
+                      for c in cases},
+            "generate": gen_out, "launches": {
+                k: counts[k] + gen_counts[k] for k in counts}}
+
+
+def _tcp_send(port: int, data: bytes, chunk: int = 1 << 20) -> threading.Thread:
+    """A local sender thread streaming ``data`` to 127.0.0.1:``port``."""
+    def send():
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as c:
+            for i in range(0, len(data), chunk):
+                c.sendall(data[i:i + chunk])
+    t = threading.Thread(target=send, daemon=True)
+    t.start()
+    return t
+
+
+def _ctrl_cmd(port: int, line: str) -> str:
+    with socket.create_connection(("127.0.0.1", port), timeout=5) as s:
+        s.sendall(line.encode() + b"\n")
+        return s.makefile().readline().strip()
+
+
+def run_stream(dev, card: str) -> dict:
+    """``[stream]``: a 20 MHz fc32 file of ``STREAM_FRAMES`` frames through
+    ``StreamScanService`` in windows of ``STREAM_WINDOW_SF`` subframes: a
+    one-shot run with ``status`` read over the ctrl socket while it runs;
+    2 windows, stop, resume to the end: the reports equal the one-shot
+    run's.  The native reader against numpy; TCP ingest of the file; one
+    window streamed over TCP equal to the file's; the recorder's sc8 ->
+    fc32 equal to ``read_iq``'s."""
+    gc = file_gen.GenConfig(n_rb_dl=100, n_cell_id=STREAM_CELL,
+                            n_frames=STREAM_FRAMES)
+    cfg = gc.phy
+    t0 = time.perf_counter()
+    x = file_gen.generate(gc, device=dev)
+    path, path8 = WORK / "stream.fc32", WORK / "stream.sc8"
+    write_iq(str(path), x)
+    write_iq(str(path8), x, "sc8")
+    n_win = STREAM_FRAMES * 10 // STREAM_WINDOW_SF
+    print(f"[stream-gen] {STREAM_FRAMES} frames at 100 PRB: {len(x)} samples"
+          f", {path.stat().st_size / 1e6:.1f} MB fc32: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the native reader against numpy, page cache warm, in turns
+    rates = {}
+    for fmt, p in (("fc32", path), ("sc8", path8)):
+        read_iq(str(p), fmt)
+        t = {"native": [], "numpy": []}
+        for _ in range(3):
+            for how in t:
+                t1 = time.perf_counter()
+                got = (native.read_iq_native(str(p), fmt) if how == "native"
+                       else read_iq(str(p), fmt))
+                t[how].append(time.perf_counter() - t1)
+        mb = p.stat().st_size / 1e6
+        rates[fmt] = {how: mb / float(np.median(v)) for how, v in t.items()}
+        if not np.array_equal(got, native.read_iq_native(str(p), fmt)
+                              .view(np.complex64)[:, 0]):
+            raise AssertionError(f"[stream] native {fmt} read != numpy's")
+    print(f"[stream] read to float pairs, MB/s of file (median of 3, in "
+          f"turns): fc32 native {rates['fc32']['native']:.0f}, numpy "
+          f"{rates['fc32']['numpy']:.0f}; sc8 native "
+          f"{rates['sc8']['native']:.0f}, numpy {rates['sc8']['numpy']:.0f}")
+
+    # one-shot run, timed
+    _reset_counts()
+    svc = StreamScanService(str(path), cfg, window_sf=STREAM_WINDOW_SF,
+                            device=dev)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_shot = svc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        svc.stop()
+    counts = _counts()
+    if sorted(one_shot) != list(range(n_win)) or counts["demap"] or \
+            counts["turbo_half_iteration"] <= 0 or \
+            counts["pss_corr_mag_bf16"] != n_win:
+        raise AssertionError(f"[stream] windows {sorted(one_shot)}, "
+                             f"launches {counts}")
+    for w, rec in one_shot.items():
+        if (rec["n_cell_id"], rec["sib_crc_fails"], rec["sib1"] is None,
+                rec["sib2"] is None) != (STREAM_CELL, 0, False, False) or \
+                rec["mib"]["sfn"] % 1024 not in (w * STREAM_WINDOW_SF // 10,
+                                                 w * STREAM_WINDOW_SF // 10
+                                                 + 1):
+            raise AssertionError(f"[stream] window {w}: {rec}")
+    ms_win = wall * 1e3 / n_win
+    msps = len(x) / wall / 1e6
+    print(f"[stream] one-shot: {n_win} windows of {STREAM_WINDOW_SF} "
+          f"subframes, cell {STREAM_CELL}, MIB, SIB1, SIB2, 0 SI CRC "
+          f"failures in each; {ms_win:.1f} ms per window (read + scan), "
+          f"{msps:.1f} Msps of capture scanned; launches {counts} ({card})")
+
+    # 2 windows with ctrl status reads while they run, stop, resume
+    ck = WORK / "stream_ckpt.json"
+    ck.unlink(missing_ok=True)
+    svc = StreamScanService(str(path), cfg, window_sf=STREAM_WINDOW_SF,
+                            ckpt_path=str(ck), device=dev)
+    statuses, box = [], {}
+    try:
+        th = threading.Thread(target=lambda: box.update(
+            r=svc.run(max_windows=2)))
+        th.start()
+        while th.is_alive():
+            statuses.append(json.loads(_ctrl_cmd(svc.ctrl.port,
+                                                 "status")[3:]))
+            time.sleep(0.05)
+        th.join()
+        final = json.loads(_ctrl_cmd(svc.ctrl.port, "status")[3:])
+    finally:
+        svc.stop()
+    first = box["r"]
+    live = [st for st in statuses if st["running"]]
+    svc = StreamScanService(str(path), cfg, window_sf=STREAM_WINDOW_SF,
+                            ckpt_path=str(ck), device=dev)
+    try:
+        resumed = svc.run()
+    finally:
+        svc.stop()
+    if sorted(first) != [0, 1] or resumed != one_shot or not live or \
+            final["windows_done"] != 2 or \
+            set(json.loads(ck.read_text())) != {f"w{w}" for w in
+                                                range(n_win)}:
+        raise AssertionError(f"[stream] resume: {sorted(first)}, "
+                             f"{sorted(resumed)}, equal {resumed == one_shot}"
+                             f", statuses {statuses[:3]}, final {final}")
+    print(f"[stream] 2 windows with ctrl status read {len(statuses)} times "
+          f"while running (windows_done seen "
+          f"{sorted({st['windows_done'] for st in live})}), stop, resume: "
+          f"{n_win} windows, reports equal the one-shot run's ({card})")
+
+    # TCP ingest of the whole file, then one window live through the service
+    data = path.read_bytes()
+    with native.IqTcpSource(fmt="fc32") as src:
+        t0 = time.perf_counter()
+        sender = _tcp_send(src.port, data)
+        got = 0
+        while got < len(x):
+            b = src.read(len(x) - got, timeout_ms=5000)
+            if not len(b):
+                break
+            got += len(b)
+        ingest_s = time.perf_counter() - t0
+        sender.join(timeout=30)
+        while got + src.dropped < len(x):     # drops counted, none lost
+            b = src.read(len(x), timeout_ms=1000)
+            if not len(b):
+                break
+            got += len(b)
+        dropped = src.dropped
+    if got + dropped != len(x):
+        raise AssertionError(f"[stream] TCP ingest: {got} received + "
+                             f"{dropped} dropped of {len(x)}")
+    n = STREAM_WINDOW_SF * cfg.n_samps_subframe
+    with native.IqTcpSource(fmt="fc32") as src:
+        svc = StreamScanService(None, cfg, window_sf=STREAM_WINDOW_SF,
+                                tcp_source=src, live_idle_s=5.0, device=dev)
+        sender = _tcp_send(src.port, data[:8 * n])
+        try:
+            live_res = svc.run(max_windows=1)
+            st = svc.status()
+        finally:
+            sender.join(timeout=30)
+            svc.stop()
+    if live_res.get(0) != one_shot[0] or st["overruns_dropped"]:
+        raise AssertionError(f"[stream] live window: {live_res}, {st}")
+    print(f"[stream] TCP ingest (fc32, one local sender, 4 Mi-sample ring): "
+          f"{got} samples in {ingest_s * 1e3:.1f} ms = "
+          f"{got / ingest_s / 1e6:.1f} Msps, dropped {dropped}; a live "
+          f"window over TCP: dropped 0, report equal to the file window's "
+          f"({card})")
+
+    # the recorder: sc8 -> fc32
+    rec_path = WORK / "stream_rec.fc32"
+    t0 = time.perf_counter()
+    n_rec = recorder.record(str(path8), str(rec_path), in_fmt="sc8",
+                            out_fmt="fc32")
+    rec_s = time.perf_counter() - t0
+    if n_rec != len(x) or not np.array_equal(read_iq(str(rec_path)),
+                                             read_iq(str(path8), "sc8")):
+        raise AssertionError("[stream] recorder sc8 -> fc32 != read_iq")
+    print(f"[stream] recorder sc8 -> fc32: {n_rec} samples in "
+          f"{rec_s * 1e3:.1f} ms, equal to read_iq's ({card})")
+    return {"windows": n_win, "window_sf": STREAM_WINDOW_SF,
+            "ms_per_window": ms_win, "msps": msps, "read_mb_s": rates,
+            "tcp_msps": got / ingest_s / 1e6, "tcp_dropped": dropped,
+            "status_reads": len(statuses), "recorder_ms": rec_s * 1e3,
+            "launches": counts}
+
+
+def run_iq(dev, card: str) -> dict:
+    """``[iq]``: the DL bench CLI at B=256 with f32, bf16 and sc8 IQ, in
+    that order, each counted: 256/256 and the bits equal those sent; then
+    ``prefetch_to_device`` feeding 8 host batches of 256 bf16 subframes to
+    the decoder, against a plain copy before each decode."""
+    out, launches = {}, {}
+    for fmt in IQ_FORMATS:
+        _reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = dl_throughput.main(["--batch", str(BATCH), "--reps",
+                                      str(IQ_REPS), "--iq", fmt])
+        launches[fmt] = _counts()
+        print(f"[iq] {buf.getvalue().strip()}")
+        if res["crc_ok"] != BATCH or not res["bits_equal"] or \
+                res["unit"] != "Mbit/s/GPU" or launches[fmt]["demap"] <= 0 \
+                or launches[fmt]["turbo_half_iteration"] <= 0:
+            raise AssertionError(f"[iq] {fmt}: {res}, {launches[fmt]}")
+        out[fmt] = {k: res[k] for k in ("value", "crc_ok", "n_iter")}
+    cell = DlCell()
+    dec = make_batch_decoder(*cell.decoder_args(), device=dev)
+    iq, tb = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
+    host_batch = stage_iq(iq, "bf16")
+    dec(host_batch.to(dev))                     # warm
+    times = {"prefetch": [], "copy": []}
+    _reset_counts()
+    for _ in range(2):                          # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_ok = 0
+        for x in prefetch_to_device([host_batch] * 8):
+            bits, ok, _ = dec(x)
+            n_ok += int(ok.sum())
+        torch.cuda.synchronize()
+        times["prefetch"].append((time.perf_counter() - t0) * 1e3 / 8)
+        if n_ok != 8 * BATCH or not np.array_equal(bits.cpu().numpy(), tb):
+            raise AssertionError(f"[iq] prefetch: {n_ok}/{8 * BATCH}")
+        t0 = time.perf_counter()
+        for _ in range(8):
+            dec(host_batch.to(dev))
+        torch.cuda.synchronize()
+        times["copy"].append((time.perf_counter() - t0) * 1e3 / 8)
+    pf_counts = _counts()
+    pf_ms, copy_ms = (min(times[k]) for k in ("prefetch", "copy"))
+    print(f"[iq] prefetch_to_device (bf16, depth 2, pinning thread, side "
+          f"stream): 8 batches of {BATCH}, {n_ok}/{8 * BATCH}, bits equal "
+          f"the sent; {pf_ms:.3f} ms per batch, against {copy_ms:.3f} with a "
+          f"pageable copy before each decode (the better of 2 rounds each, "
+          f"in turns); launches {pf_counts} ({card})")
+    return {**out, "prefetch_ms": pf_ms, "copy_then_decode_ms": copy_ms,
+            "launches": launches, "prefetch_launches": pf_counts}
+
+
+def run_trace(card: str) -> dict:
+    """``[trace]``: the DL bench CLI's ``--trace`` around one timed decode:
+    the Chrome trace holds the ``decode_batch`` range and the turbo and
+    demap kernels."""
+    tdir = WORK / "trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    _reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = dl_throughput.main(["--batch", str(TRACE_BATCH), "--reps",
+                                  "1", "--trace", str(tdir)])
+    counts = _counts()
+    with open(res["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and k in e.get("name", ""))
+               for k in ("turbo_half_kernel", "demap_kernel")}
+    ranges = names.count("decode_batch")
+    print(f"[trace] {Path(res['trace']).name}: {len(events)} events, "
+          f"'decode_batch' ranges {ranges}, kernels {kernels}, "
+          f"{Path(res['trace']).stat().st_size / 1e6:.1f} MB; launches "
+          f"{counts} ({card})")
+    if res["crc_ok"] != TRACE_BATCH or not ranges or \
+            not all(kernels.values()):
+        raise AssertionError(f"[trace] {res}, ranges {ranges}, {kernels}")
+    return {"events": len(events), "decode_batch_ranges": ranges,
+            "kernels": kernels, "launches": counts}
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -1645,6 +2092,10 @@ def main() -> None:
     ul_bench = timed("ul_bench", run_ul_bench, card)
     bler = timed("bler", run_bler, dev, card)
     cfg3 = timed("config3", run_config3, dev, card)
+    loop = timed("loopback", run_loopback, dev, card)
+    stream = timed("stream", run_stream, dev, card)
+    iq_out = timed("iq", run_iq, dev, card)
+    trace_out = timed("trace", run_trace, card)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -1664,9 +2115,22 @@ def main() -> None:
                     ("ul_uci", ul_single["ul-uci"]["launches"]),
                     ("ul_bench", ul_bench["launches"]),
                     ("bler", bler["launches"]),
-                    ("config3", cfg3["launches"])):
+                    ("config3", cfg3["launches"]),
+                    ("loopback", loop["launches"]),
+                    ("stream", stream["launches"]),
+                    ("iq_f32", iq_out["launches"]["f32"]),
+                    ("iq_bf16", iq_out["launches"]["bf16"]),
+                    ("iq_sc8", iq_out["launches"]["sc8"]),
+                    ("iq_prefetch", iq_out["prefetch_launches"]),
+                    ("trace", trace_out["launches"])):
         for kernel in ("demap", "turbo_half_iteration"):
             by_path[kernel][name] = c[kernel]
+    by_path["pss_corr_mag_bf16"] = {
+        "scanner": scan_out["launches"]["pss_corr_mag_bf16"],
+        "si": si_out["launches"]["pss_corr_mag_bf16"],
+        **{name: c["pss_corr_mag_bf16"] for name, c in
+           (("config3", cfg3["launches"]), ("loopback", loop["launches"]),
+            ("stream", stream["launches"]))}}
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
@@ -1707,6 +2171,15 @@ def main() -> None:
         "dl_wrap": {key: wrap[key] for key in
                     ("cycles", "decode_ms", "decode_p90_ms", "mbit_per_s",
                      "front_ms", "n_iter", "syncs", "retries", "peak_gb")},
+        "loopback": {key: loop[key] for key in ("cases", "generate")},
+        "stream": {key: stream[key] for key in
+                   ("windows", "window_sf", "ms_per_window", "msps",
+                    "read_mb_s", "tcp_msps", "tcp_dropped", "status_reads",
+                    "recorder_ms")},
+        "iq": {key: iq_out[key] for key in
+               (*IQ_FORMATS, "prefetch_ms", "copy_then_decode_ms")},
+        "trace": {key: trace_out[key] for key in
+                  ("events", "decode_batch_ranges", "kernels")},
         "scan_si_cost": scan_out["si_cost"],
         "scan_turbo_launches": scan_out["turbo_launches"],
         "mimo": {

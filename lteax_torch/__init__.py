@@ -15,14 +15,18 @@ so each counterpart is easy to find:
               (HARQ-IR), ``make_pusch_batch_decoder`` (UL-SCH) and
               ``make_mimo_batch_decoder`` (2x2 TM3/TM4, MMSE or SIC): IQ ->
               TB bits, CRC flags
-  apps/ shard/ the multi-carrier cell scanner to the MIB, SIBs and paging
+  apps/ shard/ the multi-carrier cell scanner to the MIB, SIBs and paging,
+              the capture generator and scanner CLIs (config #1), the
+              streaming scanner, the recorder and the ctrl socket
   sim/        DL, UL (with UCI), HARQ, 2x2 MIMO, cell and control-region
               test-signal generators
   bench/      DL, UL and MIMO decode throughput, config #2's sweep and BLER
               gate, config #3's gates, the PSS sweep, the ACS probe and
               kernel studies
-  io/ stack/ utils/   IQ files, EARFCN helpers, the RRC codecs, checkpoint,
-              metrics
+  io/ native/ IQ files and stagings, the native C++ readers and TCP
+              ingest (built by g++ at first use)
+  stack/ utils/  EARFCN helpers, the RRC codecs, checkpoint, metrics,
+              tracing
 
 The package imports torch and numpy, never jax and nothing of ``lteax``: it
 keeps its own copy of every module it needs from there, and

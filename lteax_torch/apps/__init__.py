@@ -1,2 +1,3 @@
-"""Applications: the capture scanner (``file_scan``) and the
-multi-carrier cell scanner (``scanner``)."""
+"""Applications: the capture generator (``file_gen``) and scanner
+(``file_scan``), the multi-carrier cell scanner (``scanner``), the
+streaming scanner (``stream_scan``), the recorder and the ctrl socket."""

@@ -17,10 +17,16 @@ RSRP / noise estimates and the EVMs home in one read: 4 per capture to the
 MIB.  The SI stage reads once per decision: the CFI, each blind decode
 (1A, then 1C if 1A found nothing) and each transport block.
 ``lteax_torch.host.READS`` counts them.
+
+    python -m lteax_torch.apps.file_scan PATH [--n-rb 6] [--fmt fc32|sc8]
+        [--no-cfo] [--extended-cp] [--device cuda|cpu]
+
+prints the report (``ScanResult.to_json``) of a capture file.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from lteax_torch.host import read
+from lteax_torch.io.iq import read_iq
 from lteax_torch.phy import chest, sync
 from lteax_torch.phy.channels import pbch, pcfich, pdcch, pdsch
 from lteax_torch.phy.channels.dci import _n_rb_step
@@ -356,3 +363,24 @@ def _try_paging(res: ScanResult, g: torch.Tensor, cfg: PhyConfig,
         pg = rrc.unpack_paging(tb)
         if pg is not None:
             res.paging = [hex(t) for t in pg.ue_identities]
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="LTE DL IQ file scanner")
+    p.add_argument("path")
+    p.add_argument("--n-rb", type=int, default=6,
+                   help="bandwidth of the capture (sets sample rate)")
+    p.add_argument("--fmt", choices=("fc32", "sc8"), default="fc32")
+    p.add_argument("--no-cfo", action="store_true")
+    p.add_argument("--extended-cp", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the current CUDA device)")
+    a = p.parse_args(argv)
+    cfg = PhyConfig(n_rb_dl=a.n_rb, extended_cp=a.extended_cp)
+    res = scan(read_iq(a.path, a.fmt), cfg, correct_cfo=not a.no_cfo,
+               device=a.device)
+    print(res.to_json())
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,8 @@ ported.
 ``STAGE_SECONDS`` accumulates host-clock seconds per stage ("resample",
 "prescan", "scan"); each stage ends with its results on the host or, for
 the resampler, with a device synchronise, so the split is attributable.
+Each stage is also a named range (``utils.trace.stage``) in a profiler's
+trace.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from lteax_torch.phy.config import PhyConfig
 from lteax_torch.stack import bands
 from lteax_torch.utils.checkpoint import ScanCheckpoint
 from lteax_torch.utils.metrics import EVENTS, METRICS
+from lteax_torch.utils.trace import stage
 from lteax_torch.apps.file_scan import ScanResult, scan
 from lteax_torch.kernels.polyphase import resample_poly
 from lteax_torch.shard.scanner import batched_prescan
@@ -42,10 +45,13 @@ STAGE_SECONDS: dict[str, float] = defaultdict(float)
 
 @contextmanager
 def _stage(name: str, device: torch.device):
+    """Host seconds of the stage into ``STAGE_SECONDS``, and its
+    ``utils.trace.stage`` range in a profiler's trace."""
     t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with stage(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     STAGE_SECONDS[name] += time.perf_counter() - t0
 
 

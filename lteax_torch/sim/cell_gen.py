@@ -3,13 +3,14 @@ PCFICH, PDCCH and the SI and paging PDSCH.
 
 The counterpart of ``lteax.apps.file_gen`` (``build_subframe_grid``,
 ``generate``): the same grids on every resource element, in numpy and
-torch, so that a machine without jax can make scanner inputs.  SIB1 goes
-in subframe 5 of even frames and the SI message carrying SIB2 in subframe
-5 of odd frames, each granted on the PDCCH by an SI-RNTI DCI 1A or 1C;
-with ``paging_tmsi`` a P-RNTI DCI 1C and a Paging message go in subframe
-9.  Two and four ports send the control channels and the PDSCH with SFBC
-and SFBC-FSTD.  (``file_gen``'s multi-SI schedules and extra SIBs are not
-ported.)
+torch, so that a machine without jax can make scanner inputs; the port's
+``apps/file_gen.py`` makes its captures with it.  SIB1 goes in subframe 5 of
+even frames and SI message 1 (SIB2 and, without a schedule, every extra
+SIB) in subframe 5 of odd frames, each granted on the PDCCH by an SI-RNTI
+DCI 1A or 1C; SI messages n >= 2 of ``si_schedule`` go in their 36.331
+§5.2.3 SI windows under a DCI 1A; with ``paging_tmsi`` a P-RNTI DCI 1C and
+a Paging message go in subframe 9.  Two and four ports send the control
+channels and the PDSCH with SFBC and SFBC-FSTD.  Normal or extended CP.
 
 :func:`capture` adds what a receiver sees: a start SFN and a start-sample
 offset (the capture begins mid-transmission), a carrier frequency offset,
@@ -50,9 +51,9 @@ P_RNTI = 0xFFFE
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
-    """A cell and its broadcast content; the SI fields, and the SIB1
-    fields that :meth:`sib1` fixes, are ``file_gen.GenConfig``'s
-    defaults."""
+    """A cell and its broadcast content, with ``file_gen.GenConfig``'s
+    fields and defaults (``phich_duration_extended`` is the MIB's, False in
+    ``file_gen``)."""
     n_rb_dl: int = 6
     n_cell_id: int = 0
     n_ant: int = 1
@@ -62,10 +63,22 @@ class Cell:
     si_dci: str = "1a"          # "1a" | "1c": the DCI format of SI grants
     paging_tmsi: tuple[int, ...] = ()   # S-TMSIs paged in subframe 9
     tac: int = 0x1234
+    extended_cp: bool = False
+    mcc: tuple[int, int, int] = (0, 0, 1)
+    mnc: tuple[int, ...] = (0, 1)
+    cell_identity: int = 0x0050800
+    band: int = 1
+    sib1_mcs: int = 4           # I_TBS of the 1A grants, raised until SI fits
+    extra_sibs: tuple = ()      # Sib3..Sib13 bodies carried in SI messages
+    # ((periodicity_rf, (sib_types...)), ...): entry 0 is SI message 1
+    # (SIB2 prepended, 36.331 §5.2.3), entries n >= 2 go in their own SI
+    # windows; () sends SIB2 and every extra SIB in SI message 1
+    si_schedule: tuple = ()
 
     @property
     def cfg(self) -> PhyConfig:
-        return PhyConfig(n_rb_dl=self.n_rb_dl, n_ant=self.n_ant)
+        return PhyConfig(n_rb_dl=self.n_rb_dl, n_ant=self.n_ant,
+                         extended_cp=self.extended_cp)
 
     @property
     def ctrl_syms(self) -> int:
@@ -76,47 +89,98 @@ class Cell:
                        phich_duration_extended=self.phich_duration_extended,
                        phich_resource=self.phich_resource, sfn=sfn)
 
+    def scheduling(self) -> tuple[rrc.SchedulingInfo, ...]:
+        """SIB1's schedulingInfoList: ``si_schedule``'s entries, or one
+        entry advertising every extra SIB type (SIB3 when there is none)."""
+        if self.si_schedule:
+            return tuple(rrc.SchedulingInfo(p, tuple(ts))
+                         for p, ts in self.si_schedule)
+        types = tuple(sorted({_sib_type(s) for s in self.extra_sibs}))
+        return (rrc.SchedulingInfo(8, types or (3,)),)
+
     def sib1(self) -> rrc.Sib1:
-        return rrc.Sib1(mcc=(0, 0, 1), mnc=(0, 1), tac=self.tac,
-                        cell_identity=0x0050800, freq_band_indicator=1,
-                        scheduling=(rrc.SchedulingInfo(8, (3,)),))
+        return rrc.Sib1(mcc=self.mcc, mnc=self.mnc, tac=self.tac,
+                        cell_identity=self.cell_identity,
+                        freq_band_indicator=self.band,
+                        scheduling=self.scheduling())
 
     def sib2(self) -> rrc.Sib2:
         return rrc.Sib2()
 
+    def si_messages(self) -> list[tuple]:
+        """The SIB bodies of each SI message, SI message 1 first."""
+        if not self.si_schedule:
+            return [(self.sib2(), *self.extra_sibs)]
+        bodies = {_sib_type(s): s for s in self.extra_sibs}
+        return [((self.sib2(),) if j == 0 else ())
+                + tuple(bodies[t] for t in ts)
+                for j, (_, ts) in enumerate(self.si_schedule)]
+
+
+def _sib_type(s) -> int:
+    """The SIB number of a body: 3..11, or 12 / 13 (Rel-9 extensions)."""
+    if type(s) in rrc.SIB_EXT_TYPE_INDEX:
+        return rrc.SIB_EXT_TYPE_INDEX[type(s)] + 12
+    return rrc.SIB_TYPE_INDEX[type(s)] + 2
+
 
 @dataclasses.dataclass(frozen=True)
 class SiBits:
-    """The broadcast messages of a cell as sent: SIB1, the SI message with
-    SIB2, the Paging message (or None) and the 1A grants' I_TBS."""
+    """The broadcast messages of a cell as sent: SIB1, the SI messages
+    (``si[0]``, the one with SIB2, is also ``sib2``), the Paging message
+    (or None), the 1A grants' I_TBS and the SI window in ms."""
     sib1: np.ndarray
-    sib2: np.ndarray
+    si: tuple[np.ndarray, ...]
     paging: np.ndarray | None
     mcs: int
+    periodicities: tuple[int, ...] = (8,)   # each SI message's, in frames
+    window_ms: int = 20
+
+    @property
+    def sib2(self) -> np.ndarray:
+        return self.si[0]
+
+    def extra_at(self, sfn: int, sf: int) -> np.ndarray | None:
+        """The SI message n >= 2 sent in (sfn, sf), else None (36.331
+        §5.2.3: window x = (n-1) w starts in the frame with SFN mod T =
+        floor(x/10), sent in its first subframe other than 0, 5 and 9)."""
+        for j in range(1, len(self.si)):
+            t, x = self.periodicities[j], j * self.window_ms
+            sf_tx = x % 10
+            while sf_tx in (0, 5, 9):
+                sf_tx = (sf_tx + 1) % 10
+            if sfn % t == (x // 10) % t and sf == sf_tx:
+                return self.si[j]
+        return None
 
 
 def si_bits(cell: Cell) -> SiBits:
-    """Pack ``cell``'s SIB1, SI message and Paging; raise the 1A grants'
-    I_TBS until every message fits the N_PRB_1A = 2 TBS (as ``generate``
-    of the reference does)."""
-    sib1 = rrc.pack_sib1(cell.sib1())
-    sib2 = rrc.pack_si(cell.sib2())
+    """Pack ``cell``'s SIB1, SI messages and Paging; raise the 1A grants'
+    I_TBS from ``sib1_mcs`` until every message fits the N_PRB_1A = 2 TBS
+    (as ``generate`` of the reference does)."""
+    sib1 = cell.sib1()
+    sib1_bits = rrc.pack_sib1(sib1)
+    si = tuple(rrc.pack_si(*m) for m in cell.si_messages())
     paging = (rrc.pack_paging(rrc.Paging(ue_identities=cell.paging_tmsi))
               if cell.paging_tmsi else None)
-    mcs = 4                     # file_gen's sib1_mcs, raised until SI fits
-    while tbs_1a(mcs, 2) < max(len(sib1), len(sib2)):
+    mcs = cell.sib1_mcs
+    while tbs_1a(mcs, 2) < max(len(sib1_bits), *(len(m) for m in si)):
         mcs += 1
-    return SiBits(sib1, sib2, paging, mcs)
+    return SiBits(sib1_bits, si, paging, mcs,
+                  tuple(e.si_periodicity_rf for e in sib1.scheduling),
+                  sib1.si_window_ms)
 
 
 def build_subframe_grid(cell: Cell, sfn: int, sf: int,
                         pbch_quarters: np.ndarray,
-                        si: SiBits | None = None) -> np.ndarray:
+                        si: SiBits | None = None,
+                        extra_si: np.ndarray | None = None) -> np.ndarray:
     """One subframe's (n_sym, n_sc) complex64 grid, ports superposed:
     CRS of every port, PSS/SSS (port 0) in subframes 0 and 5, and the PBCH
     quarter ``sfn % 4`` in subframe 0; with ``si``, the PCFICH in every
-    subframe, the SI grant and PDSCH in subframe 5 and the paging grant and
-    PDSCH in subframe 9 when there is a Paging message."""
+    subframe, the SI grant and PDSCH in subframe 5, the paging grant and
+    PDSCH in subframe 9 when there is a Paging message, and the SI message
+    ``extra_si`` (``si.extra_at(sfn, sf)``) under a DCI 1A."""
     cfg, cid, n_ant = cell.cfg, cell.n_cell_id, cell.n_ant
     ports = np.zeros((n_ant, cfg.n_sym_subframe * cfg.n_sc), np.complex64)
 
@@ -140,6 +204,13 @@ def build_subframe_grid(cell: Cell, sfn: int, sf: int,
         geom = pdsch.pdsch_geometry(tbs, len(re_idx), 2, rv)
         sfbc_scatter(re_idx, pdsch.pdsch_encode(rrc.pad_to(msg, tbs), geom,
                                                 rnti, sf, cid, "qpsk"))
+
+    def grant_1a(rv: int, msg: np.ndarray):
+        """An SI message under a DCI 1A on the first min(n_rb, 6) PRBs."""
+        l_crb = min(cfg.n_rb_dl, 6)
+        grant(dci_1a_pack(Dci1A(rb_start=0, l_crb=l_crb, mcs=si.mcs, rv=rv,
+                                tpc=0), cfg.n_rb_dl),
+              SI_RNTI, tuple(range(l_crb)), tbs_1a(si.mcs, 2), rv, msg)
 
     for p in range(n_ant):
         vals = [seq.crs_values(cid, 2 * sf + sym // cfg.n_sym_slot,
@@ -174,11 +245,9 @@ def build_subframe_grid(cell: Cell, sfn: int, sf: int,
                                   cfg.n_rb_dl), SI_RNTI,
                       tuple(range(ndl * step)), TBS_1C[i_tbs], rv, msg)
             else:
-                l_crb = min(cfg.n_rb_dl, 6)
-                grant(dci_1a_pack(Dci1A(rb_start=0, l_crb=l_crb, mcs=si.mcs,
-                                        rv=rv, tpc=0), cfg.n_rb_dl),
-                      SI_RNTI, tuple(range(l_crb)), tbs_1a(si.mcs, 2), rv,
-                      msg)
+                grant_1a(rv, msg)
+        if extra_si is not None:
+            grant_1a(0, extra_si)
         if sf == 9 and si.paging is not None:
             i_tbs = next(i for i, t in enumerate(TBS_1C)
                          if t >= len(si.paging))
@@ -188,9 +257,11 @@ def build_subframe_grid(cell: Cell, sfn: int, sf: int,
     return ports.sum(axis=0).reshape(cfg.n_sym_subframe, cfg.n_sc)
 
 
-def generate(cell: Cell, n_subframes: int, sfn0: int = 0) -> np.ndarray:
+def generate(cell: Cell, n_subframes: int, sfn0: int = 0,
+             device="cpu") -> np.ndarray:
     """-> (n_subframes * n_samps_subframe,) complex64 baseband starting at
-    subframe 0 of frame ``sfn0``, broadcasting ``cell``'s SI."""
+    subframe 0 of frame ``sfn0``, broadcasting ``cell``'s SI.  The grids
+    are built on the host and OFDM-modulated on ``device``."""
     cfg = cell.cfg
     si = si_bits(cell)
     grids, quarters = [], {}
@@ -201,9 +272,11 @@ def generate(cell: Cell, n_subframes: int, sfn0: int = 0) -> np.ndarray:
                 rrc.pack_mib(cell.mib(sfn)), cell.n_ant, cell.n_cell_id,
                 cfg.extended_cp)
         grids.append(build_subframe_grid(cell, sfn, i % 10,
-                                         quarters[sfn // 4], si))
-    x = subframe_to_samples(torch.from_numpy(np.stack(grids)), cfg)
-    return x.reshape(-1).numpy()
+                                         quarters[sfn // 4], si,
+                                         si.extra_at(sfn, i % 10)))
+    x = subframe_to_samples(torch.from_numpy(np.stack(grids)).to(device),
+                            cfg)
+    return x.reshape(-1).cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

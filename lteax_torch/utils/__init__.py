@@ -1,1 +1,1 @@
-"""Cross-cutting utilities: metrics, checkpoints."""
+"""Cross-cutting utilities: metrics, checkpoints, tracing."""

@@ -1,8 +1,8 @@
 """The PyTorch port loads no jax and nothing of the ``lteax`` package (not
-even its jax-free modules: the port keeps its own copies), its decoders run
-on the card unless asked for the CPU, and chip_smoke.py refuses to run
-without the port or without a CUDA device (no CPU fallback, no result
-printed)."""
+even its jax-free modules or its native library: the port keeps its own
+copies), its decoders and CLIs run on the card unless asked for the CPU, a
+failed native build raises, and chip_smoke.py refuses to run without the
+port or without a CUDA device (no CPU fallback, no result printed)."""
 
 import dataclasses
 import json
@@ -19,9 +19,10 @@ REPO = Path(__file__).resolve().parents[1]
 _ENV = {**os.environ, "PYTHONPATH": str(REPO)}
 
 
-def _run(code: str, cwd=REPO):
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=_ENV,
-                          capture_output=True, text=True, timeout=120)
+def _run(code: str, cwd=REPO, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          env=env or _ENV, capture_output=True, text=True,
+                          timeout=120)
 
 
 _FOREIGN = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in"
@@ -37,10 +38,11 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 74, mods\n"
+        "assert len(mods) >= 80, mods\n"
         "for m in ('phy.channels.phich', 'phy.channels.pucch',"
         " 'bench.ul_throughput', 'bench.snr_sweep', 'bench.config3',"
-        " 'sim.ctrl_gen'):\n"
+        " 'sim.ctrl_gen', 'apps.file_gen', 'apps.ctrl', 'apps.stream_scan',"
+        " 'apps.recorder', 'io.native', 'utils.trace'):\n"
         "    assert 'lteax_torch.' + m in mods, m\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
@@ -119,6 +121,67 @@ def test_scan_needs_a_card_unless_asked_for_the_cpu():
     assert on_cpu.n_cell_id == 137 and on_cpu.mib is not None
     got = scan(torch.from_numpy(np.array(iq)), cfg, max_si_subframes=0)
     assert (got.n_cell_id, got.mib) == (on_cpu.n_cell_id, on_cpu.mib)
+
+
+@pytest.mark.parametrize("cli", ["file_gen", "file_scan", "stream_scan",
+                                 "dl_throughput", "ul_throughput",
+                                 "mimo_throughput"])
+def test_clis_need_a_card_unless_asked_for_the_cpu(cli, tmp_path):
+    """Each new CLI, and each bench CLI, raises without a CUDA device
+    unless ``--device cpu``, before it does any work."""
+    import torch
+    from lteax_torch.apps import file_gen, file_scan, stream_scan
+    from lteax_torch.bench import (dl_throughput, mimo_throughput,
+                                   ul_throughput)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cap = str(tmp_path / "cap.fc32")
+    if cli != "file_gen":
+        file_gen.main(["--out", cap, "--frames", "2", "--device", "cpu"])
+    main, argv = {
+        "file_gen": (file_gen.main, ["--out", str(tmp_path / "x.fc32"),
+                                     "--frames", "2"]),
+        "file_scan": (file_scan.main, [cap]),
+        "stream_scan": (stream_scan.main, [cap, "--window-sf", "20"]),
+        "dl_throughput": (dl_throughput.main, ["--batch", "1"]),
+        "ul_throughput": (ul_throughput.main, ["--batch", "1"]),
+        "mimo_throughput": (mimo_throughput.main, ["--batch", "1"]),
+    }[cli]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not (tmp_path / "x.fc32").exists()
+    if cli in ("file_gen", "file_scan", "stream_scan"):
+        main([*argv, "--device", "cpu"])
+
+
+def test_failed_native_build_raises():
+    """A compiler that fails makes the native reader raise with its
+    output (no numpy fallback); ``available()`` says False."""
+    res = _run(
+        "import pytest\n"
+        "from lteax_torch.io import native\n"
+        "with pytest.raises(RuntimeError, match='false failed') as e:\n"
+        "    native.read_iq_native('chip_smoke.py', 'sc8', count=4)\n"
+        "assert not native.available()\n"
+        "with pytest.raises(RuntimeError):\n"
+        "    native.IqTcpSource()\n"
+        "print('raised')\n", env={**_ENV, "CXX": "false"})
+    assert res.returncode == 0 and "raised" in res.stdout, res.stderr
+    assert not list((REPO / "build" / "lteax_torch").glob("*.tmp"))
+
+
+def test_port_never_loads_the_reference_native_library():
+    """The port builds its own copy of the C++ sources: no path of the
+    port names the reference's committed ``libiqreader.so`` or its
+    ``lteax/native`` directory."""
+    res = _run(
+        "import os\n"
+        "from lteax_torch.io import native\n"
+        "assert native.available()\n"
+        "maps = open(f'/proc/{os.getpid()}/maps').read()\n"
+        "assert 'lteax/native' not in maps, maps\n"
+        "assert 'build/lteax_torch/libiqreader_' in maps\n")
+    assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -623,6 +623,31 @@ def test_iq_files_round_trip(fmt, tmp_path):
             mod.read_iq(a, "fc64")
 
 
+@pytest.mark.parametrize("name", ["iq_reader.cc", "iq_tcp.cc"])
+def test_native_sources_are_the_originals(name):
+    """The port builds its own copy of the reference's C++ readers."""
+    root = Path(__file__).resolve().parents[1]
+    assert (root / "lteax_torch" / "native" / name).read_bytes() == \
+        (root / "lteax" / "native" / name).read_bytes()
+
+
+def test_iq_stagings_behave_as_the_originals():
+    from lteax.io import iq as iq_ref
+    from lteax_torch.io import iq
+    rng = np.random.default_rng(5)
+    x = ((rng.standard_normal((3, 700)) + 1j * rng.standard_normal((3, 700)))
+         * 0.6).astype(np.complex64)
+    b = iq.to_iq_bf16(x)
+    assert isinstance(b, torch.Tensor) and b.shape == (3, 700, 2)
+    np.testing.assert_array_equal(
+        b.float().numpy(), np.asarray(iq_ref.to_iq_bf16(x), np.float32))
+    for scale in (127.0, 90.0):
+        _same(iq.to_iq_sc8(x, scale), iq_ref.to_iq_sc8(x, scale))
+    _same(iq.chunk_subframes(x[0], 128, 3),
+          iq_ref.chunk_subframes(x[0], 128, 3))
+    assert iq.chunk_subframes(x[0], 128, 3).shape == (5, 128)
+
+
 def test_earfcn_helpers():
     from lteax.stack import bands as bands_ref
     from lteax_torch.stack import bands
