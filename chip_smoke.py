@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-eighteen paths, each with the launch counters set to 0 just before it and
+twenty paths, each with the launch counters set to 0 just before it and
 read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
@@ -116,6 +116,23 @@ read just after:
 18. Tracing (``[trace]``): the DL bench CLI's ``--trace`` around one
     decode of 32 subframes; the Chrome trace holds the ``decode_batch``
     range and the turbo and demap kernels.
+19. The UL control PHY (``[ulctrl]``): PRACH format 0 at 30.72 Msps, the
+    64 preambles of ``preamble_set(22, 12)`` (N_cs 119) and of the
+    high-speed ``preamble_set(22, 5, True)`` (N_cs 38), each a burst with a
+    random delay inside its zone at 10 and at 0 dB, detected on the card
+    (``prach.detect_prach_cv``) with the sent preamble first at its delay
+    and the (index, delay) list equal to the CPU's, formats 1-3 once each,
+    noise alone never detected; PUCCH formats 1/1a/1b (three orthogonal
+    covers on one resource), 2, 2a and 2b at both band edges of a 100-PRB
+    grid and SRS at m_srs 96, every decision equal to the CPU's and to
+    what was sent.
+20. The attach simulators (``[attach]``): ``apps.attach_sim.run`` on the
+    card (7 stages; 10 turbo launches a transport block, 80 in all) and on
+    the CPU, each PRACH detection's (index, delay) and each of the 8
+    transport blocks' decoded bytes equal between the two;
+    ``apps.rrc_attach_sim.run`` on the card (RRC attach, AS security, user
+    plane, handover with the target cell's dedicated RACH); ms per
+    ``_dl_sch`` / ``_ul_sch`` transport block.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -144,11 +161,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import lteax_torch.apps.file_scan as file_scan
 import lteax_torch.apps.scanner as scanner
-from lteax_torch.apps import file_gen, recorder
+from lteax_torch.apps import attach_sim, file_gen, recorder, rrc_attach_sim
 from lteax_torch.apps.stream_scan import StreamScanService
 import lteax_torch.kernels.acs_probe as acs_mod
 import lteax_torch.kernels.demap as demap_mod
@@ -166,7 +184,9 @@ from lteax_torch.io import native
 from lteax_torch.io.iq import prefetch_to_device, read_iq, write_iq
 from lteax_torch.kernels._build import library
 from lteax_torch.phy import chest, seq
-from lteax_torch.phy.channels import pcfich, pdcch, phich, pusch
+from lteax_torch.phy.channels import pdsch as pdsch_mod
+from lteax_torch.phy.channels import (pcfich, pdcch, phich, prach, pucch,
+                                      pusch, srs)
 from lteax_torch.phy.config import PhyConfig
 from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.fec.turbo import turbo_encode
@@ -182,6 +202,7 @@ from lteax_torch.sim import cell_gen, ctrl_gen
 from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
                                     harq_transmissions)
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
+from lteax_torch.sim import ul_gen
 from lteax_torch.sim.ul_gen import UlCell, ul_subframes
 from lteax_torch.stack import rrc
 
@@ -255,6 +276,24 @@ LOOP_CASES = (("config1", 6, 8, "fc32"), ("config1_100prb", 100, 4, "fc32"),
 STREAM_CELL, STREAM_FRAMES, STREAM_WINDOW_SF = 301, 24, 60
 IQ_REPS = 20
 TRACE_BATCH = 32
+PRACH_ROOT = 22            # rootSequenceIndex of the [ulctrl] PRACH sets
+PRACH_ZCZC = 12            # N_cs 119: 7 shifts a root, 10 roots
+PRACH_ZCZC_HS = 5          # high-speed N_cs 38: 5-7 shifts a root, 11 roots
+PRACH_SNRS = (10.0, 0.0)   # dB per sample
+# noise alone: |corr|^2 / mean is exponential, so the default threshold 8
+# passes e^-8 of the 833 zone bins (0.28 false alarms a window, in the
+# reference too); 16 passes 9e-5 a window
+PRACH_NOISE_THRESHOLD = 16.0
+PUCCH_N_RB = 100
+PUCCH_CID = 214
+PUCCH_SNR_DB = 15.0        # the presence detector's 0.1 sits above noise
+SRS_U, SRS_M = 11, 96
+ATTACH_K = (280, 352, 528, 1056)   # TBS 256, 328, 504, 1032 + CRC24A
+ATTACH_STAGES = {"prach": True, "rar": True, "rrc_request": True,
+                 "attach_request": True, "aka": True, "smc": True,
+                 "bearer": True}
+RRC_STAGES = {"rach": True, "as_security": True, "attach": True,
+              "user_plane": True, "handover": True}
 
 SOURCES = {
     "demap": ("lteax_torch/kernels/csrc/demap.cu",
@@ -292,20 +331,27 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float | None:
-    """Mean device time of the kernels whose name holds ``kernel`` in one
-    call of ``fn``, from ``torch.profiler`` over ``reps`` calls (CUDA
-    events around back-to-back calls of a tiny launch measure the host's
-    launch rate instead); None when the profiler sees no such kernel."""
+def device_ms(fn, reps: int, kernel: str | None = None,
+              count: bool = False):
+    """Mean device time of the kernels whose name holds ``kernel`` (None:
+    every kernel, the device's events only, as an operator's own time
+    would count its kernels twice) in one call of ``fn``, from
+    ``torch.profiler`` over ``reps`` calls (CUDA events around
+    back-to-back calls of a tiny launch measure the host's launch rate
+    instead); None when the profiler sees no such kernel.  With ``count``
+    -> (that time, the number of those kernels a call)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    events = [e for e in prof.key_averages()
+              if (e.device_type == DeviceType.CUDA if kernel is None
+                  else kernel in e.key)]
+    us = sum(e.self_device_time_total for e in events)
+    ms = us / reps / 1e3 if us > 0 else None
+    return (ms, sum(e.count for e in events) / reps) if count else ms
 
 
 def _ms(x: float | None) -> str:
@@ -685,7 +731,7 @@ def scanner_captures() -> tuple[list, list]:
                 offset=int(rng.integers(0, nsf10)),
                 cfo_hz=float(rng.uniform(-5e3, 5e3)),
                 snr_db=float(rng.uniform(10.0, 20.0)), rate_hz=SDR_RATE,
-                seed=SEED + k)
+                seed=SEED + k, device="cuda")
             write_iq(str(path), cap.iq)
             caps.append((cell, cap))
         else:
@@ -1222,7 +1268,7 @@ def si_captures() -> tuple[list, list]:
             offset=int(rng.integers(0, nsf10)),
             cfo_hz=float(rng.uniform(-5e3, 5e3)),
             snr_db=float(rng.uniform(10.0, 20.0)), rate_hz=rate,
-            seed=SEED + 20 + k)
+            seed=SEED + 20 + k, device="cuda")
         path = work / f"si{k}.fc32"
         write_iq(str(path), cap.iq)
         chans.append(scanner.Channel(str(4000 + k), str(path), rate_hz=rate))
@@ -1978,6 +2024,343 @@ def run_trace(card: str) -> dict:
             "kernels": kernels, "launches": counts}
 
 
+# -- slice H: the UL control PHY and the attach simulators ------------------
+
+def _same_prach(card_rows: list, cpu_rows: list, threshold: float) -> bool:
+    """(index, delay) equal and metrics within 1e-4 relative; a row on one
+    list only must lie within 1e-4 of the threshold."""
+    g = {i: (d, m) for i, d, m in card_rows}
+    c = {i: (d, m) for i, d, m in cpu_rows}
+    for i in set(g) ^ set(c):
+        if abs((g.get(i) or c.get(i))[1] / threshold - 1) >= 1e-4:
+            return False
+    return all(g[i][0] == c[i][0] and abs(g[i][1] - c[i][1])
+               <= 1e-4 * abs(c[i][1]) for i in set(g) & set(c))
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of one call of ``fn`` (it reads its result
+    home, so the clock holds the device's work)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def run_prach(dev, card: str) -> dict:
+    """PRACH format 0 at 30.72 Msps (24576-point window): every preamble
+    of an unrestricted set (``preamble_set(22, 12)``, N_cs 119) and of a
+    high-speed set (``preamble_set(22, 5, True)``, N_cs 38) as a burst
+    with a random delay inside its zone, at 10 and at 0 dB per sample,
+    detected on the card against its root's whole shift set; formats 1-3
+    once each; noise alone at ``PRACH_NOISE_THRESHOLD``.  The sent
+    preamble must come first at its delay (within one ZC sample), the
+    card's list must equal the CPU's, noise must give nothing."""
+    rng = np.random.default_rng(SEED + 41)
+    spz = 24576 / prach.N_ZC                       # samples per ZC sample
+    n_ok = n_same = n_calls = 0
+    first = None
+    for high_speed, zczc in ((False, PRACH_ZCZC), (True, PRACH_ZCZC_HS)):
+        n_cs = (prach.NCS_RESTRICTED if high_speed
+                else prach.NCS_UNRESTRICTED)[zczc]
+        for u, cv in prach.preamble_set(PRACH_ROOT, zczc, high_speed):
+            shifts = prach.cyclic_shifts(u, n_cs, high_speed)
+            delay = int(rng.integers(0, int((n_cs - 2) * spz)))
+            b = prach.generate_prach_cv(u, cv)
+            b = np.concatenate([np.zeros(delay, np.complex64), b])[:len(b)]
+            for snr_db in PRACH_SNRS:
+                sig = np.sqrt(10 ** (-snr_db / 10) / 2)
+                rx = (b + sig * (rng.standard_normal(len(b))
+                                 + 1j * rng.standard_normal(len(b)))
+                      )[prach.PRACH_FORMATS[0][0]:].astype(np.complex64)
+                x = torch.as_tensor(rx, device=dev)
+                got = prach.detect_prach_cv(x, u, shifts, n_cs)
+                cpu = prach.detect_prach_cv(rx, u, shifts, n_cs,
+                                            device="cpu")
+                n_calls += 1
+                best = max(got, key=lambda t: t[2]) if got else None
+                n_ok += bool(best and best[0] == shifts.index(cv)
+                             and abs(best[1] - delay) <= spz + 1)
+                n_same += _same_prach(got, cpu, 8.0)
+                first = first or (x, u, shifts, n_cs)
+    for fmt in (1, 2, 3):
+        u, cv = 129, 2 * 119
+        rx = prach.generate_prach_cv(u, cv, fmt)[prach.PRACH_FORMATS[fmt][0]:]
+        got = prach.detect_prach(torch.as_tensor(rx, device=dev), u, 119, fmt)
+        n_calls += 1
+        n_ok += bool(got) and max(got, key=lambda t: t[2])[:2] == (2, 0)
+        n_same += _same_prach(got, prach.detect_prach(rx, u, 119, fmt,
+                                                      device="cpu"), 8.0)
+    noise_hits = 0
+    for k in range(8):
+        z = (rng.standard_normal(24576) + 1j * rng.standard_normal(24576)
+             ).astype(np.complex64)
+        noise_hits += len(prach.detect_prach(torch.as_tensor(z, device=dev),
+                                             prach.physical_root(22 + k),
+                                             119,
+                                             threshold=PRACH_NOISE_THRESHOLD))
+    x, u, shifts, n_cs = first
+    detect = lambda: prach.detect_prach_cv(x, u, shifts, n_cs)
+    ms = _host_ms(detect, 50)
+    dev_ms, n_kernels = device_ms(detect, 20, count=True)
+    n_bursts = n_calls - 3
+    print(f"[ulctrl] PRACH format 0, 30.72 Msps: {n_bursts} bursts (64 "
+          f"preambles of preamble_set({PRACH_ROOT}, {PRACH_ZCZC}) and of "
+          f"the high-speed set ({PRACH_ROOT}, {PRACH_ZCZC_HS}) at "
+          f"{PRACH_SNRS} dB) and formats 1-3: sent preamble first at its "
+          f"delay {n_ok}/{n_calls}, card = CPU {n_same}/{n_calls}; noise "
+          f"alone {noise_hits} detections in 8 windows at threshold "
+          f"{PRACH_NOISE_THRESHOLD}; detect_prach "
+          f"{ms:.3f} ms a call (host clock, median of 50, read included), "
+          f"device time {_ms(dev_ms)} in {n_kernels:.0f} kernels ({card})")
+    if n_ok != n_calls or n_same != n_calls or noise_hits:
+        raise AssertionError(f"[ulctrl] PRACH: right {n_ok}, card = CPU "
+                             f"{n_same} of {n_calls}, noise {noise_hits}")
+    return {"bursts": n_bursts, "detect_ms": ms, "detect_device_ms": dev_ms,
+            "detect_kernels": n_kernels}
+
+
+def pucch_grid(rng) -> tuple[np.ndarray, list]:
+    """A 100-PRB UL grid at ``PUCCH_SNR_DB`` per RE: formats 1 (SR), 1a and
+    1b on orthogonal covers 0-2 of resource 0, 2 on resource 1, 2a on 2,
+    2b on 3 (each slot-hopping between both band edges), every UE behind
+    its own unit-gain phase; -> (grid, [(decode args, what was sent)])."""
+    n_rb = PUCCH_N_RB
+    grid = np.zeros((14, 12 * n_rb), np.complex64)
+    cases = []
+
+    def put(syms, m):
+        return pucch.pucch_map_format1(
+            grid, syms * np.exp(2j * np.pi * rng.random()), m, n_rb)
+
+    for oc, bits in enumerate(((), (1,), (1, 0))):
+        grid = put(pucch.pucch_format1_encode(bits, PUCCH_CID, 4, 2, oc), 0)
+        cases.append(("1" + "ab"[len(bits) - 1] * bool(bits), 0,
+                      (2, oc, len(bits)), bits))
+    for m, ack in ((1, ()), (2, (1,)), (3, (0, 1))):
+        cqi = tuple(int(b) for b in rng.integers(0, 2, 10 + len(ack)))
+        syms = (pucch.pucch_format2ab_encode(np.array(cqi), ack, PUCCH_CID,
+                                             4, 0x46, 1) if ack else
+                pucch.pucch_format2_encode(np.array(cqi), PUCCH_CID, 4, 0x46,
+                                           1))
+        grid = put(syms, m)
+        cases.append(("2" + ("", "a", "b")[len(ack)], m, (len(cqi), ack),
+                      (cqi, ack)))
+    sig = np.sqrt(10 ** (-PUCCH_SNR_DB / 10) / 2)
+    grid = grid + sig * (rng.standard_normal(grid.shape)
+                         + 1j * rng.standard_normal(grid.shape))
+    return grid.astype(np.complex64), cases
+
+
+def pucch_decode(grid, name: str, m: int, args: tuple):
+    """One resource's decode -> its decisions (bits) and its metrics."""
+    res = pucch.pucch_extract(grid, m, PUCCH_N_RB)
+    if name.startswith("1"):
+        alpha, oc, n_bits = args
+        bits, metric = pucch.pucch_format1_decode(res, PUCCH_CID, 4, alpha,
+                                                  oc, n_bits)
+        return bits, (metric,)
+    a, ack = args
+    if not ack:
+        cqi, metric = pucch.pucch_format2_decode(res, PUCCH_CID, 4, 0x46, a,
+                                                 1)
+        return (tuple(int(b) for b in cqi), ()), (metric,)
+    cqi, ack_got, metric, ack_metric = pucch.pucch_format2ab_decode(
+        res, PUCCH_CID, 4, 0x46, a, len(ack), 1)
+    return (tuple(int(b) for b in cqi), ack_got), (metric, ack_metric)
+
+
+def run_pucch_srs(dev, card: str) -> dict:
+    """PUCCH formats 1/1a/1b/2/2a/2b and SRS (m_srs = ``SRS_M``) on a
+    100-PRB grid, decoded on the card: the card's decisions equal the
+    CPU's and what was sent, metrics within 1e-5 relative."""
+    rng = np.random.default_rng(SEED + 42)
+    grid, cases = pucch_grid(rng)
+    g_card = torch.as_tensor(grid, device=dev)
+    g_cpu = torch.from_numpy(grid)
+    n_ok = 0
+    for name, m, args, sent in cases:
+        bits, metrics = pucch_decode(g_card, name, m, args)
+        bits_c, metrics_c = pucch_decode(g_cpu, name, m, args)
+        n_ok += bool(bits == bits_c == sent and all(
+            abs(a - b) <= 1e-5 * abs(b) for a, b in zip(metrics, metrics_c)))
+    present = [pucch.pucch_present(g_card, m, PUCCH_N_RB) for m in range(6)]
+    pucch_ms = {name: _host_ms(lambda: pucch_decode(g_card, name, m, args),
+                               20) for name, m, args, _ in cases}
+    # SRS: three UEs on shifts 0, 3, 6 of one comb, each behind a delay
+    ues = ((0, 1.0, 0.0), (3, 0.8, 3.0), (6, 1.1, 6.0))
+    sgrid = np.zeros((14, 12 * PUCCH_N_RB), np.complex64)
+    k = np.arange(12 * PUCCH_N_RB)
+    for n_cs, amp, delay in ues:
+        one = srs.srs_add(np.zeros_like(sgrid), PUCCH_N_RB, SRS_U, SRS_M,
+                          n_cs, 1, 2, amp)
+        sgrid += (one * np.exp(-2j * np.pi * k * delay / 2048)).astype(
+            np.complex64)
+    sgrid = (sgrid + 0.05 * (rng.standard_normal(sgrid.shape) + 1j
+                             * rng.standard_normal(sgrid.shape))).astype(
+                                 np.complex64)
+    s_card = torch.as_tensor(sgrid, device=dev)
+    p, peak = srs.srs_detect(s_card, PUCCH_N_RB, SRS_U, SRS_M, 1, 2)
+    p_c, peak_c = srs.srs_detect(torch.from_numpy(sgrid), PUCCH_N_RB, SRS_U,
+                                 SRS_M, 1, 2)
+    strong = {int(i) for i in torch.topk(p, 3).indices.cpu()}
+    srs_same = (torch.equal(peak.cpu(), peak_c) and strong ==
+                {(8 - n) % 8 for n, _, _ in ues}
+                and float((p.cpu() - p_c).abs().max()) <= 1e-5)
+    h_err = max(float((srs.srs_estimate_channel(
+        s_card, PUCCH_N_RB, SRS_U, SRS_M, n, 1, 2).cpu()
+        - srs.srs_estimate_channel(torch.from_numpy(sgrid), PUCCH_N_RB,
+                                   SRS_U, SRS_M, n, 1, 2)).abs().max())
+        for n, _, _ in ues)
+    srs_ms = _host_ms(lambda: [t.cpu() for t in srs.srs_detect(
+        s_card, PUCCH_N_RB, SRS_U, SRS_M, 1, 2)], 20)
+    print(f"[ulctrl] PUCCH at {PUCCH_N_RB} PRB, {PUCCH_SNR_DB} dB, resources "
+          f"0-3 at both band edges: {n_ok}/{len(cases)} decodes right and = "
+          f"CPU (formats {[c[0] for c in cases]}); present {present}; ms per "
+          f"decode (host clock, read included) "
+          f"{ {k: round(v, 3) for k, v in pucch_ms.items()} } ({card})")
+    print(f"[ulctrl] SRS m_srs {SRS_M} at {PUCCH_N_RB} PRB, shifts 0/3/6: "
+          f"windows {sorted(strong)}, peaks = CPU, powers within 1e-5: "
+          f"{srs_same}; channel estimates max |card - CPU| {h_err:.2e}; "
+          f"srs_detect {srs_ms:.3f} ms a call (host clock, read included) "
+          f"({card})")
+    if n_ok != len(cases) or present != [True] * 4 + [False] * 2 or \
+            not srs_same or h_err > 1e-5:
+        raise AssertionError(f"[ulctrl] PUCCH {n_ok}/{len(cases)}, present "
+                             f"{present}, SRS {srs_same}, {h_err}")
+    return {"pucch_ok": n_ok, "pucch_ms": pucch_ms, "srs_ms": srs_ms}
+
+
+def run_ulctrl(dev, card: str) -> dict:
+    """``[ulctrl]``: PRACH, PUCCH and SRS on the card, counted (none of
+    them runs a hand-written kernel: FFTs, small matmuls and gathers)."""
+    _reset_counts()
+    out = {**run_prach(dev, card), **run_pucch_srs(dev, card)}
+    counts = _counts()
+    print(f"[ulctrl] launches {counts} ({card})")
+    if counts["demap"] or counts["turbo_half_iteration"]:
+        raise AssertionError(f"[ulctrl] launches {counts}")
+    return {**out, "launches": counts}
+
+
+def _recorded_attach(dev) -> tuple[dict, list]:
+    """``attach_sim.run`` on ``dev`` with what its eNB decoded, in order:
+    each PRACH detection's (index, delay) rows and each ``_dl_sch`` /
+    ``_ul_sch`` transport block's bytes (None for a failed CRC)."""
+    log = []
+    saved = {name: getattr(attach_sim, name)
+             for name in ("_prach_detect", "_dl_sch", "_ul_sch")}
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            got = fn(*args, **kwargs)
+            log.append((name, [r[:2] for r in got]
+                        if name == "_prach_detect" else got))
+            return got
+        return call
+
+    for name, fn in saved.items():
+        setattr(attach_sim, name, recorded(name, fn))
+    try:
+        res = attach_sim.run(verbose=False, device=dev)
+    finally:
+        for name, fn in saved.items():
+            setattr(attach_sim, name, fn)
+    return res, log
+
+
+def check_turbo_attach(dev) -> dict:
+    """The half-iteration kernel vs plain at the attach paths' shapes
+    (C = 1, K 280, 352, 528 and 1056, win 32, acq 16), timed at K 1056 as
+    :func:`check_turbo_si`."""
+    errs = []
+    for k in ATTACH_K:
+        errs += turbo_equal_plain(turbo_inputs(1, k + 3, 32, SEED + k, dev),
+                                  32, 16)
+    c, n, win, acq = 1, ATTACH_K[-1] + 3, 32, 16
+    n_w = -(-n // win)
+    u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 7, dev)
+    ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
+                                                           win, acq), 100)
+    plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
+        u, v, a0, b0, win, acq), 3)
+    dev_ms = device_ms(lambda: turbo_mod.half_iteration_raw(u, v, a0, b0,
+                                                            win, acq), 20,
+                       "turbo_half")
+    return {"shape": [c, n, win, acq], "max_abs_err": max(errs), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(4 * (3 * c * n + 4 * c * n_w * 8),
+                    c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)}
+
+
+def run_attach(dev, card: str) -> dict:
+    """``[attach]``: ``attach_sim.run`` on the card, counted (10 turbo
+    launches a transport block: 5 iterations, no early stop), then on the
+    CPU, each PRACH detection and each transport block's decoded bytes
+    equal to the card's;
+    ``rrc_attach_sim.run`` on the card, counted; ms per ``_dl_sch`` /
+    ``_ul_sch`` transport block at TBS 1032."""
+    out = {}
+    decoded = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        _reset_counts()
+        t0 = time.perf_counter()
+        res, decoded[where] = _recorded_attach(d)
+        out[f"{where}_wall_s"] = time.perf_counter() - t0
+        counts = _counts()
+        if where == "card":
+            out["launches"] = counts
+        if res != ATTACH_STAGES:
+            raise AssertionError(f"[attach] {where}: {res}")
+    n_tb = sum(name != "_prach_detect" for name, _ in decoded["card"])
+    same = decoded["card"] == decoded["cpu"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = rrc_attach_sim.run(verbose=False, device=dev)
+    out["rrc_wall_s"] = time.perf_counter() - t0
+    out["rrc_launches"] = _counts()
+    rng = np.random.default_rng(SEED + 43)
+    msg = bytes(range(120))
+    tb = np.unpackbits(np.frombuffer(msg.ljust(129, b"\0"), np.uint8)
+                       ).astype(np.int32)
+    alloc = pusch.PuschAlloc(n_prb=6, rb_start=0, mcs_tbs=1032, qm=2)
+    geom = pdsch_mod.pdsch_geometry(1032, 1032, 2, 0)
+    tb_ms = {name: _host_ms(lambda: fn(msg, 1032, 0x3D, 3, 214, 10 ** -1.2,
+                                       rng, dev), 10)
+             for name, fn in (("dl_sch", attach_sim._dl_sch),
+                              ("ul_sch", attach_sim._ul_sch))}
+    # the UE's side alone (numpy): what is left of a TB is the eNB's
+    tb_ms["dl_encode"] = _host_ms(lambda: pdsch_mod.pdsch_encode(
+        tb, geom, 0x3D, 3, 214, "qpsk"), 10)
+    tb_ms["ul_encode"] = _host_ms(lambda: ul_gen.pusch_add_dmrs(
+        ul_gen.pusch_encode_cbs(pdsch_mod.pdsch_prepare_cbs(tb, alloc.geom),
+                                alloc, 0x3D, 3, 214), alloc, 214, 3), 10)
+    k12 = out["launches"]["turbo_half_iteration"]
+    k12_rrc = out["rrc_launches"]["turbo_half_iteration"]
+    print(f"[attach] attach_sim on the card: 7/7 stages in "
+          f"{out['card_wall_s']:.3f} s, on the CPU {out['cpu_wall_s']:.3f} s;"
+          f" decoded card = CPU ({n_tb} TBs' bytes, PRACH (index, delay)) "
+          f"{same}; "
+          f"turbo_half_iteration {k12} launches ({k12 / 10:.1f} TBs), demap "
+          f"{out['launches']['demap']}, host reads "
+          f"{out['launches']['host_reads']} ({card})")
+    print(f"[attach] rrc_attach_sim on the card: {res}, "
+          f"{out['rrc_wall_s']:.3f} s; turbo_half_iteration {k12_rrc} "
+          f"launches ({k12_rrc / 10:.1f} TBs), host reads "
+          f"{out['rrc_launches']['host_reads']}; ms per TB at TBS 1032 (host"
+          f" clock, median of 10): DL {tb_ms['dl_sch']:.3f} of which the UE's"
+          f" numpy encode {tb_ms['dl_encode']:.3f}, UL {tb_ms['ul_sch']:.3f} "
+          f"of which {tb_ms['ul_encode']:.3f} ({card})")
+    if not same or n_tb != 8 or k12 != 80 or out["launches"]["demap"] or \
+            res != RRC_STAGES or k12_rrc <= 0 or k12_rrc % 10 or \
+            out["rrc_launches"]["demap"]:
+        raise AssertionError(f"[attach] card = CPU {same}, {n_tb} TBs, "
+                             f"{out}, {res}")
+    return {**out, "tb_ms": tb_ms}
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -2023,6 +2406,7 @@ def main() -> None:
                      ul_cell.alloc.scheme, dev)
     turbo_mimo = timed("check_turbo", check_turbo_mimo, dev)
     turbo_si = timed("check_turbo", check_turbo_si, dev)
+    turbo_attach = timed("check_turbo", check_turbo_attach, dev)
     kernels = [timed("check_demap", check_demap, "demap", dl_sgn,
                      cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
                timed("check_turbo", check_turbo, cell, dev),
@@ -2063,6 +2447,14 @@ def main() -> None:
           f"bound {turbo_si['bound_ms']:.6f} ms by {turbo_si['bound_by']} "
           f"({turbo_si['bytes'] / 1e3:.1f} kB, {turbo_si['ops'] / 1e6:.3f} M "
           f"operations) ({card})")
+    print(f"[kernel] turbo_half_iteration at the attach shapes C=1, K "
+          f"{ATTACH_K}, win 32: bit-exact vs plain; kernel at "
+          f"{turbo_attach['shape']} {turbo_attach['ms']:.4f} ms a call back "
+          f"to back, device time {_ms(turbo_attach['device_ms'])} "
+          f"(profiler), plain {turbo_attach['plain_ms']:.4f} ms, bound "
+          f"{turbo_attach['bound_ms']:.6f} ms by {turbo_attach['bound_by']} "
+          f"({turbo_attach['bytes'] / 1e3:.1f} kB, "
+          f"{turbo_attach['ops'] / 1e6:.3f} M operations) ({card})")
     print(f"[kernel] demap (UL shape) is also the MIMO decoders' launch: "
           f"(256, 14400) 64QAM, npad 14464, one a codeword ({card})")
     acs = kernels[-1]
@@ -2096,6 +2488,8 @@ def main() -> None:
     stream = timed("stream", run_stream, dev, card)
     iq_out = timed("iq", run_iq, dev, card)
     trace_out = timed("trace", run_trace, card)
+    ulctrl = timed("ulctrl", run_ulctrl, dev, card)
+    attach = timed("attach", run_attach, dev, card)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -2122,7 +2516,10 @@ def main() -> None:
                     ("iq_bf16", iq_out["launches"]["bf16"]),
                     ("iq_sc8", iq_out["launches"]["sc8"]),
                     ("iq_prefetch", iq_out["prefetch_launches"]),
-                    ("trace", trace_out["launches"])):
+                    ("trace", trace_out["launches"]),
+                    ("ulctrl", ulctrl["launches"]),
+                    ("attach", attach["launches"]),
+                    ("rrc_attach", attach["rrc_launches"])):
         for kernel in ("demap", "turbo_half_iteration"):
             by_path[kernel][name] = c[kernel]
     by_path["pss_corr_mag_bf16"] = {
@@ -2153,6 +2550,14 @@ def main() -> None:
         "turbo_si_shape": {key: turbo_si[key] for key in
                            ("shape", "ms", "device_ms", "plain_ms",
                             "bound_ms", "bound_by", "max_abs_err")},
+        "turbo_attach_shape": {key: turbo_attach[key] for key in
+                               ("shape", "ms", "device_ms", "plain_ms",
+                                "bound_ms", "bound_by", "max_abs_err")},
+        "ulctrl": {key: ulctrl[key] for key in
+                   ("bursts", "detect_ms", "detect_device_ms",
+                    "detect_kernels", "pucch_ok", "pucch_ms", "srs_ms")},
+        "attach": {key: attach[key] for key in
+                   ("card_wall_s", "cpu_wall_s", "rrc_wall_s", "tb_ms")},
         "si": {key: si_out[key] for key in
                ("wall_ms_per_channel", "first_wall_ms_per_channel",
                 "stages", "reads", "launches")},

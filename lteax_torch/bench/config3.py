@@ -109,7 +109,7 @@ def sfbc_loopback(device) -> dict:
     """Gate 3: -> {"n_cell_id", "n_ant", "mib", "sib1_tac", "sib2",
     "sib_crc_fails", "ok"}."""
     cell = LOOPBACK_CELL
-    cap = capture(cell, 0.04)
+    cap = capture(cell, 0.04, device=device)
     r = scan(cap.iq, CFG, device=device)
     out = {"n_cell_id": r.n_cell_id, "n_ant": r.n_ant,
            "mib": r.mib is not None and r.mib.n_rb_dl == N_RB,

@@ -153,11 +153,12 @@ def pdsch_encode_bits(tb_bits: np.ndarray, geom: PdschGeometry) -> np.ndarray:
 
 
 def pdsch_encode(tb_bits: np.ndarray, geom: PdschGeometry, rnti: int,
-                 subframe: int, n_cell_id: int, scheme: str) -> np.ndarray:
-    """TB payload (TBS,) -> (n_re,) modulated symbols in RE-mapping order
-    (codeword 0)."""
+                 subframe: int, n_cell_id: int, scheme: str,
+                 codeword: int = 0) -> np.ndarray:
+    """TB payload (TBS,) -> (n_re,) modulated symbols in RE-mapping order,
+    scrambled as codeword ``codeword``."""
     return pdsch_encode_cbs(pdsch_prepare_cbs(tb_bits, geom), geom, rnti,
-                            subframe, n_cell_id, scheme)
+                            subframe, n_cell_id, scheme, codeword)
 
 
 # -- decoder -------------------------------------------------------------------
@@ -197,24 +198,27 @@ def decode_codeword(llrs_scr: torch.Tensor, geom: PdschGeometry,
 
 def pdsch_decode_device(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,
                         subframe: int, n_cell_id: int,
-                        n_iter: int = SINGLE_SUBFRAME.n_iter):
-    """Descramble codeword 0, then :func:`decode_codeword`, on the LLRs'
-    device with no host read.  llrs (..., G) channel LLRs in codeword bit
-    order -> (tb_bits (..., TBS) int8, tb_ok (...,) bool, cb_oks (..., C)
-    bool)."""
+                        n_iter: int = SINGLE_SUBFRAME.n_iter,
+                        codeword: int = 0):
+    """Descramble codeword ``codeword``, then :func:`decode_codeword`, on
+    the LLRs' device with no host read.  llrs (..., G) channel LLRs in
+    codeword bit order -> (tb_bits (..., TBS) int8, tb_ok (...,) bool,
+    cb_oks (..., C) bool)."""
     sgn = torch.as_tensor(seq.scrambling_symbols_np(
-        seq.pdsch_c_init(rnti, subframe, n_cell_id, 0), geom.g),
+        seq.pdsch_c_init(rnti, subframe, n_cell_id, codeword), geom.g),
         device=llrs.device)
     return decode_codeword(llrs.to(torch.float32) * sgn, geom, n_iter)
 
 
 def pdsch_decode_llrs(llrs: torch.Tensor, geom: PdschGeometry, rnti: int,
-                      subframe: int, n_cell_id: int):
+                      subframe: int, n_cell_id: int,
+                      n_iter: int = SINGLE_SUBFRAME.n_iter,
+                      codeword: int = 0):
     """:func:`pdsch_decode_device` of one transport block's (G,) LLRs, its
     bits and CRC flags brought home in one read.  Returns (tb_bits (TBS,)
     int np.ndarray, crc_ok bool, cb_crc_oks (C,) bool np.ndarray)."""
     tb, ok, cb_oks = pdsch_decode_device(llrs, geom, rnti, subframe,
-                                         n_cell_id)
+                                         n_cell_id, n_iter, codeword)
     host = np.asarray(read(torch.cat([ok.reshape(1), cb_oks,
                                       tb.to(torch.bool)])), dtype=np.int64)
     c = cb_oks.shape[-1]

@@ -182,13 +182,14 @@ def _time_weights() -> np.ndarray:
 
 
 @lru_cache(maxsize=64)
-def _rx_plan(m_sc: int, subframe: int, n_cell_id: int,
+def _rx_plan(m_sc: int, subframe: int, n_cell_id: int, n_dmrs: int,
              device: torch.device):
     """The receiver's constants on ``device``, made once per geometry:
-    the conjugate DM-RS of both slots (2, m_sc), the denoiser's taps
-    (m_sc,) and the time weights (12, 1)."""
+    the conjugate DM-RS of both slots (2, m_sc) at cyclic shift
+    ``n_dmrs``, the denoiser's taps (m_sc,) and the time weights (12, 1)."""
     dmrs = np.stack([np.conj(dmrs_pusch(n_cell_id, 2 * subframe + slot,
-                                        m_sc)) for slot in range(2)])
+                                        m_sc, n_dmrs=n_dmrs))
+                     for slot in range(2)])
     return (torch.as_tensor(dmrs, device=device),
             torch.as_tensor(chest_taps(m_sc), device=device),
             torch.as_tensor(_time_weights(), device=device))
@@ -196,7 +197,7 @@ def _rx_plan(m_sc: int, subframe: int, n_cell_id: int,
 
 def _equalize_llrs(grid: torch.Tensor, scheme: str, m_sc: int,
                    subframe: int, n_cell_id: int, noise_var,
-                   denoise: bool) -> torch.Tensor:
+                   denoise: bool, n_dmrs: int = 0) -> torch.Tensor:
     """The reference's single-subframe receiver: grid (..., 14, m_sc)
     complex -> max-log LLRs (..., 12 * m_sc * Qm) in interleaved
     (time-first) bit order, not yet descrambled.
@@ -204,10 +205,11 @@ def _equalize_llrs(grid: torch.Tensor, scheme: str, m_sc: int,
     LS at the two DM-RS symbols (denoised in the delay domain when
     ``denoise``), linear time interpolation, MMSE, IDFT, the post-IDFT
     noise as the mean over each symbol's subcarriers.  ``noise_var=None``
-    estimates it per subframe from the DM-RS residual."""
+    estimates it per subframe from the DM-RS residual.  ``n_dmrs`` is the
+    DM-RS cyclic shift the UE was granted."""
     dev = grid.device
     grid = grid.to(torch.complex64)
-    dmrs, taps, w = _rx_plan(m_sc, subframe, n_cell_id, dev)
+    dmrs, taps, w = _rx_plan(m_sc, subframe, n_cell_id, n_dmrs, dev)
     ls = [grid[..., sym, :] * dmrs[slot] for slot, sym in enumerate(DMRS_SYMS)]
     if noise_var is None:
         nv = torch.clamp_min(torch.mean((ls[0] - ls[1]).abs() ** 2, dim=-1)
@@ -251,7 +253,7 @@ def _descramble(llr: torch.Tensor, rnti: int, subframe: int,
 
 def pusch_decode(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
                  subframe: int, n_cell_id: int,
-                 noise_var: float | None = None,
+                 noise_var: float | None = None, n_dmrs: int = 0,
                  n_iter: int = SINGLE_SUBFRAME.n_iter, denoise: bool = True):
     """(..., 14, m_sc) received SC-FDMA grids -> (tb_bits (..., TBS) int8,
     tb_ok (...,) bool, cb_oks (..., C) bool), on the grid's device with no
@@ -265,11 +267,13 @@ def pusch_decode(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
 
     ``noise_var=None`` (default) estimates the noise per subframe from the
     DM-RS residual (the two pilot symbols' raw LS difference is noise-only
-    under a subframe-static channel); a float pins a static prior."""
+    under a subframe-static channel); a float pins a static prior.
+    ``n_dmrs`` is the DM-RS cyclic shift of the grant."""
     geom = alloc.geom
     llr = _descramble(_equalize_llrs(grid, alloc.scheme, alloc.m_sc,
                                      subframe, n_cell_id, noise_var,
-                                     denoise), rnti, subframe, n_cell_id)
+                                     denoise, n_dmrs), rnti, subframe,
+                      n_cell_id)
     return decode_codeword(llr[..., _deinterleave_idx(geom.g, alloc.qm,
                                                       llr.device)],
                            geom, n_iter)
@@ -420,7 +424,8 @@ def _uci_ml_decode(llrs: torch.Tensor, n_bits: int) -> tuple[int, ...]:
 
 def pusch_decode_uci(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
                      subframe: int, n_cell_id: int, uci: PuschUci,
-                     noise_var: float = 1e-3):
+                     noise_var: float = 1e-3, n_dmrs: int = 0,
+                     n_iter: int = SINGLE_SUBFRAME.n_iter):
     """Receive one (14, m_sc) grid with UCI demultiplexing.
 
     Returns (tb (TBS,) int8, tb_ok () bool, cb_oks (C,) bool, ack_bits,
@@ -428,13 +433,14 @@ def pusch_decode_uci(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
     of ints from one read.  The receiver is the reference's: raw LS at the
     DM-RS (not denoised) and the static ``noise_var`` prior.  Punctured ACK
     positions are excluded from the data LLRs (the turbo code recovers the
-    punctured bits).  The turbo decoder runs at ``SINGLE_SUBFRAME``."""
+    punctured bits).  The turbo decoder runs at ``SINGLE_SUBFRAME`` with
+    ``n_iter`` full iterations; ``n_dmrs`` is the DM-RS cyclic shift."""
     geom = alloc_geom_uci(alloc, uci)
     q_ri = uci_q_prime(uci.n_ri, alloc, uci.beta_ri)
     q_ack = uci_q_prime(uci.n_ack, alloc, uci.beta_ack)
     llr = _descramble(_equalize_llrs(grid, alloc.scheme, alloc.m_sc,
                                      subframe, n_cell_id, noise_var,
-                                     denoise=False), rnti, subframe,
+                                     False, n_dmrs), rnti, subframe,
                       n_cell_id)
     inv, data_grp, ri_grp, ack_grp = _uci_plan(alloc.m_sc, alloc.qm, q_ri,
                                                q_ack, llr.device)
@@ -445,7 +451,8 @@ def pusch_decode_uci(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
     # data LLRs: fill-order groups, with punctured ACK groups zeroed
     if q_ack:
         mat = mat.index_fill(0, ack_grp, 0.0)
-    tb, ok, cb_oks = decode_codeword(mat[data_grp].reshape(-1), geom)
+    tb, ok, cb_oks = decode_codeword(mat[data_grp].reshape(-1), geom,
+                                     n_iter)
     got = read(torch.stack(hyps)) if hyps else []
     ack_bits = _hypothesis_bits(got.pop(0), uci.n_ack) if q_ack else ()
     ri_bits = _hypothesis_bits(got.pop(0), uci.n_ri) if q_ri else ()

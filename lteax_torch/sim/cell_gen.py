@@ -42,6 +42,7 @@ from lteax_torch.phy.grid import (crs_flat_idx, crs_symbols, pbch_flat_idx,
                                   pdsch_flat_idx, pss_sym, sss_sym, sync_sc)
 from lteax_torch.phy.ofdm import subframe_to_samples
 from lteax_torch.phy.tables.tbs import tbs_1a
+from lteax_torch.pipeline import _resolve_device
 from lteax_torch.sim.channel import awgn
 from lteax_torch.stack import rrc
 
@@ -258,10 +259,12 @@ def build_subframe_grid(cell: Cell, sfn: int, sf: int,
 
 
 def generate(cell: Cell, n_subframes: int, sfn0: int = 0,
-             device="cpu") -> np.ndarray:
+             device=None) -> np.ndarray:
     """-> (n_subframes * n_samps_subframe,) complex64 baseband starting at
     subframe 0 of frame ``sfn0``, broadcasting ``cell``'s SI.  The grids
-    are built on the host and OFDM-modulated on ``device``."""
+    are built on the host and OFDM-modulated on ``device`` (default: the
+    current CUDA device; without one this raises unless ``device="cpu"``)."""
+    device = _resolve_device(device)
     cfg = cell.cfg
     si = si_bits(cell)
     grids, quarters = [], {}
@@ -294,18 +297,22 @@ class Capture:
 def capture(cell: Cell, duration_s: float, *, sfn0: int = 0,
             offset: int = 0, cfo_hz: float = 0.0,
             snr_db: float | None = None, rate_hz: float | None = None,
-            seed: int = 0) -> Capture:
+            seed: int = 0, device=None) -> Capture:
     """A capture of ``duration_s`` seconds that starts ``offset`` native
-    samples after the start of frame ``sfn0`` (0 <= offset < one frame).
+    samples after the start of frame ``sfn0`` (0 <= offset < one frame),
+    generated on ``device`` as :func:`generate` (the card unless the
+    caller passes ``device="cpu"``).
 
     Impairments, in order: CFO, then AWGN at ``snr_db`` per resource
     element (unit-power REs, orthonormal OFDM), then resampling to
-    ``rate_hz`` (default: native) by the port's polyphase resampler."""
+    ``rate_hz`` (default: native) by the port's polyphase resampler on
+    the host."""
     cfg = cell.cfg
     nsf = cfg.n_samps_subframe
     n_native = int(math.ceil(duration_s * cfg.fs))
     n_sf = -(-(offset + n_native) // nsf) + 2    # + resampler margin
-    x = generate(cell, n_sf, sfn0)[offset:offset + n_native + 2 * nsf]
+    x = generate(cell, n_sf, sfn0, device)[offset:offset + n_native
+                                           + 2 * nsf]
     if cfo_hz:
         n = np.arange(len(x))
         x = (x * np.exp(2j * np.pi * cfo_hz * n / cfg.fs)).astype(np.complex64)

@@ -94,12 +94,13 @@ def pusch_encode_cbs_uci(cbs: np.ndarray, alloc: pusch.PuschAlloc, rnti: int,
 
 
 def pusch_add_dmrs(grid: np.ndarray, alloc: pusch.PuschAlloc, n_cell_id: int,
-                   subframe: int) -> np.ndarray:
-    """Fill the DM-RS symbols (3, 10) of (..., 14, m_sc) grids."""
+                   subframe: int, n_dmrs: int = 0) -> np.ndarray:
+    """Fill the DM-RS symbols (3, 10) of (..., 14, m_sc) grids at cyclic
+    shift ``n_dmrs``."""
     g = np.array(grid)
     for slot, sym in enumerate(pusch.DMRS_SYMS):
         g[..., sym, :] = pusch.dmrs_pusch(n_cell_id, 2 * subframe + slot,
-                                          alloc.m_sc)
+                                          alloc.m_sc, n_dmrs=n_dmrs)
     return g
 
 

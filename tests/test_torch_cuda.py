@@ -281,7 +281,8 @@ def test_scan_on_card_matches_cpu(dev):
     from lteax_torch.apps.file_scan import scan
     from lteax_torch.sim.cell_gen import Cell, capture
     cap = capture(Cell(n_rb_dl=6, n_cell_id=333, n_ant=2), 0.03, sfn0=9,
-                  offset=100, cfo_hz=700.0, snr_db=10.0, seed=2)
+                  offset=100, cfo_hz=700.0, snr_db=10.0, seed=2,
+                  device=dev)
     cfg = PhyConfig(n_rb_dl=6)
     g = scan(torch.from_numpy(cap.iq).to(dev), cfg, max_si_subframes=0)
     c = scan(torch.from_numpy(cap.iq), cfg, max_si_subframes=0)
@@ -303,7 +304,7 @@ def test_si_scan_on_card_matches_cpu(dev):
     cell = Cell(n_rb_dl=6, n_cell_id=333, n_ant=2, si_dci="1c",
                 paging_tmsi=(0x42,))
     cap = capture(cell, 0.04, sfn0=9, offset=100, cfo_hz=700.0, snr_db=15.0,
-                  seed=2)
+                  seed=2, device=dev)
     cfg = PhyConfig(n_rb_dl=6)
     g = scan(torch.from_numpy(cap.iq).to(dev), cfg)
     c = scan(torch.from_numpy(cap.iq), cfg)

@@ -1,6 +1,8 @@
-"""The PyTorch port loads no jax and nothing of the ``lteax`` package (not
+"""The PyTorch port loads no jax, nothing of the ``lteax`` package (not
 even its jax-free modules or its native library: the port keeps its own
-copies), its decoders and CLIs run on the card unless asked for the CPU, a
+copies) and no ``cryptography`` (the card's machine has none: the port has
+its own AES), its decoders, generators, simulators and CLIs run on the
+card unless asked for the CPU, a
 failed native build raises, and chip_smoke.py refuses to run without the
 port or without a CUDA device (no CPU fallback, no result printed)."""
 
@@ -26,7 +28,7 @@ def _run(code: str, cwd=REPO, env=None):
 
 
 _FOREIGN = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'lteax'))\n"
+            " ('jax', 'jaxlib', 'lteax', 'cryptography'))\n"
             "assert not bad, bad\n")
 
 
@@ -38,11 +40,15 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 80, mods\n"
+        "assert len(mods) >= 95, mods\n"
         "for m in ('phy.channels.phich', 'phy.channels.pucch',"
         " 'bench.ul_throughput', 'bench.snr_sweep', 'bench.config3',"
         " 'sim.ctrl_gen', 'apps.file_gen', 'apps.ctrl', 'apps.stream_scan',"
-        " 'apps.recorder', 'io.native', 'utils.trace'):\n"
+        " 'apps.recorder', 'io.native', 'utils.trace', 'phy.channels.prach',"
+        " 'phy.channels.srs', 'phy.tables.prach_roots', 'stack.security',"
+        " 'stack.snow3g', 'stack.nas', 'stack.rrc_proc', 'stack.rrc_meas',"
+        " 'stack.rlc_am', 'stack.rlc_um', 'stack.users', 'io.pcap',"
+        " 'apps.attach_sim', 'apps.rrc_attach_sim'):\n"
         "    assert 'lteax_torch.' + m in mods, m\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
@@ -58,7 +64,8 @@ def test_chip_smoke_imports_no_jax():
 
 def test_no_import_statement_names_lteax_or_jax():
     """No source line of the port or of chip_smoke.py imports them."""
-    pat = re.compile(r"^\s*(from|import)\s+(lteax|jax|jaxlib)(\.|\s|$)")
+    pat = re.compile(r"^\s*(from|import)\s+(lteax|jax|jaxlib|cryptography)"
+                     r"(\.|\s|$)")
     files = [*sorted((REPO / "lteax_torch").rglob("*.py")),
              REPO / "chip_smoke.py"]
     assert len(files) >= 40
@@ -114,7 +121,8 @@ def test_scan_needs_a_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = PhyConfig(n_rb_dl=6)
-    iq = capture(Cell(n_rb_dl=6, n_cell_id=137), 0.012, offset=300).iq
+    iq = capture(Cell(n_rb_dl=6, n_cell_id=137), 0.012, offset=300,
+                 device="cpu").iq
     with pytest.raises(RuntimeError, match="no CUDA device"):
         scan(iq, cfg, max_si_subframes=0)
     on_cpu = scan(iq, cfg, max_si_subframes=0, device="cpu")
@@ -123,14 +131,94 @@ def test_scan_needs_a_card_unless_asked_for_the_cpu():
     assert (got.n_cell_id, got.mib) == (on_cpu.n_cell_id, on_cpu.mib)
 
 
+def test_generator_needs_a_card_unless_asked_for_the_cpu():
+    """``cell_gen.generate`` and ``capture`` modulate on the current CUDA
+    device: without one they raise unless the caller passes
+    ``device="cpu"``."""
+    import torch
+    from lteax_torch.sim.cell_gen import Cell, capture, generate
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cell = Cell(n_rb_dl=6, n_cell_id=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cell, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        capture(cell, 0.002)
+    x = generate(cell, 1, device="cpu")
+    assert x.shape == (cell.cfg.n_samps_subframe,) and x.dtype == "complex64"
+    assert capture(cell, 0.002, device="cpu").iq.shape == (3840,)
+
+
+def _ulctrl_receivers():
+    """(name, call(x, device), input array) for each UL control receiver
+    that takes the reference's numpy input."""
+    import numpy as np
+    from lteax_torch.phy.channels import prach, pucch, srs
+    grid = np.zeros((14, 6 * 12), np.complex64)
+    wide = np.zeros((14, 25 * 12), np.complex64)
+    res = np.zeros((2, 7, 12), np.complex64)
+    return [
+        ("detect_prach", lambda x, d: prach.detect_prach(x, 129, 13,
+                                                         device=d),
+         np.zeros(24576, np.complex64)),
+        ("pucch_format1_decode", lambda x, d: pucch.pucch_format1_decode(
+            x, 5, 0, device=d), res),
+        ("rm20_decode", lambda x, d: pucch.rm20_decode(x, 5, device=d),
+         np.ones(20, np.float32)),
+        ("pucch_format2_decode", lambda x, d: pucch.pucch_format2_decode(
+            x, 5, 0, 0x46, 5, device=d), res),
+        ("pucch_format2ab_decode", lambda x, d:
+         pucch.pucch_format2ab_decode(x, 5, 0, 0x46, 5, 1, device=d), res),
+        ("pucch_extract", lambda x, d: pucch.pucch_extract(x, 0, 6,
+                                                           device=d), grid),
+        ("pucch_present", lambda x, d: pucch.pucch_present(x, 0, 6,
+                                                           device=d), grid),
+        ("srs_detect", lambda x, d: srs.srs_detect(x, 25, 5, 16, device=d),
+         wide),
+        ("srs_estimate_channel", lambda x, d: srs.srs_estimate_channel(
+            x, 25, 5, 16, device=d), wide),
+    ]
+
+
+@pytest.mark.parametrize("i", range(9))
+def test_ulctrl_receivers_need_a_card_unless_asked_for_the_cpu(i):
+    """The PRACH, PUCCH and SRS receivers take the reference's numpy input
+    onto the current CUDA device: without one they raise unless the caller
+    passes ``device="cpu"``; a torch tensor is decoded on its own device."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    name, call, x = _ulctrl_receivers()[i]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(x, None)
+    call(x, "cpu")
+    call(torch.from_numpy(x), None)
+
+
+@pytest.mark.parametrize("app", ["attach_sim", "rrc_attach_sim"])
+def test_simulators_need_a_card_unless_asked_for_the_cpu(app):
+    """``run`` raises without a CUDA device before it does any work unless
+    the caller passes ``device="cpu"`` (``tests/test_torch_attach.py``
+    runs both on the CPU)."""
+    import importlib
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"lteax_torch.apps.{app}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.run(verbose=False)
+
+
 @pytest.mark.parametrize("cli", ["file_gen", "file_scan", "stream_scan",
                                  "dl_throughput", "ul_throughput",
-                                 "mimo_throughput"])
+                                 "mimo_throughput", "attach_sim",
+                                 "rrc_attach_sim"])
 def test_clis_need_a_card_unless_asked_for_the_cpu(cli, tmp_path):
     """Each new CLI, and each bench CLI, raises without a CUDA device
     unless ``--device cpu``, before it does any work."""
     import torch
-    from lteax_torch.apps import file_gen, file_scan, stream_scan
+    from lteax_torch.apps import (attach_sim, file_gen, file_scan,
+                                  rrc_attach_sim, stream_scan)
     from lteax_torch.bench import (dl_throughput, mimo_throughput,
                                    ul_throughput)
     if torch.cuda.is_available():
@@ -146,11 +234,14 @@ def test_clis_need_a_card_unless_asked_for_the_cpu(cli, tmp_path):
         "dl_throughput": (dl_throughput.main, ["--batch", "1"]),
         "ul_throughput": (ul_throughput.main, ["--batch", "1"]),
         "mimo_throughput": (mimo_throughput.main, ["--batch", "1"]),
+        "attach_sim": (attach_sim.main, []),
+        "rrc_attach_sim": (rrc_attach_sim.main, []),
     }[cli]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
     assert not (tmp_path / "x.fc32").exists()
-    if cli in ("file_gen", "file_scan", "stream_scan"):
+    if cli in ("file_gen", "file_scan", "stream_scan", "attach_sim",
+               "rrc_attach_sim"):
         main([*argv, "--device", "cpu"])
 
 

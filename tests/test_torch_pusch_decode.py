@@ -207,3 +207,31 @@ def test_one_prb_base_sequences_and_decode():
     bits_b, ok_b, _ = dec(iq)
     assert ok_b.all()
     np.testing.assert_array_equal(bits_b.numpy(), tb)
+
+
+def test_dmrs_cyclic_shift_and_iterations_as_the_reference():
+    """``n_dmrs=3`` (the grant's DM-RS cyclic shift) and ``n_iter=5``, the
+    reference's arguments: the generator's DM-RS as the reference's, the
+    decode's flags and bits as the reference's, and the shift honoured (a
+    receiver at shift 0 loses the block)."""
+    alloc = pusch.PuschAlloc(6, 0, 712, 2)
+    alloc_r = pusch_ref.PuschAlloc(6, 0, 712, 2)
+    rng = np.random.default_rng(21)
+    tb = rng.integers(0, 2, (1, alloc.mcs_tbs)).astype(np.int32)
+    g = ul_gen.pusch_encode_cbs(pdsch_prepare_cbs(tb[0], alloc.geom)[None],
+                                alloc, RNTI, SF, CID)
+    g = ul_gen.pusch_add_dmrs(g, alloc, CID, SF, n_dmrs=3)
+    ref_dmrs = pusch_ref.pusch_add_dmrs(g[0], alloc_r, CID, SF, n_dmrs=3)
+    np.testing.assert_array_equal(g[0], ref_dmrs)
+    g = (g + 0.05 * (rng.standard_normal(g.shape)
+                     + 1j * rng.standard_normal(g.shape))).astype(
+                         np.complex64)
+    got = pusch.pusch_decode(torch.from_numpy(g[0]), alloc, RNTI, SF, CID,
+                             n_dmrs=3, n_iter=5)
+    ref = jax.jit(lambda x: pusch_ref.pusch_decode(
+        x, alloc_r, RNTI, SF, CID, n_dmrs=3, n_iter=5))(jnp.asarray(g[0]))
+    assert bool(got[1]) and bool(ref[1])
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(got[0].numpy(), tb[0])
+    assert not bool(pusch.pusch_decode(torch.from_numpy(g[0]), alloc, RNTI,
+                                       SF, CID, n_iter=5)[1])

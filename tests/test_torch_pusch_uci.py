@@ -137,3 +137,29 @@ def test_encoder_and_decode_match_the_reference(case):
             assert (ack_p, ri_p) == (ack, ri)
         oks.append(bool(ok_p))
     assert oks == [True, False]                 # clean, then a failing block
+
+
+def test_dmrs_cyclic_shift_and_iterations_as_the_reference():
+    """``pusch_decode_uci(..., n_dmrs=3, n_iter=5)``, the reference's
+    arguments, on a clean 6-PRB subframe: flags, bits, ACK and RI as the
+    reference's and as sent."""
+    alloc, alloc_r = _allocs(6, 2, 712)
+    uci, uci_r = _ucis(n_ack=2, n_ri=1)
+    rng = np.random.default_rng(4)
+    geom = pusch.alloc_geom_uci(alloc, uci)
+    tb = rng.integers(0, 2, alloc.mcs_tbs).astype(np.int32)
+    g = ul_gen.pusch_encode_cbs_uci(pdsch_prepare_cbs(tb, geom), alloc, RNTI,
+                                    SF, CID, uci, (1, 1), (0,))
+    g = ul_gen.pusch_add_dmrs(g, alloc, CID, SF, n_dmrs=3)
+    g = (g + 0.05 * (rng.standard_normal(g.shape)
+                     + 1j * rng.standard_normal(g.shape))).astype(
+                         np.complex64)
+    tb_p, ok_p, cb_p, ack_p, ri_p = pusch.pusch_decode_uci(
+        torch.from_numpy(g), alloc, RNTI, SF, CID, uci, n_dmrs=3, n_iter=5)
+    tb_r, ok_r, cb_r, ack_r, ri_r = pusch_ref.pusch_decode_uci(
+        jnp.asarray(g), alloc_r, RNTI, SF, CID, uci_r, n_dmrs=3, n_iter=5)
+    assert bool(ok_p) and bool(ok_r)
+    np.testing.assert_array_equal(cb_p.numpy(), np.asarray(cb_r))
+    np.testing.assert_array_equal(tb_p.numpy(), np.asarray(tb_r))
+    np.testing.assert_array_equal(tb_p.numpy(), tb)
+    assert (ack_p, ri_p) == (ack_r, ri_r) == ((1, 1), (0,))

@@ -175,7 +175,8 @@ def test_scan_without_si_stops_at_the_mib():
     """``max_si_subframes=0`` on an SI-bearing capture: the MIB-level
     report, in the 4 reads of stages 1-5."""
     cell = cell_gen.Cell(n_rb_dl=6, n_cell_id=9, n_ant=1)
-    cap = cell_gen.capture(cell, 0.03, sfn0=2, offset=300, snr_db=20.0)
+    cap = cell_gen.capture(cell, 0.03, sfn0=2, offset=300, snr_db=20.0,
+                           device="cpu")
     host.READS = 0
     res = fs.scan(torch.from_numpy(cap.iq), CFG, max_si_subframes=0)
     assert host.READS == 4
@@ -192,7 +193,8 @@ def test_cell_gen_capture_scans_si(n_ant, si_dci):
                          cfi=3 if n_ant == 4 else 2, si_dci=si_dci,
                          paging_tmsi=tmsi, tac=0x2BCD)
     cap = cell_gen.capture(cell, 0.04, sfn0=101, offset=4000,
-                           cfo_hz=1500.0, snr_db=15.0, rate_hz=2.4e6, seed=4)
+                           cfo_hz=1500.0, snr_db=15.0, rate_hz=2.4e6, seed=4,
+                           device="cpu")
     res = fs.scan(resample_poly(torch.from_numpy(cap.iq), 4, 5), CFG)
     assert (res.n_cell_id, res.n_ant, res.sfn) == (61, n_ant, cap.sfn)
     assert dataclasses.asdict(res.sib1) == dataclasses.asdict(cell.sib1())
@@ -208,7 +210,7 @@ def test_cell_gen_capture_scans():
                          phich_resource=0.5, cfi=3)
     cap = cell_gen.capture(cell, 0.025, sfn0=1021, offset=5000,
                            cfo_hz=-3000.0, snr_db=12.0, rate_hz=2.4e6,
-                           seed=1)
+                           seed=1, device="cpu")
     assert cap.iq.shape == (60000,) and cap.sfn == 1022
     res = fs.scan(resample_poly(torch.from_numpy(cap.iq), 4, 5), CFG,
                   max_si_subframes=0)

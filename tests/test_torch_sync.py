@@ -119,7 +119,7 @@ def test_detect_plain_equals_full_reductions():
 def cfo_capture():
     cell = Cell(n_rb_dl=6, n_cell_id=137, n_ant=2)
     return capture(cell, 0.03, sfn0=3, offset=777, cfo_hz=-2100.0,
-                   snr_db=15.0, seed=4).iq
+                   snr_db=15.0, seed=4, device="cpu").iq
 
 
 def test_coarse_timing_and_cfo(cfo_capture):

@@ -48,7 +48,8 @@ def test_wall_timer_as_the_reference():
 
 
 def test_scanner_stages_are_ranges(tmp_path):
-    cap = capture(Cell(n_rb_dl=6, n_cell_id=21), 0.012, offset=100)
+    cap = capture(Cell(n_rb_dl=6, n_cell_id=21), 0.012, offset=100,
+                  device="cpu")
     path = str(tmp_path / "c.fc32")
     write_iq(path, cap.iq)
     before = scanner.STAGE_SECONDS["scan"]
