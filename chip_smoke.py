@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-twenty paths, each with the launch counters set to 0 just before it and
-read just after:
+twenty-two paths, each with the launch counters set to 0 just before it
+and read just after:
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
    ``bench.py`` headline configuration (20 MHz, 100 PRB, MCS 28, TBS 75376,
@@ -18,7 +18,8 @@ read just after:
    ``lteax_torch.apps.scanner.scan_channels(..., prescan=True)`` at 20 MHz:
    16 captures of 20 ms at 20 Msps from ``lteax_torch.sim.cell_gen``
    (seed 0), 12 live cells and 4 dead channels, resampled 192/125 to
-   30.72 Msps; every live cell must report the cell id, antenna count and
+   30.72 Msps (the captures are made at 20 Msps by the resampler kernel on
+   the card, one launch a live capture); every live cell must report the cell id, antenna count and
    MIB it was made with and the SIB its first subframe 5 carries (SIB1 in
    an even frame, SIB2 in an odd one) with no SI CRC failure, every dead
    channel none; one capture's scan on the card must match its scan on the
@@ -133,6 +134,26 @@ read just after:
     ``apps.rrc_attach_sim.run`` on the card (RRC attach, AS security, user
     plane, handover with the target cell's dedicated RACH); ms per
     ``_dl_sch`` / ``_ul_sch`` transport block.
+21. The eNB (``[enb]``) at 20 MHz (100 PRB) through ``apps.enb_sim`` and
+    ``apps.enb_service`` on the card, then on the CPU with the same
+    inputs: the traffic of the reference's two-UE user plane test (two
+    frames), and its UL control loop (SR, DCI 0, PUSCH, HARQ ACK / NACK on
+    PUCCH formats 1 and 2a, CQI on 2 and 2a, the PHICH's HI), what each
+    side decoded equal (SDUs, STATUS PDUs, HARQ bits, decisions, HI);
+    the traffic of the reference's lost-subframe test (1 UE) and of its
+    two-UE user plane test timed a TTI, by stage, with host reads, K1/K2
+    launches (K3 asserted 0) and the device's busy share over the same
+    20 TTIs (profiled again); ``EnbService`` at
+    bandwidth 100 over its ctrl socket (add_user, start, add_ue, step to
+    connected, ping, detach_ue), its replies and the UE's SDUs equal to the
+    CPU run's, its IQ scanned back by ``file_scan.scan`` to its cell, MIB
+    and SIB1; the two-cell handover over the TTI loop (the reference's
+    ``test_handover_sim.py``, 1 UE with UL and DL each TTI), timed a
+    TTI.
+22. The HARQ bench CLI (``[harq-bench]``): ``lteax_torch.bench.
+    harq_throughput`` at its defaults (B=384, 25 dB, bf16 IQ), its JSON
+    line, every block decoded by both decoders, its overhead ratio beside
+    ``[harq]``'s.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -166,7 +187,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import lteax_torch.apps.file_scan as file_scan
 import lteax_torch.apps.scanner as scanner
-from lteax_torch.apps import attach_sim, file_gen, recorder, rrc_attach_sim
+from lteax_torch.apps import (attach_sim, enb_service, enb_sim, file_gen,
+                              recorder, rrc_attach_sim)
 from lteax_torch.apps.stream_scan import StreamScanService
 import lteax_torch.kernels.acs_probe as acs_mod
 import lteax_torch.kernels.demap as demap_mod
@@ -176,8 +198,8 @@ import lteax_torch.kernels.turbo_mlm as turbo_mod
 import lteax_torch.phy.sync as sync
 from lteax_torch import host
 from lteax_torch.bench import (acs_probe, config3, dl_throughput,
-                               resample_bench, scan_throughput, snr_sweep,
-                               ul_throughput)
+                               harq_throughput, resample_bench,
+                               scan_throughput, snr_sweep, ul_throughput)
 from lteax_torch.bench.timing import (IQ_FORMATS, card_line, stage_iq,
                                       time_decode)
 from lteax_torch.io import native
@@ -204,7 +226,10 @@ from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
 from lteax_torch.sim import ul_gen
 from lteax_torch.sim.ul_gen import UlCell, ul_subframes
-from lteax_torch.stack import rrc
+from lteax_torch.stack import rrc, security
+from lteax_torch.stack.rrc_dedicated import MeasResultEutra
+from lteax_torch.stack.rrc_proc import EnbRrc, UeRrc
+from lteax_torch.stack.users import Hss, UserManager
 
 BATCH = 256
 SNR_DB = 25.0
@@ -295,6 +320,17 @@ ATTACH_STAGES = {"prach": True, "rar": True, "rrc_request": True,
 RRC_STAGES = {"rach": True, "as_security": True, "attach": True,
               "user_plane": True, "handover": True}
 
+ENB_N_RB = 100             # [enb]: 20 MHz
+ENB_CID = 77               # the reference tests' cell
+ENB_SVC_CID = 133          # the service's cell (its IQ is scanned back)
+ENB_K = (bytes(range(32)), bytes(range(1, 33)))   # the UEs' K_eNB
+ENB_IMSI = "001011234567890"
+ENB_K_HEX = "465b5ce8b199b49faa5f0a2ee238a6bc"
+ENB_OPC_HEX = "cd63cb71954a9f4e48a5994e37a02baf"
+ENB_GRID_TOL = 0.0         # the DL grids are built on the host: equal
+ENB_IQ_TOL = 1e-5          # the service's IQ: cuFFT vs the CPU's FFT
+ENB_HO_N_RB = 100          # the handover's bandwidth
+
 SOURCES = {
     "demap": ("lteax_torch/kernels/csrc/demap.cu",
               "lteax/kernels/demap.py:68"),
@@ -334,21 +370,23 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
 def device_ms(fn, reps: int, kernel: str | None = None,
               count: bool = False):
     """Mean device time of the kernels whose name holds ``kernel`` (None:
-    every kernel, the device's events only, as an operator's own time
-    would count its kernels twice) in one call of ``fn``, from
-    ``torch.profiler`` over ``reps`` calls (CUDA events around
+    every kernel and copy) in one call of ``fn``, from ``torch.profiler``
+    over ``reps`` calls of the device's activity alone (CUDA events around
     back-to-back calls of a tiny launch measure the host's launch rate
-    instead); None when the profiler sees no such kernel.  With ``count``
-    -> (that time, the number of those kernels a call)."""
+    instead); None when the profiler sees no such kernel.  The ranges of
+    ``record_function`` annotations (``utils.trace.stage``) show on the
+    device's timeline too and are left out: they span kernels, not add to
+    them.  With ``count`` -> (that time, the number of those kernels a
+    call)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if (e.device_type == DeviceType.CUDA if kernel is None
-                  else kernel in e.key)]
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation
+              and (kernel is None or kernel in e.key)]
     us = sum(e.self_device_time_total for e in events)
     ms = us / reps / 1e3 if us > 0 else None
     return (ms, sum(e.count for e in events) / reps) if count else ms
@@ -841,9 +879,16 @@ def run_scanner(dev, card: str) -> dict:
     launch counts, and each must report the cells that were sent.  Then
     the f32 correlator through ``find_pss`` on one capture."""
     t0 = time.perf_counter()
+    poly_mod.LAUNCHES = 0
     chans, caps = scanner_captures()
+    gen_k6 = poly_mod.LAUNCHES
     print(f"[scan-gen] {len(chans)} captures of {SCAN_S * 1e3:.0f} ms at "
-          f"{SDR_RATE / 1e6:.0f} Msps: {time.perf_counter() - t0:.2f} s")
+          f"{SDR_RATE / 1e6:.0f} Msps: {time.perf_counter() - t0:.2f} s; "
+          f"resample_poly launches {gen_k6} (one a live capture, resampled "
+          f"on the card)")
+    if gen_k6 != N_LIVE:
+        raise AssertionError(f"the scanner's captures launched "
+                             f"resample_poly {gen_k6} times, not {N_LIVE}")
     runs = [scan_counted(tag, chans, caps, dev, card)
             for tag in ("first", "second")]
     f32 = find_pss_f32(chans[0], dev)
@@ -857,7 +902,7 @@ def run_scanner(dev, card: str) -> dict:
             "demap_launches": runs[1]["demap_launches"],
             "first_wall_s": runs[0]["wall_s"],
             "find_pss_f32_idx_moved": f32["idx_moved"], "cpu_vs_card": diffs,
-            "si_cost": si}
+            "si_cost": si, "capture_launches": gen_k6}
 
 
 def scan_counted(tag: str, chans: list, caps: list, dev, card: str,
@@ -1283,9 +1328,15 @@ def run_si(dev, card: str) -> dict:
     paging channel's report on the card equal to its report on the CPU in
     every integer field, the MIB, the SIBs and paging."""
     t0 = time.perf_counter()
+    poly_mod.LAUNCHES = 0
     chans, caps = si_captures()
+    gen_k6 = poly_mod.LAUNCHES
     print(f"[si-gen] {len(chans)} captures of {SI_S * 1e3:.0f} ms at 20 MHz:"
-          f" {time.perf_counter() - t0:.2f} s")
+          f" {time.perf_counter() - t0:.2f} s; resample_poly launches "
+          f"{gen_k6} (the 20 Msps capture, resampled on the card)")
+    if gen_k6 != 1:
+        raise AssertionError(f"the SI captures launched resample_poly "
+                             f"{gen_k6} times, not once")
     runs = [scan_counted(tag, chans, caps, dev, card, all_si=True)
             for tag in ("first", "second")]
     run = runs[1]
@@ -1314,7 +1365,8 @@ def run_si(dev, card: str) -> dict:
             "stages": run["stages"], "reads": run["reads"],
             "launches": {**run["launches"],
                          "turbo_half_iteration": run["turbo_launches"],
-                         "demap": run["demap_launches"]}}
+                         "demap": run["demap_launches"]},
+            "capture_launches": gen_k6}
 
 
 def run_dl_wrap(dev, card: str) -> dict:
@@ -2361,6 +2413,530 @@ def run_attach(dev, card: str) -> dict:
     return {**out, "tb_ms": tb_ms}
 
 
+ENB_CFG = PhyConfig(n_rb_dl=ENB_N_RB)
+
+
+def _enb_gc(n_rb: int = ENB_N_RB, cid: int = ENB_CID):
+    return file_gen.GenConfig(n_rb_dl=n_rb, n_cell_id=cid)
+
+
+def _tti_log() -> dict:
+    return {"times": [], "reads": [], "turbo": [], "demap": []}
+
+
+@contextlib.contextmanager
+def tti_timed(log: dict, dev):
+    """One TTI of a sim on ``dev``: its host seconds (the device
+    synchronised at its end), host reads and K1/K2 and K3 launches are
+    added to ``log`` (``_tti_log()``)."""
+    r0, k0, d0 = host.READS, turbo_mod.LAUNCHES, demap_mod.LAUNCHES
+    t0 = time.perf_counter()
+    yield
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log["times"].append(time.perf_counter() - t0)
+    log["reads"].append(host.READS - r0)
+    log["turbo"].append(turbo_mod.LAUNCHES - k0)
+    log["demap"].append(demap_mod.LAUNCHES - d0)
+
+
+def enb_user_plane(dev) -> dict:
+    """The traffic of the reference's ``test_two_ue_user_plane`` at 100
+    PRB on ``dev``: two UEs over two frames; every grid, each receive's
+    STATUS PDU, HARQ bit and SDU count, what each UE decoded, and each
+    TTI's times, reads and launches and the stages' host seconds."""
+    gc = _enb_gc()
+    enb = enb_sim.EnbSim(gc, device=dev)
+    ues = {}
+    for rnti, k in zip((0x100, 0x200), ENB_K):
+        enb.add_ue(rnti, k)
+        ues[rnti] = enb_sim.UeSim(gc, rnti, k, device=dev)
+    enb.send_rrc(0x100, b"rrc-reconfig-ue1")
+    enb.send_data(0x100, b"ip-ue1-a")
+    enb.send_data(0x100, b"ip-ue1-b")
+    enb.send_data(0x200, b"ip-ue2")
+    grids, rx, log = [], [], _tti_log()
+    enb_sim.STAGE_SECONDS.clear()
+    for sfn in range(2):
+        for sf in range(10):
+            with tti_timed(log, dev):
+                grid = enb.tti_grid(sfn, sf)
+                grids.append(grid)
+                for rnti, ue in ues.items():
+                    status = ue.handle_grid(grid, sf)
+                    rx.append((sfn, sf, rnti, status, ue.pending_ack,
+                               len(ue.data_sdus)))
+                    if status is not None:
+                        enb.handle_status(rnti, status)
+    return {"grids": grids, "rx": rx,
+            "sdus": {r: (ue.rrc_sdus, ue.data_sdus) for r, ue in ues.items()},
+            "all_acked": enb.ues[0x100].srb_tx.all_acked, "tti": log,
+            "stages": dict(enb_sim.STAGE_SECONDS)}
+
+
+def enb_lost_subframe(dev) -> dict:
+    """The traffic of the reference's ``test_srb_survives_lost_subframe``
+    at 100 PRB on ``dev``: one UE, one SRB SDU whose first transmission's
+    grid (0, 1) never reaches the UE, then RLC AM's poll retransmit and
+    frame 0 again.  -> whether it arrived only after the retransmit, and
+    each TTI's times, reads and launches and the stages' host seconds."""
+    gc = _enb_gc()
+    enb = enb_sim.EnbSim(gc, device=dev)
+    enb.add_ue(0x100, ENB_K[0])
+    ue = enb_sim.UeSim(gc, 0x100, ENB_K[0], device=dev)
+    enb.send_rrc(0x100, b"must-arrive")
+    log, before = _tti_log(), None
+    enb_sim.STAGE_SECONDS.clear()
+    for run in range(2):
+        if run:
+            before = list(ue.rrc_sdus)
+            enb.ues[0x100].srb_tx.poll_retransmit()
+        for sf in range(10):
+            with tti_timed(log, dev):
+                grid = enb.tti_grid(0, sf)
+                if (run, sf) != (0, 1):
+                    status = ue.handle_grid(grid, sf)
+                    if status is not None:
+                        enb.handle_status(0x100, status)
+    return {"tti": log, "stages": dict(enb_sim.STAGE_SECONDS),
+            "right": before == [] and ue.rrc_sdus == [b"must-arrive"]}
+
+
+def enb_uplink(dev) -> list:
+    """The UL control loop of ``tests/test_torch_enb_sim.py`` at 100 PRB on
+    ``dev``: SR, the DCI 0 grant decoded (with the CRS CQI), PUSCH with a
+    NACK on format 1, the HI read on the next DL grid, ACK + CQI on format
+    2a, CQI on format 2, ACK on format 1, NACK + CQI on format 2a; after
+    each step the eNB's decisions (SR set, HARQ copies, queue, UL SDUs,
+    pending HI bits, CQI-capped MCS) and the UE's PHICH read."""
+    gc = _enb_gc()
+    enb = enb_sim.EnbSim(gc, device=dev)
+    enb.add_ue(0x100, ENB_K[0], cqi_mcs=9)
+    ue = enb_sim.UeSim(gc, 0x100, ENB_K[0], standing_grant=False,
+                       cqi_period=1, device=dev)
+    steps = []
+
+    def state():
+        return (sorted(enb._sr_pending), dict(enb._last_dl),
+                list(enb.sched.ues[0x100].queue),
+                list(enb.ues[0x100].ul_sdus), dict(enb._pending_hi),
+                enb.sched.ues[0x100].cqi_mcs)
+
+    def ul(sf, **set_ue):
+        for k, v in set_ue.items():
+            setattr(ue, k, v)
+        g = ue.ul_tti_grid(sf)
+        if g is not None:
+            enb.handle_pusch(0x100, g, sf)
+        steps.append(("ul", sf, state()))
+
+    def dl(sfn, sf, *sdus, receive=False):
+        for s in sdus:
+            enb.send_data(0x100, s)
+        g = enb.tti_grid(sfn, sf)
+        got = ((ue.handle_grid(g, sf), ue.pending_ack, ue.granted,
+                ue.meas_cqi, list(ue.data_sdus)) if receive else None)
+        steps.append(("dl", sf, state(), ue.read_phich(g, sf), got))
+
+    ue.send_ul(b"ul-needs-grant")
+    ul(1)
+    dl(0, 2, receive=True)
+    dl(0, 3, b"harq-payload")
+    ul(4, pending_ack=0)
+    dl(0, 6)
+    ul(7, pending_ack=1, meas_cqi=9, _cqi_due=True)
+    ul(8, meas_cqi=12, _cqi_due=True)
+    dl(1, 1, b"more")
+    ul(2, pending_ack=1)
+    dl(1, 3, b"nack-2a")
+    ul(4, pending_ack=0, meas_cqi=7, _cqi_due=True)
+    return steps
+
+
+def _check_enb_uplink(steps: list) -> None:
+    """The decisions the UL script must reach (as in the CPU test)."""
+    s = [st[2] for st in steps]
+    ok = (s[0][0] == [0x100] and s[1][0] == [] and steps[1][4][2] is True
+          and steps[1][4][3] == 15 and s[3][2]
+          and s[3][3] == [b"ul-needs-grant"] and s[3][4] == {0: 1}
+          and steps[4][3] is True and s[5][1] == {} and s[5][5] == 15
+          and s[6][5] == 22 and s[7][1] and s[8][1] == {} and s[9][1]
+          and s[10][1] == {} and s[10][2] and s[10][5] == 11)
+    if not ok:
+        raise AssertionError(f"[enb] uplink decisions: {steps}")
+
+
+def enb_handover(dev, n_rb: int) -> dict:
+    """``tests/test_handover_sim.py`` on ``dev`` at ``n_rb`` PRB: attach on
+    the source cell over the TTI loop, A3 measurement configuration, the
+    report, the handover command, the dedicated preamble detected on the
+    target cell, completion and user plane there.  -> its checks, and
+    each TTI's times, reads and launches and the stages' host seconds."""
+    imsi = tuple(int(d) for d in ENB_IMSI)
+    k, opc = bytes.fromhex(ENB_K_HEX), bytes.fromhex(ENB_OPC_HEX)
+    hss = Hss()
+    hss.add_user(ENB_IMSI, ENB_K_HEX, ENB_OPC_HEX)
+    users = UserManager()
+    pci_s, pci_t, earfcn_t = ENB_CID, 201, 6300
+    gc_s, gc_t = _enb_gc(n_rb, pci_s), _enb_gc(n_rb, pci_t)
+    src = enb_sim.EnbSim(gc_s, rrc=EnbRrc(hss, users, pci=pci_s, seed=5),
+                         device=dev)
+    tgt = enb_sim.EnbSim(gc_t, rrc=EnbRrc(hss, users, pci=pci_t,
+                                          earfcn=earfcn_t, seed=6),
+                         device=dev)
+    src.rrc.neighbors[pci_t] = earfcn_t
+    src.rrc.neighbor_enb[pci_t] = tgt.rrc
+    log = _tti_log()
+    enb_sim.STAGE_SECONDS.clear()
+
+    def loop(enb, ue, rnti, sfns, stop=None):
+        for sfn in sfns:
+            for sf in range(10):
+                with tti_timed(log, dev):
+                    g_ul = ue.ul_tti_grid(sf)
+                    if g_ul is not None:
+                        enb.handle_pusch(rnti, g_ul, sf)
+                    status = ue.handle_grid(enb.tti_grid(sfn, sf), sf)
+                    if status is not None:
+                        enb.handle_status(rnti, status)
+                if stop is not None and stop():
+                    return True
+        return stop() if stop is not None else True
+
+    checks = {}
+    rnti = src.handle_prach(rapid=7)
+    ue = enb_sim.UeSim(gc_s, rnti, rrc_ue=UeRrc(imsi, k, opc), device=dev)
+    ue.start_attach()
+    checks["attach"] = loop(src, ue, rnti, range(5), lambda: (
+        ue.rrc_ue.state == "connected" and src.rrc.proc(rnti) is not None
+        and src.rrc.proc(rnti).state == "attach-done"))
+    k_enb_before = ue.rrc_ue.k_enb
+    src._rrc_out(rnti, src.rrc.configure_measurements(rnti))
+    checks["meas_config"] = loop(src, ue, rnti, range(5, 8),
+                                 lambda: ue.rrc_ue.meas_config is not None)
+    ue._rrc_reply(ue.rrc_ue.measurement_report(
+        1, serv_rsrp=50, serv_rsrq=20,
+        neigh=(MeasResultEutra(pci_t, rsrp=62),)))
+    checks["ho_command"] = loop(src, ue, rnti, range(8, 12),
+                                lambda: ue.ho_pending is not None)
+    new_rnti = ue.rrc_ue.c_rnti
+    k_star = security.generate_k_enb_star(k_enb_before, pci_t, earfcn_t)
+    checks["k_enb_star"] = (ue.rrc_ue.k_enb == k_star != k_enb_before
+                            and tgt.rrc.proc(new_rnti).k_enb == k_star)
+    rng = np.random.default_rng(SEED + 3)
+    preamble = ue.rrc_ue.ho_rach[0]
+    burst = prach.generate_prach(129, preamble, 119)
+    rx = burst + (rng.standard_normal(len(burst)) + 1j * rng.standard_normal(
+        len(burst))) * np.sqrt(10 ** -1.2 / 2)
+    dets = prach.detect_prach(rx[prach.PRACH_FORMATS[0][0]:].astype(
+        np.complex64), 129, 119, device=dev)
+    checks["ho_rach"] = bool(dets) and max(dets, key=lambda t: t[2])[0] \
+        == preamble
+    tgt.admit_handover_ue(new_rnti)
+    ue2 = ue.handover_retune(gc_t)
+    checks["ho_complete"] = loop(
+        tgt, ue2, new_rnti, range(4),
+        lambda: "handover-complete" in tgt.rrc.events) and \
+        tgt.rrc.proc(new_rnti).state == "attach-done"
+    tgt.send_data(new_rnti, b"dl-after-ho")
+    ue2.send_ul(b"ul-after-ho")
+    loop(tgt, ue2, new_rnti, range(4, 7))
+    checks["user_plane"] = (ue2.data_sdus == [b"dl-after-ho"] and
+                            tgt.ues[new_rnti].ul_sdus == [b"ul-after-ho"])
+    return {"checks": checks, "ttis": len(log["times"]), "tti": log,
+            "stages": dict(enb_sim.STAGE_SECONDS)}
+
+
+def enb_service_run(dev, iq_path: str | None) -> dict:
+    """``EnbService`` at bandwidth 100 on ``dev`` through its ctrl socket:
+    add_user, start, add_ue, step until connected, ping, detach_ue; every
+    reply, the status strings and the UE's received SDUs.  With
+    ``iq_path`` the DL waveform goes to that file."""
+    svc = enb_service.EnbService(port=0, device=dev)
+    replies = []
+    try:
+        p = svc.port
+
+        def cmd(line: str) -> str:
+            with socket.create_connection(("127.0.0.1", p),
+                                          timeout=300) as c:
+                c.sendall(line.encode() + b"\n")
+                replies.append(c.makefile().readline().strip())
+            return replies[-1]
+
+        cmd(f"add_user {ENB_IMSI} {ENB_K_HEX} {ENB_OPC_HEX}")
+        cmd(f"write bandwidth {ENB_N_RB}")
+        cmd(f"write n_id_cell {ENB_SVC_CID}")
+        if iq_path:
+            cmd(f"write iq_out {iq_path}")
+        cmd("start")
+        cmd(f"add_ue {ENB_IMSI}")
+        for _ in range(8):
+            cmd("step 10")
+            if "state=connected" in cmd("status"):
+                break
+        cmd(f"ping {ENB_IMSI}")
+        cmd("step 10")
+        cmd("status")
+        cmd(f"detach_ue {ENB_IMSI}")
+        cmd("step 20")
+        cmd("status")
+        su = next(iter(svc.ues.values()))
+        sdus = list(su.ue.data_sdus)
+        ttis = svc._tti
+    finally:
+        svc.close()
+    return {"replies": replies, "sdus": sdus, "ttis": ttis}
+
+
+@contextlib.contextmanager
+def turbo_shapes_seen(log: dict):
+    """Record the inputs of the first launch of the turbo kernel at each
+    (C, n, win, acq) while the block runs (the launches still count)."""
+    launch = turbo_mod.half_iteration_kernel
+
+    def recorded(u, v, a_init, b_init, win, acq, wpb):
+        key = (u.shape[0], u.shape[1], win, acq)
+        if key not in log:
+            log[key] = tuple(x.clone() for x in (u, v, a_init, b_init))
+        return launch(u, v, a_init, b_init, win, acq, wpb)
+
+    turbo_mod.half_iteration_kernel = recorded
+    try:
+        yield log
+    finally:
+        turbo_mod.half_iteration_kernel = launch
+
+
+def check_turbo_enb(seen: dict, card: str) -> dict:
+    """The half-iteration kernel vs plain on the inputs ``[enb]`` gave it,
+    one launch at each of its shapes, bit for bit; timed at the longest
+    (CUDA events back to back, profiler device time), with its bound."""
+    errs = []
+    for (c, n, win, acq), args in sorted(seen.items()):
+        errs += turbo_equal_plain(args, win, acq)
+    (c, n, win, acq), args = max(seen.items(), key=lambda kv: kv[0][1])
+    n_w = -(-n // win)
+    run = lambda: turbo_mod.half_iteration_raw(*args, win, acq)
+    ms = cuda_time_ms(run, 100)
+    dev_ms = device_ms(run, 20, "turbo_half")
+    plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
+        *args, win, acq), 3)
+    b = bound(4 * (3 * c * n + 4 * c * n_w * 8),
+              c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)
+    shapes = sorted(seen)
+    print(f"[kernel] turbo_half_iteration at the [enb] shapes (C, n, win, "
+          f"acq) {shapes}: bit-exact vs plain on the inputs the path gave "
+          f"it; kernel at {(c, n, win, acq)} {ms:.4f} ms a call back to "
+          f"back, device time {_ms(dev_ms)} (profiler), plain "
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms by "
+          f"{b['bound_by']} ({b['bytes'] / 1e3:.1f} kB, {b['ops'] / 1e6:.3f}"
+          f" M operations) ({card})")
+    return {"shapes": shapes, "shape": [c, n, win, acq],
+            "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **b}
+
+
+def _pct(x: list, q: float) -> float:
+    return float(np.percentile(x, q)) * 1e3
+
+
+def _print_tti(label: str, r: dict, card: str) -> None:
+    """A timed sim run's line: ms a TTI, by stage, host reads, launches."""
+    log, n = r["tti"], len(r["tti"]["times"])
+    print(f"[enb] {label}, {n} TTIs at {ENB_N_RB} PRB: ms a TTI median "
+          f"{_pct(log['times'], 50):.3f}, p90 {_pct(log['times'], 90):.3f}, "
+          f"max {max(log['times']) * 1e3:.3f}; stage ms a TTI "
+          + ", ".join(f"{k} {v * 1e3 / n:.3f}" for k, v in
+                      sorted(r["stages"].items()))
+          + f"; host reads a TTI {np.mean(log['reads']):.2f} (max "
+          f"{max(log['reads'])}); turbo_half_iteration {sum(log['turbo'])} "
+          f"({np.mean(log['turbo']):.2f} a TTI, max {max(log['turbo'])}), "
+          f"demap {sum(log['demap'])} "
+          f"({card})")
+
+
+def run_enb(dev, card: str) -> dict:
+    """``[enb]``: the eNB simulator and service at 100 PRB (20 MHz) on the
+    card, each path counted (K1/K2 on every PDSCH / PUSCH decode, K3
+    never), then on the CPU with the same inputs: what each side decoded
+    must be equal (SDUs, STATUS PDUs, HARQ bits, SR, CQI, HI, the service's
+    status strings).  The reference tests' traffic timed a TTI for 1 and 2
+    UEs, by stage, with host reads, launches and the device's busy share;
+    the service's IQ scanned back to its cell; the handover, timed a
+    TTI."""
+    t_phase = time.perf_counter()
+    seen = {}
+    with turbo_shapes_seen(seen):
+        out = _run_enb(dev, card, t_phase)
+    return {**out, "turbo": check_turbo_enb(seen, card)}
+
+
+def _run_enb(dev, card: str, t_phase: float) -> dict:
+    _reset_counts()
+    up = enb_user_plane(dev)
+    ul_steps = enb_uplink(dev)
+    counts_sim = _counts()
+    up_cpu = enb_user_plane(torch.device("cpu"))
+    ul_cpu = enb_uplink(torch.device("cpu"))
+    grid_gap = max(float(np.max(np.abs(a - b)))
+                   for a, b in zip(up["grids"], up_cpu["grids"]))
+    up_same = (up["rx"] == up_cpu["rx"] and up["sdus"] == up_cpu["sdus"]
+               and up["all_acked"] == up_cpu["all_acked"])
+    up_right = (up["sdus"][0x100] == ([b"rrc-reconfig-ue1"],
+                                      [b"ip-ue1-a", b"ip-ue1-b"])
+                and up["sdus"][0x200] == ([], [b"ip-ue2"])
+                and up["all_acked"])
+    n_status = sum(r[3] is not None for r in up["rx"])
+    t_split = [time.perf_counter() - t_phase]
+    _check_enb_uplink(ul_steps)
+    ul_same = ul_steps == ul_cpu
+    print(f"[enb] user plane (two UEs, two frames, 100 PRB): SDUs right "
+          f"{up_right}; card = CPU (each receive's STATUS PDU, HARQ bit and "
+          f"SDU count, {n_status} STATUS PDUs; the UEs' SDUs) {up_same}; "
+          f"grids within {grid_gap:.2e} of the CPU's; uplink (SR, DCI 0, "
+          f"PUSCH, NACK / ACK on formats 1 and 2a, CQI on 2 and 2a, HI) "
+          f"card = CPU {ul_same}; launches {counts_sim} ({card})")
+    if not (up_right and up_same and ul_same) or grid_gap > ENB_GRID_TOL \
+            or counts_sim["turbo_half_iteration"] <= 0 or counts_sim["demap"]:
+        raise AssertionError(f"[enb] user plane / uplink: {up_right}, "
+                             f"{up_same}, {ul_same}, {grid_gap}, "
+                             f"{counts_sim}")
+    # the reference tests' traffic again, warm, timed a TTI: the 1-UE
+    # lost-subframe recovery and the 2-UE user plane (its decodes equal to
+    # the compared run's)
+    _reset_counts()
+    lost = enb_lost_subframe(dev)
+    up2 = enb_user_plane(dev)
+    counts_timed = _counts()
+    if not lost["right"] or up2["rx"] != up["rx"] or \
+            up2["sdus"] != up["sdus"] or counts_timed["demap"]:
+        raise AssertionError(f"[enb] timed runs: {lost['right']}, "
+                             f"{up2['rx']}, {counts_timed}")
+    t_split.append(time.perf_counter() - t_phase - sum(t_split))
+    _print_tti("1 UE, the reference's lost-subframe recovery (one SRB SDU, "
+               "its grid lost, poll retransmit, frame 0 twice)", lost, card)
+    _print_tti("2 UEs, the reference's two-UE user plane (one SRB and three "
+               "DRB SDUs, two frames)", up2, card)
+    # the device's busy share over the same 20 TTIs: its kernels' time
+    # (profiled run) over their wall (the timed run, unprofiled)
+    dev_ms, n_kernels = device_ms(lambda: enb_user_plane(dev), 1,
+                                  count=True)
+    if dev_ms is None:
+        raise AssertionError("[enb] the profiler saw no kernel")
+    wall_ms = sum(up2["tti"]["times"]) * 1e3
+    busy = dev_ms / wall_ms
+    print(f"[enb] device busy share over the 2-UE user plane's 20 TTIs: "
+          f"{busy:.4f} ({dev_ms:.3f} ms of kernels and copies in "
+          f"{n_kernels:.0f} launches (profiled run, the sims' set-up "
+          f"included), {wall_ms:.3f} ms of wall (the timed run)) ({card})")
+    t_split.append(time.perf_counter() - t_phase - sum(t_split))
+    # the service, on the card with its IQ written, then on the CPU
+    iq_path = WORK / "enb_service.fc32"
+    WORK.mkdir(parents=True, exist_ok=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    svc = enb_service_run(dev, str(iq_path))
+    svc_s = time.perf_counter() - t0
+    counts_svc = _counts()
+    iq_cpu_path = WORK / "enb_service_cpu.fc32"
+    svc_cpu = enb_service_run(torch.device("cpu"), str(iq_cpu_path))
+    same = lambda r: [x for x in r if not x.startswith("ok iq_out")]
+    svc_same = same(svc["replies"]) == same(svc_cpu["replies"]) and \
+        svc["sdus"] == svc_cpu["sdus"]
+    st = [r for r in svc["replies"] if r.startswith("ok tti=")
+          and "imsi=" in r]
+    svc_right = (any("state=connected" in r and "ip=10.0.0.2" in r
+                     for r in st) and "rx=1" in st[-2]
+                 and "state=idle" in st[-1]
+                 and svc["sdus"] == [b"ping-" + ENB_IMSI.encode()])
+    # the subframes without user data (the broadcast ones) must agree; the
+    # others carry the AKA's random challenge, drawn anew in each run
+    x = read_iq(str(iq_path))
+    nsf = ENB_CFG.n_samps_subframe
+    iq_gap = max(float(np.max(np.abs(d[0] - d[1]))) for d in (
+        (a[sf * nsf:(sf + 1) * nsf], b[sf * nsf:(sf + 1) * nsf])
+        for a, b in [(x, read_iq(str(iq_cpu_path)))] for sf in (0, 5, 9)))
+    t0 = time.perf_counter()
+    rep = file_scan.scan(torch.from_numpy(x).to(dev), ENB_CFG)
+    scan_s = time.perf_counter() - t0
+    scan_right = (rep.n_cell_id == ENB_SVC_CID and rep.mib is not None
+                  and rep.mib.n_rb_dl == ENB_N_RB and rep.sib1 is not None
+                  and rep.sib1.tac == 0x1234)
+    print(f"[enb-service] bandwidth {ENB_N_RB}: attach, ping, detach over "
+          f"the ctrl socket in {svc['ttis']} TTIs, {svc_s:.3f} s "
+          f"({svc_s * 1e3 / svc['ttis']:.3f} ms a TTI, IQ out included); "
+          f"status strings right {svc_right}; card = CPU (every reply, the "
+          f"UE's SDUs) {svc_same}; launches {counts_svc}; its IQ of "
+          f"subframes 0, 5, 9 within {iq_gap:.2e} of the CPU run's (limit "
+          f"{ENB_IQ_TOL}); its IQ "
+          f"({len(x)} samples) scanned on the card in {scan_s:.3f} s: cell "
+          f"{rep.n_cell_id}, MIB n_rb_dl "
+          f"{rep.mib.n_rb_dl if rep.mib else None}, SIB1 TAC "
+          f"{hex(rep.sib1.tac) if rep.sib1 else None} ({card})")
+    print(f"[enb-service] status: {st[-3:]}")
+    if not (svc_right and svc_same and scan_right) or counts_svc["demap"] \
+            or counts_svc["turbo_half_iteration"] <= 0 or iq_gap > ENB_IQ_TOL:
+        raise AssertionError(f"[enb-service] {svc_right} {svc_same} "
+                             f"{scan_right} {counts_svc} {svc['replies']}")
+    t_split.append(time.perf_counter() - t_phase - sum(t_split) - svc_s)
+    _reset_counts()
+    t0 = time.perf_counter()
+    ho = enb_handover(dev, ENB_HO_N_RB)
+    ho_s = time.perf_counter() - t0
+    counts_ho = _counts()
+    print(f"[enb-handover] {ENB_HO_N_RB} PRB: {ho['checks']} in "
+          f"{ho['ttis']} TTIs, {ho_s:.3f} s; launches {counts_ho} ({card})")
+    _print_tti("1 UE, the reference's handover (attach, measurement, "
+               "handover, user plane; UL and DL each TTI)", ho, card)
+    if not all(ho["checks"].values()) or counts_ho["demap"]:
+        raise AssertionError(f"[enb-handover] {ho} {counts_ho}")
+    print(f"[enb] phase {time.perf_counter() - t_phase:.1f} s: user plane "
+          f"and uplink, card and CPU {t_split[0]:.1f}, timed {t_split[1]:.1f},"
+          f" profiled {t_split[2]:.1f}, service {svc_s:.1f}, CPU service and"
+          f" scan {t_split[3]:.1f},"
+          f" handover {ho_s:.1f} ({card})")
+    launches = {k: counts_sim[k] + counts_timed[k] + counts_ho[k]
+                for k in ("demap", "turbo_half_iteration", "host_reads")}
+    summary = {name: {"n_ue": n_ue, "ttis": len(r["tti"]["times"]),
+                      "tti_ms": _pct(r["tti"]["times"], 50),
+                      "tti_p90_ms": _pct(r["tti"]["times"], 90),
+                      "stage_ms": {k: v * 1e3 / len(r["tti"]["times"])
+                                   for k, v in r["stages"].items()},
+                      "reads_per_tti": float(np.mean(r["tti"]["reads"])),
+                      "turbo_per_tti": float(np.mean(r["tti"]["turbo"])),
+                      "turbo": sum(r["tti"]["turbo"])}
+               for name, n_ue, r in (("lost_subframe", 1, lost),
+                                     ("user_plane", 2, up2),
+                                     ("handover", 1, ho))}
+    return {"launches": launches, "service_launches": counts_svc,
+            "timed": summary, "busy_share": busy, "device_ms": dev_ms,
+            "service_s": svc_s, "service_ttis": svc["ttis"],
+            "handover_s": ho_s, "handover_ttis": ho["ttis"],
+            "handover_n_rb": ENB_HO_N_RB}
+
+
+def run_harq_bench(card: str, harq: dict) -> dict:
+    """``[harq-bench]``: the HARQ bench CLI at its defaults (B=384, 25 dB,
+    bf16 IQ) on the card, counted; its JSON line printed after the tag,
+    its ratio beside ``[harq]``'s."""
+    _reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = harq_throughput.main([])
+    counts = _counts()
+    print(f"[harq-bench] {buf.getvalue().strip()}")
+    print(f"[harq-bench] overhead ratio {res['overhead_ratio']:.3f} at "
+          f"B={res['batch']} (bf16 IQ, {res['depth']} in flight) beside "
+          f"[harq]'s {harq['ratio']:.3f} at B={HARQ_BATCH} (f32 IQ, in "
+          f"turns); launches {counts} ({card})")
+    if res["crc_ok"] != res["batch"] or res["single_crc_ok"] != res["batch"] \
+            or res["unit"] != "Mbit/s/GPU" or counts["demap"] <= 0 or \
+            counts["turbo_half_iteration"] <= 0:
+        raise AssertionError(f"harq-bench: {res}, {counts}")
+    return {**res, "launches": counts}
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -2490,6 +3066,8 @@ def main() -> None:
     trace_out = timed("trace", run_trace, card)
     ulctrl = timed("ulctrl", run_ulctrl, dev, card)
     attach = timed("attach", run_attach, dev, card)
+    enb = timed("enb", run_enb, dev, card)
+    harq_bench = timed("harq_bench", run_harq_bench, card, harq)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -2519,9 +3097,17 @@ def main() -> None:
                     ("trace", trace_out["launches"]),
                     ("ulctrl", ulctrl["launches"]),
                     ("attach", attach["launches"]),
-                    ("rrc_attach", attach["rrc_launches"])):
+                    ("rrc_attach", attach["rrc_launches"]),
+                    ("enb", enb["launches"]),
+                    ("enb_service", enb["service_launches"]),
+                    ("harq_bench", harq_bench["launches"])):
         for kernel in ("demap", "turbo_half_iteration"):
             by_path[kernel][name] = c[kernel]
+    by_path["resample_poly"] = {
+        "scanner": scan_out["launches"]["resample_poly"],
+        "si": si_out["launches"]["resample_poly"],
+        "scanner_captures": scan_out["capture_launches"],
+        "si_captures": si_out["capture_launches"]}
     by_path["pss_corr_mag_bf16"] = {
         "scanner": scan_out["launches"]["pss_corr_mag_bf16"],
         "si": si_out["launches"]["pss_corr_mag_bf16"],
@@ -2558,6 +3144,18 @@ def main() -> None:
                     "detect_kernels", "pucch_ok", "pucch_ms", "srs_ms")},
         "attach": {key: attach[key] for key in
                    ("card_wall_s", "cpu_wall_s", "rrc_wall_s", "tb_ms")},
+        "enb": {key: enb[key] for key in
+                ("timed", "busy_share", "device_ms", "service_s",
+                 "service_ttis", "handover_s", "handover_ttis",
+                 "handover_n_rb")},
+        "turbo_enb_shape": {key: enb["turbo"][key] for key in
+                            ("shapes", "shape", "ms", "device_ms",
+                             "plain_ms", "bound_ms", "bound_by",
+                             "max_abs_err")},
+        "harq_bench": {key: harq_bench[key] for key in
+                       ("value", "unit", "single_rv_mbps", "overhead_ratio",
+                        "combined_ms", "single_ms", "crc_ok", "batch",
+                        "depth", "iq")},
         "si": {key: si_out[key] for key in
                ("wall_ms_per_channel", "first_wall_ms_per_channel",
                 "stages", "reads", "launches")},

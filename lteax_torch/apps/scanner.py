@@ -23,9 +23,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 from fractions import Fraction
 
 import torch
@@ -35,7 +33,7 @@ from lteax_torch.phy.config import PhyConfig
 from lteax_torch.stack import bands
 from lteax_torch.utils.checkpoint import ScanCheckpoint
 from lteax_torch.utils.metrics import EVENTS, METRICS
-from lteax_torch.utils.trace import stage
+from lteax_torch.utils.trace import timed_stage
 from lteax_torch.apps.file_scan import ScanResult, scan
 from lteax_torch.kernels.polyphase import resample_poly
 from lteax_torch.shard.scanner import batched_prescan
@@ -43,16 +41,10 @@ from lteax_torch.shard.scanner import batched_prescan
 STAGE_SECONDS: dict[str, float] = defaultdict(float)
 
 
-@contextmanager
 def _stage(name: str, device: torch.device):
     """Host seconds of the stage into ``STAGE_SECONDS``, and its
     ``utils.trace.stage`` range in a profiler's trace."""
-    t0 = time.perf_counter()
-    with stage(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    STAGE_SECONDS[name] += time.perf_counter() - t0
+    return timed_stage(name, device, STAGE_SECONDS)
 
 
 @dataclasses.dataclass

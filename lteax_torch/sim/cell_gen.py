@@ -306,7 +306,9 @@ def capture(cell: Cell, duration_s: float, *, sfn0: int = 0,
     Impairments, in order: CFO, then AWGN at ``snr_db`` per resource
     element (unit-power REs, orthonormal OFDM), then resampling to
     ``rate_hz`` (default: native) by the port's polyphase resampler on
-    the host."""
+    ``device`` (the resampler kernel on the card); the capture comes home
+    once, at the end."""
+    device = _resolve_device(device)
     cfg = cell.cfg
     nsf = cfg.n_samps_subframe
     n_native = int(math.ceil(duration_s * cfg.fs))
@@ -325,8 +327,8 @@ def capture(cell: Cell, duration_s: float, *, sfn0: int = 0,
     if abs(rate - cfg.fs) > 1.0:
         frac = Fraction(int(round(rate)), int(round(cfg.fs))) \
             .limit_denominator(1024)
-        x = resample_poly(torch.from_numpy(x), frac.numerator,
-                          frac.denominator).numpy()
+        x = resample_poly(torch.from_numpy(x).to(device), frac.numerator,
+                          frac.denominator).cpu().numpy()
     n_out = int(math.ceil(duration_s * rate))
     return Capture(iq=np.ascontiguousarray(x[:n_out]), rate_hz=rate,
                    n_cell_id=cell.n_cell_id, n_ant=cell.n_ant,

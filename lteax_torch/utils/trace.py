@@ -38,6 +38,19 @@ def stage(name: str):
 
 
 @contextlib.contextmanager
+def timed_stage(name: str, device: torch.device, seconds: dict):
+    """A :func:`stage` range whose host seconds, ``device`` synchronised
+    at its end (so the split is attributable), add to ``seconds[name]``
+    (a ``defaultdict(float)``)."""
+    t0 = time.perf_counter()
+    with stage(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    seconds[name] += time.perf_counter() - t0
+
+
+@contextlib.contextmanager
 def profile_to(logdir: str):
     """Profile the block (CPU operations and, on the card, CUDA kernels)
     and write a Chrome trace into ``logdir``.  Yields the profiler; its

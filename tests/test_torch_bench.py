@@ -1,12 +1,13 @@
 """The decode bench CLIs (``lteax_torch.bench.dl_throughput``,
-``ul_throughput``, ``mimo_throughput``): on the CPU a dry run, labelled so in its unit and
+``ul_throughput``, ``mimo_throughput``, ``harq_throughput``): on the CPU a dry run, labelled so in its unit and
 card, that decodes the bench configuration; without a card and without
 ``--device cpu`` they raise instead of measuring the CPU."""
 
 import pytest
 import torch
 
-from lteax_torch.bench import dl_throughput, mimo_throughput, ul_throughput
+from lteax_torch.bench import (dl_throughput, harq_throughput,
+                               mimo_throughput, ul_throughput)
 
 torch.set_num_threads(1)
 
@@ -46,8 +47,22 @@ def test_mimo_bench_dry_run(args):
     assert out["batch"] == 1 and "dual-codeword" in out["metric"]
 
 
+def test_harq_bench_dry_run(capsys):
+    """The HARQ CLI at B=1: both decoders decode their block, and the
+    line carries both rates and their overhead ratio."""
+    out = harq_throughput.main(["--batch", "1", "--reps", "1", "--depth",
+                                "1", "--device", "cpu"])
+    _dry_run(out, 1)
+    assert out["single_crc_ok"] == 1 and out["single_rv_mbps"] > 0
+    assert out["overhead_ratio"] == round(out["combined_ms"]
+                                          / out["single_ms"], 3)
+    assert out["batch"] == 1 and "HARQ" in out["metric"]
+    assert '"overhead_ratio"' in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("bench", [dl_throughput, ul_throughput,
-                                   mimo_throughput], ids=["dl", "ul", "mimo"])
+                                   mimo_throughput, harq_throughput],
+                         ids=["dl", "ul", "mimo", "harq"])
 def test_benches_need_a_card(bench):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

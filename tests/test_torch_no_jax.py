@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 95, mods\n"
+        "assert len(mods) >= 106, mods\n"
         "for m in ('phy.channels.phich', 'phy.channels.pucch',"
         " 'bench.ul_throughput', 'bench.snr_sweep', 'bench.config3',"
         " 'sim.ctrl_gen', 'apps.file_gen', 'apps.ctrl', 'apps.stream_scan',"
@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
         " 'phy.channels.srs', 'phy.tables.prach_roots', 'stack.security',"
         " 'stack.snow3g', 'stack.nas', 'stack.rrc_proc', 'stack.rrc_meas',"
         " 'stack.rlc_am', 'stack.rlc_um', 'stack.users', 'io.pcap',"
-        " 'apps.attach_sim', 'apps.rrc_attach_sim'):\n"
+        " 'apps.attach_sim', 'apps.rrc_attach_sim', 'stack.mac_sched',"
+        " 'stack.pdcp', 'stack.cnfg_db', 'stack.gw', 'stack.timers',"
+        " 'apps.enb_sim', 'apps.enb_service', 'bench.harq_throughput'):\n"
         "    assert 'lteax_torch.' + m in mods, m\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
@@ -209,18 +211,52 @@ def test_simulators_need_a_card_unless_asked_for_the_cpu(app):
         mod.run(verbose=False)
 
 
+def _enb_entry(name: str, device):
+    """Build one of the eNB entry points at 6 PRB on ``device``."""
+    from lteax_torch.apps.enb_service import EnbService
+    from lteax_torch.apps.enb_sim import EnbSim, UeSim
+    from lteax_torch.apps.file_gen import GenConfig
+    gc = GenConfig(n_rb_dl=6, n_cell_id=77)
+    if name == "EnbSim":
+        return EnbSim(gc, device=device)
+    if name == "UeSim":
+        return UeSim(gc, 0x100, bytes(32), device=device)
+    svc = EnbService(port=0, device=device)
+    svc.close()
+    return svc
+
+
+@pytest.mark.parametrize("name", ["EnbSim", "UeSim", "EnbService"])
+def test_enb_entry_points_need_a_card_unless_asked_for_the_cpu(name):
+    """``EnbSim``, ``UeSim`` and ``EnbService`` put their receivers on the
+    current CUDA device: without one they raise before any work (no
+    socket opened) unless the caller passes ``device="cpu"``; the service
+    hands its explicit device to the eNB and to every UE."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _enb_entry(name, None)
+    obj = _enb_entry(name, "cpu")
+    assert obj.device == torch.device("cpu")
+    if name == "EnbService":
+        assert obj._cmd_start([]).startswith("started")
+        assert obj.enb.device == obj.device
+
+
 @pytest.mark.parametrize("cli", ["file_gen", "file_scan", "stream_scan",
                                  "dl_throughput", "ul_throughput",
                                  "mimo_throughput", "attach_sim",
-                                 "rrc_attach_sim"])
+                                 "rrc_attach_sim", "enb_service",
+                                 "harq_throughput"])
 def test_clis_need_a_card_unless_asked_for_the_cpu(cli, tmp_path):
     """Each new CLI, and each bench CLI, raises without a CUDA device
     unless ``--device cpu``, before it does any work."""
     import torch
-    from lteax_torch.apps import (attach_sim, file_gen, file_scan,
-                                  rrc_attach_sim, stream_scan)
-    from lteax_torch.bench import (dl_throughput, mimo_throughput,
-                                   ul_throughput)
+    from lteax_torch.apps import (attach_sim, enb_service, file_gen,
+                                  file_scan, rrc_attach_sim, stream_scan)
+    from lteax_torch.bench import (dl_throughput, harq_throughput,
+                                   mimo_throughput, ul_throughput)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cap = str(tmp_path / "cap.fc32")
@@ -236,6 +272,8 @@ def test_clis_need_a_card_unless_asked_for_the_cpu(cli, tmp_path):
         "mimo_throughput": (mimo_throughput.main, ["--batch", "1"]),
         "attach_sim": (attach_sim.main, []),
         "rrc_attach_sim": (rrc_attach_sim.main, []),
+        "enb_service": (enb_service.main, ["--port", "0"]),
+        "harq_throughput": (harq_throughput.main, ["--batch", "1"]),
     }[cli]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
