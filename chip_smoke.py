@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-twenty-two paths, each with the launch counters set to 0 just before it
-and read just after:
+twenty-six paths, each with the launch counters set to 0 just before it
+and read just after (in the ranks of the multi-process paths, summed over
+them from what each rank returns):
 
 1. DL-SCH decode through ``lteax_torch.pipeline.make_batch_decoder`` at the
    ``bench.py`` headline configuration (20 MHz, 100 PRB, MCS 28, TBS 75376,
@@ -154,6 +155,28 @@ and read just after:
     harq_throughput`` at its defaults (B=384, 25 dB, bf16 IQ), its JSON
     line, every block decoded by both decoders, its overhead ratio beside
     ``[harq]``'s.
+23. The sharded decoders (``[shard]``) of ``lteax_torch.shard.pipeline``
+    on an in-process NCCL group of one rank (a 1x1 mesh), each at its
+    phase's configuration on 64 subframes: DL, the halo PSS acquire decoder
+    (its ``pss_peak`` within 1e-5 of a float64 correlation) and UL at
+    100 PRB MCS 28, HARQ at ``HARQ_SNR_DB``, TM3 MMSE and TM4 SIC: bits and
+    flags equal the single-device decoder's on the same IQ, every block
+    decoded; the DL decode timed sharded and not, in turns; the sharded
+    prescan of 4 of the scanner's captures equal to the one-device one.
+24. Two ranks on one card (``[shard-2rank]``): ``shard.dryrun.
+    dryrun_multichip(2, backend="gloo")``, spawned ranks sharing cuda:0 on
+    the 1x2 and 2x1 meshes (the acquire case at 100 PRB MCS 28, its halo
+    across the ranks; every case's bits equal those sent), and the
+    channel-sharded prescan of 4 of the scanner's captures equal to the
+    one-device prescan; each rank's turbo, demap and PSS launches > 0.  Not
+    a scaling number.
+25. The scaling CLI (``[scaling]``): ``python -m lteax_torch.bench.scaling
+    --nproc 1`` at 100 PRB MCS 28, 64 subframes: the 1-device baseline, its
+    JSON line.
+26. The multi-host scanner (``[multihost]``): ``python -m
+    lteax_torch.apps.scanner --multihost 2 --prescan`` on the same 4
+    captures at 20 Msps: each worker's reports equal the one-process
+    scan's, both workers' totals the live count.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -202,6 +225,7 @@ from lteax_torch.bench import (acs_probe, config3, dl_throughput,
                                scan_throughput, snr_sweep, ul_throughput)
 from lteax_torch.bench.timing import (IQ_FORMATS, card_line, stage_iq,
                                       time_decode)
+from lteax_torch.bench import scaling as scaling_bench
 from lteax_torch.io import native
 from lteax_torch.io.iq import prefetch_to_device, read_iq, write_iq
 from lteax_torch.kernels._build import library
@@ -220,6 +244,10 @@ from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
                                   make_mimo_batch_decoder,
                                   make_pusch_batch_decoder)
+from lteax_torch.shard import pipeline as shard_pipeline
+from lteax_torch.shard.dryrun import dryrun_multichip
+from lteax_torch.shard.mesh import make_mesh, process_group
+from lteax_torch.shard.scanner import batched_prescan
 from lteax_torch.sim import cell_gen, ctrl_gen
 from lteax_torch.sim.dl_gen import (DlCell, dl_subframes, harq_decoder_args,
                                     harq_transmissions)
@@ -330,6 +358,12 @@ ENB_OPC_HEX = "cd63cb71954a9f4e48a5994e37a02baf"
 ENB_GRID_TOL = 0.0         # the DL grids are built on the host: equal
 ENB_IQ_TOL = 1e-5          # the service's IQ: cuFFT vs the CPU's FFT
 ENB_HO_N_RB = 100          # the handover's bandwidth
+
+SHARD_B = 64               # [shard]: subframes (TM3 / TM4: x 2 codewords)
+SHARD_REPS = 20            # [shard]: DL decodes timed, sharded and not
+SHARD_PEAK_TOL = 1e-5      # pss_peak vs a float64 FFT correlation
+SHARD_CHANS = slice(10, 14)   # [shard-2rank], [multihost]: 2 live, 2 dead
+SCALING_PER_DEV, SCALING_REPS = 64, 20
 
 SOURCES = {
     "demap": ("lteax_torch/kernels/csrc/demap.cu",
@@ -902,7 +936,8 @@ def run_scanner(dev, card: str) -> dict:
             "demap_launches": runs[1]["demap_launches"],
             "first_wall_s": runs[0]["wall_s"],
             "find_pss_f32_idx_moved": f32["idx_moved"], "cpu_vs_card": diffs,
-            "si_cost": si, "capture_launches": gen_k6}
+            "si_cost": si, "capture_launches": gen_k6,
+            "chans": chans, "caps": caps}
 
 
 def scan_counted(tag: str, chans: list, caps: list, dev, card: str,
@@ -2937,6 +2972,280 @@ def run_harq_bench(card: str, harq: dict) -> dict:
     return {**res, "launches": counts}
 
 
+# -- slice I: the multi-device layer
+
+
+def _shard_cases() -> list:
+    """(name, sharded factory, single-device factory, arguments, keyword
+    arguments, IQ, the rows sent) of ``[shard]``: each existing phase's
+    configuration and seed at B = ``SHARD_B``."""
+    cell, ul_cell = DlCell(), UlCell()
+    iq_dl, tb_dl = dl_subframes(cell, SHARD_B, SNR_DB, seed=SEED)
+    iq_ul, tb_ul = ul_subframes(ul_cell, SHARD_B, SNR_DB, seed=SEED)
+    iq_h, tb_h, cells = harq_transmissions(
+        cell, HARQ_SUBFRAMES, HARQ_RVS, SHARD_B, HARQ_SNR_DB, seed=SEED)
+    iq_3, tb_3 = mimo_subframes(MIMO_TM3, SHARD_B, SNR_DB, "bench",
+                                seed=SEED)
+    iq_4, tb_4 = mimo_subframes(MIMO_TM4, SHARD_B, MIMO_TM4_SNR_DB, "corr",
+                                seed=SEED)
+    sp = shard_pipeline
+    sic = {**MIMO_TM4.precoding, "tuning": DecoderTuning(mimo_detector="sic")}
+    return [
+        ("dl", sp.make_sharded_decoder, make_batch_decoder,
+         cell.decoder_args(), {}, iq_dl, tb_dl),
+        ("acquire", sp.make_sharded_acquire_decoder, make_batch_decoder,
+         cell.decoder_args(), {}, iq_dl, tb_dl),
+        ("ul", sp.make_sharded_pusch_decoder, make_pusch_batch_decoder,
+         ul_cell.decoder_args(), {}, iq_ul, tb_ul),
+        ("harq", sp.make_sharded_harq_decoder, make_batch_harq_decoder,
+         harq_decoder_args(cells), {}, iq_h, tb_h),
+        ("tm3_mmse", sp.make_sharded_mimo_decoder, make_mimo_batch_decoder,
+         MIMO_TM3.decoder_args(), MIMO_TM3.precoding, iq_3,
+         decoder_rows(tb_3)),
+        ("tm4_sic", sp.make_sharded_mimo_decoder, make_mimo_batch_decoder,
+         MIMO_TM4.decoder_args(), sic, iq_4, decoder_rows(tb_4))]
+
+
+def pss_peak_f64(iq: np.ndarray, taps: np.ndarray) -> float:
+    """max |sum_k x[n+k] conj(taps[k])| over the batch read as one capture,
+    zeros past its end: one float64 FFT correlation."""
+    x = (iq[..., 0] + 1j * iq[..., 1]).reshape(-1)
+    m = 1 << int(np.ceil(np.log2(len(x) + len(taps) - 1)))
+    y = np.fft.ifft(np.fft.fft(x, m) * np.conj(np.fft.fft(taps, m)))
+    return float(np.abs(y[:len(x)]).max())
+
+
+def run_shard(dev, card: str, caps: np.ndarray) -> dict:
+    """``[shard]``: every sharded factory on an in-process NCCL group of
+    one rank (a 1x1 mesh) at its phase's configuration, B = ``SHARD_B``:
+    bits and flags equal to the single-device decoder's on the same IQ,
+    n_ok = B, the turbo and demap kernels launched; the acquire decoder's
+    pss_peak against a float64 correlation; the DL decoder timed sharded
+    and not, in turns (the wrapper's cost); the sharded prescan of the
+    native-rate captures ``caps`` equal to the one-device prescan."""
+    t0 = time.perf_counter()
+    cases = _shard_cases()
+    print(f"[shard-gen] 6 configurations x {SHARD_B} subframes: "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {"cases": {}}
+    with process_group(device=dev):
+        mesh = make_mesh(1, 1, device=dev)
+        backend = torch.distributed.get_backend()
+        for name, make_s, make_1, args, kw, iq, rows in cases:
+            x = torch.from_numpy(iq).to(dev)
+            single = make_1(*args, **kw, device=dev)
+            sharded = make_s(mesh, *args, **kw, device=dev)
+            bits1, ok1, _ = single(x)
+            torch.cuda.synchronize()
+            _reset_counts()
+            res = sharded(x)
+            torch.cuda.synchronize()
+            counts = _counts()
+            bits, ok, n_ok = res[:3]
+            same = torch.equal(bits, bits1) and torch.equal(ok, ok1)
+            sent = np.array_equal(bits.cpu().numpy(), rows)
+            line = (f"[shard] {name} 1x1 mesh ({backend}): n_ok {n_ok}/"
+                    f"{len(rows)}, bits and flags equal the single-device "
+                    f"decoder's: {same}, bits equal sent: {sent}; launches "
+                    f"demap {counts['demap']}, turbo_half_iteration "
+                    f"{counts['turbo_half_iteration']}")
+            if name == "acquire":
+                want = pss_peak_f64(iq, sync.pss_time_filters(
+                    args[0])[args[1] % 3].astype(np.complex128))
+                err = abs(res[3] - want) / want
+                line += (f"; pss_peak {res[3]:.4f}, float64 {want:.4f}, "
+                         f"rel err {err:.2e} (limit {SHARD_PEAK_TOL})")
+                if err > SHARD_PEAK_TOL:
+                    raise AssertionError(f"shard acquire: pss_peak "
+                                         f"{res[3]} vs {want}")
+                halo_ms = cuda_time_ms(lambda: sharded.acquire(x), 5)
+                line += (f"; the halo correlation and its max all-reduce "
+                         f"{halo_ms:.3f} ms (CUDA events) ({card})")
+                out["halo_ms"] = halo_ms
+            print(line)
+            if not (same and sent and n_ok == len(rows)) or \
+                    counts["demap"] <= 0 or \
+                    counts["turbo_half_iteration"] <= 0:
+                raise AssertionError(f"shard {name}: {line}")
+            out["cases"][name] = {"n_ok": n_ok, "launches": counts}
+            if name == "dl":
+                # in turns, so that a change in the host's load meets both
+                pairs = [(time_decode(sharded, x, 1)[0],
+                          time_decode(single, x, 1)[0])
+                         for _ in range(SHARD_REPS)]
+                t_s, t_1 = (float(np.median(t)) for t in zip(*pairs))
+                t_n = []
+                for _ in range(SHARD_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    shard_pipeline.global_n_ok(ok, mesh)
+                    t_n.append(time.perf_counter() - t0)
+                t_n = float(np.median(t_n))
+                print(f"[shard] dl B={SHARD_B}: 1-rank {backend} sharded "
+                      f"{t_s * 1e3:.3f} ms, single-device {t_1 * 1e3:.3f} ms "
+                      f"(medians, n={SHARD_REPS} each, in turns), ratio "
+                      f"{t_s / t_1:.3f}; the n_ok all-reduce and its read "
+                      f"alone {t_n * 1e3:.3f} ms ({card})")
+                out["timing"] = {"sharded_ms": t_s * 1e3,
+                                 "single_ms": t_1 * 1e3, "ratio": t_s / t_1,
+                                 "n_ok_ms": t_n * 1e3, "batch": SHARD_B,
+                                 "backend": backend}
+            del x, single, sharded, res
+        x = torch.from_numpy(caps).to(dev)
+        one = batched_prescan(x, SCAN_CFG)
+        _reset_counts()
+        got = batched_prescan(x, SCAN_CFG, mesh=mesh)
+        counts = _counts()
+        same = _same_prescan(got, one)
+        print(f"[shard] prescan 1x1 mesh ({backend}): {len(caps)} captures, "
+              f"equal to the one-device prescan: {same}; launches "
+              f"pss_corr_mag_bf16 {counts['pss_corr_mag_bf16']}")
+        if not same or counts["pss_corr_mag_bf16"] <= 0:
+            raise AssertionError(f"shard prescan: {got} vs {one}")
+        out["cases"]["prescan"] = {"launches": counts}
+    return out
+
+
+def _native_captures(chans: list, dev) -> np.ndarray:
+    """The channels read, resampled to the native rate on the card and
+    trimmed to a common length: (n_chan, L) complex64 on the host."""
+    caps = [scanner._native(ch, SCAN_CFG, dev) for ch in chans]
+    n = min(c.shape[-1] for c in caps)
+    return torch.stack([c[:n] for c in caps]).cpu().numpy()
+
+
+def _same_prescan(got: list, want: list) -> bool:
+    """Flags, roots and indices equal, peak ratios within 1e-5."""
+    return len(got) == len(want) and all(
+        (g["detected"], g["n_id_2"], g["pss_idx"])
+        == (w["detected"], w["n_id_2"], w["pss_idx"])
+        and abs(g["peak_ratio"] - w["peak_ratio"]) <= 1e-5 * w["peak_ratio"]
+        for g, w in zip(got, want))
+
+
+def run_shard_2rank(dev, card: str, caps: np.ndarray) -> dict:
+    """``[shard-2rank]``: ``dryrun_multichip(2)`` with two gloo ranks that
+    share cuda:0, on the 1x2 and 2x1 meshes (the acquire case at 100 PRB,
+    MCS 28: its halo crosses the ranks), and the channel-sharded prescan of
+    the native-rate captures ``caps``, equal to the one-device prescan;
+    each rank's turbo, demap and PSS correlator launches counted in the
+    rank.  Not a scaling number: the two ranks share one card."""
+    one = batched_prescan(torch.from_numpy(caps).to(dev), SCAN_CFG)
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, device=dev.type, backend="gloo",
+                           prescan=(SCAN_CFG, caps), verbose=False)
+    wall = time.perf_counter() - t0
+    for line in res[0].value["lines"]:
+        print(f"[shard-2rank] rank 0: {line}")
+    need = ("turbo_half_iteration", "demap", "pss_corr_mag_bf16")
+    launches = [{k: r.launches[k] for k in need} for r in res]
+    same = all(_same_prescan(d, one) for r in res
+               for d in r.value["prescan"].values())
+    print(f"[shard-2rank] 2 ranks on one card (cuda:0 shared, gloo; not a "
+          f"scaling number): every case of both meshes on both ranks OK; "
+          f"the sharded prescan of {len(caps)} captures equals the "
+          f"one-device prescan on both meshes and ranks: {same}; launches by "
+          f"rank {launches}; {wall:.1f} s with the ranks' start ({card})")
+    if not same or any(c[k] <= 0 for c in launches for k in need):
+        raise AssertionError(f"shard-2rank: prescan equal {same}, launches "
+                             f"{launches}")
+    summed = {k: sum(c[k] for c in launches) for k in need}
+    return {"launches": summed, "by_rank": launches, "wall_s": wall,
+            "lines": res[0].value["lines"]}
+
+
+def run_scaling(dev, card: str) -> dict:
+    """``[scaling]``: the scaling CLI with one rank (NCCL) at 100 PRB MCS
+    28, ``SCALING_PER_DEV`` subframes: the 1-device baseline; its JSON line
+    after the tag."""
+    out = _run_cli(["lteax_torch.bench.scaling", "--nproc", "1",
+                    "--per-dev", str(SCALING_PER_DEV), "--reps",
+                    str(SCALING_REPS), "--device", dev.type])
+    line = out.strip().splitlines()[-1]
+    res = json.loads(line)
+    print(f"[scaling] {line}")
+    row = res["results"][0]
+    if len(res["results"]) != 1 or row["n_ok"] != row["total_sf"] or \
+            row["efficiency"] is not None or \
+            row["launches"]["demap"] <= 0 or \
+            row["launches"]["turbo_half_iteration"] <= 0:
+        raise AssertionError(f"scaling: {res}")
+    return {**row, "card": res["card"], "backend": res["backend"]}
+
+
+def _same_report(got: dict, want: dict) -> bool:
+    """Equal reports: every field equal, floats within 1e-5 relative (or
+    1e-3 absolute)."""
+    if got.keys() != want.keys():
+        return False
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or not _same_report(g, w):
+                return False
+        elif isinstance(w, float) and isinstance(g, (int, float)):
+            if abs(g - w) > max(1e-3, 1e-5 * abs(w)):
+                return False
+        elif g != w:
+            return False
+    return True
+
+
+def run_multihost(dev, card: str, chans: list, caps: list) -> dict:
+    """``[multihost]``: ``apps.scanner --multihost 2 --prescan`` on 4 of
+    the scanner phase's captures (at 20 Msps: each worker resamples on the
+    card) with per-worker checkpoints in a temporary directory: each
+    worker's reports equal the one-process scan's, both totals the live
+    count; each worker's launches (from its standard error) counted."""
+    one = scanner.scan_channels(chans, SCAN_CFG, prescan=True, device=dev)
+    check_scan_reports(one, caps)
+    n_live = sum(c is not None for c in caps)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = WORK / "multihost"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "lteax_torch.apps.scanner",
+         *[f"{ch.label}={ch.path}:fc32:{ch.rate_hz}" for ch in chans],
+         "--n-rb", str(SCAN_CFG.n_rb_dl), "--multihost", "2", "--prescan",
+         "--checkpoint", str(tmp / "scan.ckpt"), "--port", str(port),
+         "--device", dev.type],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"multihost failed ({res.returncode}):\n"
+                             f"{res.stdout}\n{res.stderr}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines()
+             if ln.startswith("{")]
+    reports = {d["channel"]: d for d in lines if "channel" in d}
+    totals = sorted((d["worker"], d["multihost_total_cells"]) for d in lines
+                    if "multihost_total_cells" in d)
+    launches = [json.loads(ln)["launches"] for ln in res.stderr.splitlines()
+                if ln.startswith('{"worker"')]
+    owners = {d["channel"]: d["worker"] for d in reports.values()}
+    same = len(reports) == len(one) and all(
+        _same_report({k: v for k, v in reports[d["channel"]].items()
+                      if k != "worker"}, d) for d in one)
+    summed = {k: sum(c[k] for c in launches) for k in launches[0]} \
+        if launches else {}
+    print(f"[multihost] 2 workers (gloo, sharing cuda:0), {len(chans)} "
+          f"captures at {SDR_RATE / 1e6:.0f} Msps with --prescan: reports "
+          f"equal the one-process scan's: {same}; channel owners {owners}; "
+          f"totals {totals} (live {n_live}); launches summed over workers "
+          f"{ {k: v for k, v in summed.items() if v} }; {wall:.1f} s with "
+          f"the workers' start ({card})")
+    want_owner = {ch.label: i % 2 for i, ch in enumerate(chans)}
+    if not same or totals != [(0, n_live), (1, n_live)] or \
+            owners != want_owner or len(launches) != 2 or \
+            any(summed[k] <= 0 for k in ("resample_poly", "pss_corr_mag_bf16",
+                                         "turbo_half_iteration")):
+        raise AssertionError(f"multihost: {res.stdout}\n{res.stderr}")
+    return {"launches": summed, "wall_s": wall, "totals": totals}
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -3068,6 +3377,13 @@ def main() -> None:
     attach = timed("attach", run_attach, dev, card)
     enb = timed("enb", run_enb, dev, card)
     harq_bench = timed("harq_bench", run_harq_bench, card, harq)
+    chans4 = scan_out["chans"][SHARD_CHANS]
+    caps4 = _native_captures(chans4, dev)
+    shard = timed("shard", run_shard, dev, card, caps4)
+    shard2 = timed("shard_2rank", run_shard_2rank, dev, card, caps4)
+    scaling = timed("scaling", run_scaling, dev, card)
+    multihost = timed("multihost", run_multihost, dev, card, chans4,
+                      scan_out["caps"][SHARD_CHANS])
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -3103,17 +3419,28 @@ def main() -> None:
                     ("harq_bench", harq_bench["launches"])):
         for kernel in ("demap", "turbo_half_iteration"):
             by_path[kernel][name] = c[kernel]
+    for kernel in ("demap", "turbo_half_iteration"):
+        by_path[kernel]["shard"] = sum(v["launches"][kernel] for v
+                                       in shard["cases"].values())
+        for name, c in (("shard_2rank", shard2["launches"]),
+                        ("scaling", scaling["launches"]),
+                        ("multihost", multihost["launches"])):
+            by_path[kernel][name] = c[kernel]
     by_path["resample_poly"] = {
         "scanner": scan_out["launches"]["resample_poly"],
         "si": si_out["launches"]["resample_poly"],
         "scanner_captures": scan_out["capture_launches"],
-        "si_captures": si_out["capture_launches"]}
+        "si_captures": si_out["capture_launches"],
+        "multihost": multihost["launches"]["resample_poly"]}
     by_path["pss_corr_mag_bf16"] = {
         "scanner": scan_out["launches"]["pss_corr_mag_bf16"],
         "si": si_out["launches"]["pss_corr_mag_bf16"],
         **{name: c["pss_corr_mag_bf16"] for name, c in
            (("config3", cfg3["launches"]), ("loopback", loop["launches"]),
-            ("stream", stream["launches"]))}}
+            ("stream", stream["launches"]),
+            ("shard", shard["cases"]["prescan"]["launches"]),
+            ("shard_2rank", shard2["launches"]),
+            ("multihost", multihost["launches"]))}}
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
@@ -3152,6 +3479,9 @@ def main() -> None:
                             ("shapes", "shape", "ms", "device_ms",
                              "plain_ms", "bound_ms", "bound_by",
                              "max_abs_err")},
+        "shard": shard, "shard_2rank": {key: shard2[key] for key in
+                                        ("launches", "by_rank", "wall_s")},
+        "scaling": scaling, "multihost": multihost,
         "harq_bench": {key: harq_bench[key] for key in
                        ("value", "unit", "single_rv_mbps", "overhead_ratio",
                         "combined_ms", "single_ms", "crc_ok", "batch",

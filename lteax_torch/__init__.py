@@ -15,14 +15,21 @@ so each counterpart is easy to find:
               (HARQ-IR), ``make_pusch_batch_decoder`` (UL-SCH) and
               ``make_mimo_batch_decoder`` (2x2 TM3/TM4, MMSE or SIC): IQ ->
               TB bits, CRC flags
-  apps/ shard/ the multi-carrier cell scanner to the MIB, SIBs and paging,
-              the capture generator and scanner CLIs (config #1), the
-              streaming scanner, the recorder and the ctrl socket
+  apps/       the multi-carrier cell scanner to the MIB, SIBs and paging
+              (one process, or workers in a gloo group), the capture
+              generator and scanner CLIs (config #1), the streaming
+              scanner, the recorder, the ctrl socket, the attach and eNB
+              simulators
+  shard/      the multi-device layer over torch.distributed: the rank
+              mesh and its launcher, the halo exchange, the sharded
+              decoders, the channel-sharded prescan, the multi-rank dry
+              run
   sim/        DL, UL (with UCI), HARQ, 2x2 MIMO, cell and control-region
               test-signal generators
-  bench/      DL, UL and MIMO decode throughput, config #2's sweep and BLER
-              gate, config #3's gates, the PSS sweep, the ACS probe and
-              kernel studies
+  bench/      DL, UL, MIMO and HARQ decode throughput, config #2's sweep
+              and BLER gate, config #3's gates, the PSS sweep, the ACS
+              probe, kernel studies, the scaling bench and the
+              multi-process dry run
   io/ native/ IQ files and stagings, the native C++ readers and TCP
               ingest (built by g++ at first use)
   stack/ utils/  EARFCN helpers, the RRC codecs, checkpoint, metrics,

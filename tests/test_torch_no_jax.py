@@ -1,8 +1,9 @@
 """The PyTorch port loads no jax, nothing of the ``lteax`` package (not
 even its jax-free modules or its native library: the port keeps its own
 copies) and no ``cryptography`` (the card's machine has none: the port has
-its own AES), its decoders, generators, simulators and CLIs run on the
-card unless asked for the CPU, a
+its own AES), nor do the ranks it spawns; its decoders, generators,
+simulators, CLIs and multi-device entry points run on the card unless
+asked for the CPU, NCCL is never asked to put two ranks on one card, a
 failed native build raises, and chip_smoke.py refuses to run without the
 port or without a CUDA device (no CPU fallback, no result printed)."""
 
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(lteax_torch.__path__,"
         " 'lteax_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 106, mods\n"
+        "assert len(mods) >= 112, mods\n"
         "for m in ('phy.channels.phich', 'phy.channels.pucch',"
         " 'bench.ul_throughput', 'bench.snr_sweep', 'bench.config3',"
         " 'sim.ctrl_gen', 'apps.file_gen', 'apps.ctrl', 'apps.stream_scan',"
@@ -50,7 +51,9 @@ def test_port_imports_no_jax():
         " 'stack.rlc_am', 'stack.rlc_um', 'stack.users', 'io.pcap',"
         " 'apps.attach_sim', 'apps.rrc_attach_sim', 'stack.mac_sched',"
         " 'stack.pdcp', 'stack.cnfg_db', 'stack.gw', 'stack.timers',"
-        " 'apps.enb_sim', 'apps.enb_service', 'bench.harq_throughput'):\n"
+        " 'apps.enb_sim', 'apps.enb_service', 'bench.harq_throughput',"
+        " 'shard.mesh', 'shard.halo', 'shard.pipeline', 'shard.scanner',"
+        " 'shard.dryrun', 'bench.scaling', 'bench.multihost_dryrun'):\n"
         "    assert 'lteax_torch.' + m in mods, m\n" + _FOREIGN)
     assert res.returncode == 0, res.stderr
 
@@ -332,3 +335,136 @@ def test_chip_smoke_fails_alone(tmp_path):
     for line in res.stdout.splitlines():
         with pytest.raises(json.JSONDecodeError):
             json.loads(line)
+
+
+def test_spawned_ranks_load_no_jax():
+    """A rank of ``shard.mesh.spawn`` is a fresh interpreter: it loads
+    neither jax nor lteax, whatever its parent loaded."""
+    import torch_shard_ranks
+    from lteax_torch.shard.mesh import spawn
+    res = spawn(torch_shard_ranks.foreign_modules, 2, "cpu", None)
+    assert [r.value for r in res] == [[], []]
+
+
+def _sharded_factory_args(name: str):
+    from lteax_torch.phy.channels.pusch import PuschAlloc
+    from lteax_torch.sim.dl_gen import DlCell, harq_decoder_args
+    from lteax_torch.sim.mimo_gen import MimoCell
+    from lteax_torch.sim.ul_gen import UlCell
+    cell = DlCell(n_rb_dl=6, n_cell_id=150, mcs=9, cfi=2)
+    return {
+        "make_sharded_decoder": cell.decoder_args(),
+        "make_sharded_acquire_decoder": cell.decoder_args(),
+        "make_sharded_pusch_decoder":
+            UlCell(alloc=PuschAlloc(6, 0, 712, 2)).decoder_args(),
+        "make_sharded_harq_decoder": harq_decoder_args(
+            [cell, dataclasses.replace(cell, subframe=2, rv=2)]),
+        "make_sharded_mimo_decoder":
+            MimoCell(n_rb_dl=6, cfi=2, mcs=15).decoder_args(),
+        "make_sharded_mimo_sic_decoder":
+            MimoCell(n_rb_dl=6, cfi=2, mcs=15).decoder_args(),
+    }[name]
+
+
+@pytest.mark.parametrize("factory", ["make_sharded_decoder",
+                                     "make_sharded_acquire_decoder",
+                                     "make_sharded_pusch_decoder",
+                                     "make_sharded_harq_decoder",
+                                     "make_sharded_mimo_decoder",
+                                     "make_sharded_mimo_sic_decoder"])
+def test_sharded_decoders_need_a_card_unless_asked_for_the_cpu(factory):
+    """On a mesh of CPU ranks a sharded factory without ``device`` raises
+    instead of decoding on the CPU; ``device="cpu"`` builds."""
+    import torch
+    from lteax_torch.shard import pipeline as sp
+    from lteax_torch.shard.mesh import make_mesh, process_group
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    make = getattr(sp, factory)
+    args = _sharded_factory_args(factory)
+    with process_group(device="cpu"):
+        mesh = make_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(mesh, *args)
+        assert make(mesh, *args, device="cpu").device == torch.device("cpu")
+
+
+def _multi_device_entry(name: str, device):
+    """Call one multi-device entry point on ``device`` (None: the card)."""
+    import torch_shard_ranks
+    from lteax_torch.apps import scanner
+    from lteax_torch.bench import multihost_dryrun, scaling
+    from lteax_torch.shard.dryrun import dryrun_multichip
+    from lteax_torch.shard.mesh import make_mesh, process_group, spawn
+    dev = [] if device is None else ["--device", device]
+    if name == "make_mesh":
+        with process_group(device="cpu"):
+            return make_mesh(device=device)
+    if name == "process_group":
+        with process_group(device=device):
+            return None
+    if name == "spawn":
+        return spawn(torch_shard_ranks.foreign_modules, 1, device, None)
+    if name == "dryrun_multichip":
+        return dryrun_multichip(1, device=device, n_rb=6, verbose=False)
+    if name == "bench.scaling":
+        return scaling.main(["--n-rb", "6", "--mcs", "9", "--per-dev", "1",
+                             "--reps", "1", *dev])
+    if name == "bench.multihost_dryrun":
+        return multihost_dryrun.main(["--nproc", "1", *dev])
+    return scanner.main(["a=/nonexistent", "--multihost", "2", *dev])
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "process_group", "spawn",
+                                  "dryrun_multichip", "bench.scaling",
+                                  "bench.multihost_dryrun",
+                                  "apps.scanner --multihost"])
+def test_multi_device_entry_points_need_a_card_unless_asked_for_the_cpu(
+        name):
+    """Without a CUDA device each multi-device entry point raises before
+    it starts a rank or a worker; asked for the CPU, each runs (the
+    scanner's coordinator is left out: its workers would scan)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _multi_device_entry(name, None)
+    if name != "apps.scanner --multihost":
+        _multi_device_entry(name, "cpu")
+
+
+@pytest.mark.parametrize("n_ranks,backend,ok", [
+    (1, "nccl", True), (2, "nccl", False), (2, None, False),
+    (2, "gloo", True), (1, None, True)])
+def test_nccl_needs_a_card_a_rank(monkeypatch, n_ranks, backend, ok):
+    """With one card, NCCL (the default on cards) takes one rank and
+    refuses two, naming ``backend="gloo"``; gloo takes both.  Nothing
+    switches backend for the caller."""
+    import torch
+    from lteax_torch.shard.mesh import resolve_backend
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    if ok:
+        assert resolve_backend("cuda", n_ranks, backend) == \
+            (backend or "nccl")
+    else:
+        with pytest.raises(ValueError, match='backend="gloo"'):
+            resolve_backend("cuda", n_ranks, backend)
+
+
+@pytest.mark.parametrize("entry", ["spawn", "dryrun_multichip",
+                                   "bench.scaling"])
+def test_nccl_on_the_cpu_raises_naming_gloo(entry):
+    """Asked for the CPU with NCCL, the entry points raise before starting
+    a rank: NCCL has no CPU ranks, gloo does."""
+    import torch_shard_ranks
+    from lteax_torch.bench import scaling
+    from lteax_torch.shard.dryrun import dryrun_multichip
+    from lteax_torch.shard.mesh import spawn
+    call = {"spawn": lambda: spawn(torch_shard_ranks.foreign_modules, 2,
+                                   "cpu", "nccl"),
+            "dryrun_multichip": lambda: dryrun_multichip(
+                2, device="cpu", backend="nccl"),
+            "bench.scaling": lambda: scaling.main(
+                ["--nproc", "2", "--device", "cpu", "--backend", "nccl"])}
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        call[entry]()
