@@ -177,6 +177,18 @@ them from what each rank returns):
     lteax_torch.apps.scanner --multihost 2 --prescan`` on the same 4
     captures at 20 Msps: each worker's reports equal the one-process
     scan's, both workers' totals the live count.
+27. The reference's shipped numerics (``[bf16]``, ``phy.tuning.SHIPPED``:
+    bf16 trellis, bf16 demap staging): the DL headline (B=256, 25 dB)
+    under ``SHIPPED`` and under the f32 default on the same IQ, timed in
+    turns, 256/256 with the bits sent under both; the threshold cells
+    (21.5 and 20.5 dB, B=256) under both, CRC counts; UL, HARQ (15 dB),
+    TM3 MMSE and TM4 SIC at B=64 under ``SHIPPED`` (and f32 on the same
+    IQ), every block decoded; the bf16_f32store (the bf16 kernel with an
+    f32 extrinsic carry) and freeze trellises on 64 DL subframes.  Their
+    kernel forms (turbo bf16 and bf16 freeze; demap bf16 in and out at the
+    DL and UL shapes, and f32 in with bf16 out for SIC's front) are held to
+    their plain versions at the main paths' shapes beforehand and counted
+    in these runs.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -239,7 +251,8 @@ from lteax_torch.phy.fec.turbo import turbo_encode
 from lteax_torch.phy.grid import pcfich_flat_idx, pdcch_flat_idx
 from lteax_torch.phy.mod import demodulate_maxlog
 from lteax_torch.phy.ofdm import samples_to_subframe, subframe_to_samples
-from lteax_torch.phy.tuning import DecoderTuning
+from lteax_torch.kernels import launch_counts, reset_launch_counts
+from lteax_torch.phy.tuning import SHIPPED, DecoderTuning
 from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
                                   make_mimo_batch_decoder,
@@ -384,7 +397,17 @@ SOURCES = {
                       "lteax/kernels/polyphase.py:60"),
     "acs_probe": ("lteax_torch/kernels/csrc/acs_probe.cu",
                   "bench/vpu_bf16_probe.py:39"),
+    **{f"turbo_half_iteration_{f}": ("lteax_torch/kernels/csrc/turbo.cu",
+                                     "lteax/kernels/turbo_mlm.py:536")
+       for f in ("bf16", "bf16_freeze")},
+    **{f"demap_{f}": ("lteax_torch/kernels/csrc/demap.cu",
+                      "lteax/kernels/demap.py:68")
+       for f in ("bf16", "bf16 (UL shape)", "bf16_out")},
 }
+# [bf16]: the threshold cells of the DL headline; B of the other cells
+BF16_THRESHOLD_DB = (21.5, 20.5)
+BF16_B = 64
+BF16_REPS = 20
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -444,35 +467,40 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
-def check_demap(name: str, sgn: np.ndarray, n: int, scheme: str, dev) -> dict:
+def check_demap(name: str, sgn: np.ndarray, n: int, scheme: str, dev,
+                in_dt: torch.dtype = torch.float32,
+                out_dt: torch.dtype = torch.float32) -> dict:
     """Demap kernel vs plain on (256, n) columns with the sign planes
-    ``sgn`` (m, npad) of a main path."""
+    ``sgn`` (m, npad) of a main path, inputs staged in ``in_dt`` and the
+    LLRs written in ``out_dt``."""
     m, npad = sgn.shape
     rng = np.random.default_rng(SEED)
-    t = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)
+    t = lambda x: torch.as_tensor(x.astype(np.float32), device=dev).to(in_dt)
     xr = t(rng.standard_normal((BATCH, n)) * 0.7)
     xi = t(rng.standard_normal((BATCH, n)) * 0.7)
     inv_nv = t(rng.uniform(10.0, 1000.0, (BATCH, n)))
-    sgn = t(sgn)
-    got = demap_mod.demap_planar(xr, xi, inv_nv, sgn, scheme)
-    ref = demap_mod.demap_planar_plain(xr, xi, inv_nv, sgn, scheme)
+    sgn = torch.as_tensor(sgn, device=dev)
+    got = demap_mod.demap_planar(xr, xi, inv_nv, sgn, scheme, out_dt)
+    ref = demap_mod.demap_planar_plain(xr, xi, inv_nv, sgn, scheme, out_dt)
     torch.cuda.synchronize()
-    if got.shape != (BATCH, m, npad) or not torch.equal(got, ref):
+    if got.shape != (BATCH, m, npad) or got.dtype != out_dt or \
+            not torch.equal(got, ref):
         raise AssertionError(f"{name} kernel != plain: max |err| "
                              f"{max_abs_err(got, ref)}")
     ms = cuda_time_ms(lambda: demap_mod.demap_planar(xr, xi, inv_nv, sgn,
-                                                     scheme), 50)
+                                                     scheme, out_dt), 50)
     plain_ms = cuda_time_ms(lambda: demap_mod.demap_planar_plain(
-        xr, xi, inv_nv, sgn, scheme), 10)
+        xr, xi, inv_nv, sgn, scheme, out_dt), 10)
     # per column and axis: L distances (sub, mul), m/2 bits of L-2 mins,
     # and sub, mul, mul per LLR
     lv = 2 ** (m // 2)
     ops = BATCH * npad * 2 * (2 * lv + (m // 2) * (lv - 2 + 3))
+    isz, osz = xr.element_size(), got.element_size()
     return {"name": name, "shape": [BATCH, n, m, npad],
             "max_abs_err": max_abs_err(got, ref), "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            **bound(4 * (3 * BATCH * n + m * npad + BATCH * m * npad), ops,
-                    F32_OPS_PER_S)}
+            **bound(isz * 3 * BATCH * n + 4 * m * npad
+                    + osz * BATCH * m * npad, ops, F32_OPS_PER_S)}
 
 
 def check_acs_probe(dev) -> dict:
@@ -518,16 +546,17 @@ def turbo_inputs(c: int, n: int, win: int, seed: int, dev):
     return (u, v, *turbo_mod._pin_boundaries(a0, b0))
 
 
-def turbo_equal_plain(args, win: int, acq: int) -> list[float]:
-    """Kernel vs plain on (L, a_nii, b_nii), ``torch.equal``."""
-    got = turbo_mod.half_iteration_raw(*args, win, acq)
-    ref = turbo_mod.half_iteration_plain(*args, win, acq)
+def turbo_equal_plain(args, win: int, acq: int, *form) -> list[float]:
+    """Kernel vs plain on (L, a_nii, b_nii), ``torch.equal``; ``form`` is
+    (mdtype, pinpad), the f32 pinned form by default."""
+    got = turbo_mod.half_iteration_raw(*args, win, acq, *form)
+    ref = turbo_mod.half_iteration_plain(*args, win, acq, *form)
     torch.cuda.synchronize()
     errs = [max_abs_err(g, r) for g, r in zip(got, ref)]
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-        raise AssertionError(f"turbo kernel != plain (L, a_nii, b_nii) at "
-                             f"{tuple(args[0].shape)}, win {win}, acq {acq}: "
-                             f"max |err| {errs}")
+        raise AssertionError(f"turbo kernel {form} != plain (L, a_nii, "
+                             f"b_nii) at {tuple(args[0].shape)}, win {win}, "
+                             f"acq {acq}: max |err| {errs}")
     return errs
 
 
@@ -555,6 +584,47 @@ def check_turbo(cell: DlCell, dev) -> dict:
     return {"name": "turbo_half_iteration", "shape": [c, n, win, acq],
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, **bound(n_bytes, ops, F32_OPS_PER_S)}
+
+
+# (name, mdtype, pinpad) of the turbo kernel's bf16 forms [bf16] checks
+# ("bf16_f32store" runs the bf16 kernel: its stores hold the same values)
+TURBO_FORMS = (("turbo_half_iteration_bf16", "bf16", True),
+               ("turbo_half_iteration_bf16_freeze", "bf16", False))
+
+
+def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
+    """The bf16 forms of the half-iteration kernel vs plain at the main
+    path's shape (C = 3328, K = 5824, win 128) and at the ragged shapes,
+    bit for bit, each timed on bf16 u, v (the wrapper's cast left out).
+    Bound: u, v and L move as bf16 (2 bytes), the inits and NII exports as
+    f32; the alpha and beta stores stay in shared memory.  The 60 ACS
+    operations of a position (and an acquisition step's 60) run in bf16 at
+    the packed bf16 rate, the combine's 39 in f32."""
+    geom = cell.geom
+    c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
+    n_w = -(-n // win)
+    u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 1, dev)
+    ub, vb = u.to(torch.bfloat16), v.to(torch.bfloat16)
+    bf16_ops = c * n * 60 + c * n_w * acq * 60
+    f32_ops = c * n * 39
+    eq_ops = f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S
+    out = []
+    for name, mdtype, pinpad in TURBO_FORMS:
+        for cr, nr, wr, ar in TURBO_RAGGED:
+            turbo_equal_plain(turbo_inputs(cr, nr, wr, SEED + nr, dev), wr,
+                              ar, mdtype, pinpad)
+        errs = turbo_equal_plain((ub, vb, a0, b0), win, acq, mdtype, pinpad)
+        ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(
+            ub, vb, a0, b0, win, acq, mdtype, pinpad), 20)
+        plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
+            ub, vb, a0, b0, win, acq, mdtype, pinpad), 1)
+        out.append({"name": name, "shape": [c, n, win, acq],
+                    "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bf16_ops": bf16_ops,
+                    "f32_ops": f32_ops,
+                    **bound(2 * 3 * c * n + 4 * 4 * c * n_w * 8, eq_ops,
+                            F32_OPS_PER_S)})
+    return out
 
 
 def check_turbo_mimo(dev) -> dict:
@@ -661,6 +731,33 @@ def library_conv1d_ms(x: torch.Tensor, filt: np.ndarray,
         torch.backends.cudnn.allow_tf32 = before
 
 
+def library_conv1d_bf16_ms(x: torch.Tensor, filt: np.ndarray) -> float:
+    """``conv1d`` in bf16 (cuDNN on the tensor cores), the yardstick of the
+    bf16 correlator: the complex correlation in real form, the streams'
+    (re, im) as 2 input channels and each replica's real and imaginary
+    output as 6 output channels (re: [h_re, h_im], im: [-h_im, h_re]
+    against (x_re, x_im): x times conj(h)).  Leaves out the |.|^2, as
+    :func:`library_conv1d_ms`.  cuDNN picks its algorithm by timing them
+    (``cudnn.benchmark``).  Used nowhere in the port."""
+    h = torch.as_tensor(filt, device=x.device)
+    w = torch.stack([torch.stack([h.real, h.imag], 1),
+                     torch.stack([-h.imag, h.real], 1)], 1).reshape(
+        6, 2, -1).to(torch.bfloat16)
+    xp = torch.nn.functional.pad(torch.stack([x.real, x.imag], 1),
+                                 (0, filt.shape[1] - 1)).to(torch.bfloat16)
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        y = torch.nn.functional.conv1d(xp, w)
+        if y.shape != (x.shape[0], 6, x.shape[1]):
+            raise AssertionError(f"bf16 conv1d yardstick shape "
+                                 f"{tuple(y.shape)}")
+        del y
+        return cuda_time_ms(lambda: torch.nn.functional.conv1d(xp, w), 3)
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
 def check_pss(dev) -> list[dict]:
     """PSS correlator and detect kernels vs plain at 4 carriers x 20
     subframes of 20 MHz (nf = 2048): the f32 kernels bit for bit; the bf16
@@ -708,6 +805,10 @@ def check_pss(dev) -> list[dict]:
                     lambda: pss_mod.pss_corr_mag_plain(x, filt, "f32"), 1, 0),
                 "library_ms": library_conv1d_ms(x, filt, tf32=False),
                 "library": "conv1d, f32, TF32 off",
+                # built with -fmad=false: each flop is an instruction, at
+                # the add/mul rate, not the FMA-counted flop rate
+                "bound_nofma_ms": max(corr_bytes / HBM_BYTES_PER_S,
+                                      flop / F32_OPS_PER_S) * 1e3,
                 **bound(corr_bytes, flop, F32_FLOP_PER_S)})
     got = pss_mod.pss_detect(x, filt, "f32")[:3]
     ref = pss_mod.pss_detect_plain(x, filt, "f32")
@@ -742,14 +843,23 @@ def check_pss(dev) -> list[dict]:
                              f"root or index")
     moved = int((peak_got != peak_f32).sum())
     del got
+    # the yardstick is the faster of two single calls: conv1d in bf16, or
+    # in f32 with cuDNN's TF32 on
+    lib = {"conv1d, bf16 (real form, 2 -> 6 channels)":
+           library_conv1d_bf16_ms(x, filt),
+           "conv1d, f32 with cuDNN TF32 on":
+           library_conv1d_ms(x, filt, tf32=True)}
+    lib_name = min(lib, key=lib.get)
     out.append({"name": "pss_corr_mag_bf16", "shape": shape,
                 "max_abs_err": err, "max_rel_err_of_peak": max(rel),
                 "tolerance_of_peak": tol, "peaks_moved_vs_f32": moved,
                 "ms": cuda_time_ms(lambda: pss_mod.pss_corr_mag(x, filt), 10),
                 "plain_ms": cuda_time_ms(
                     lambda: pss_mod.pss_corr_mag_plain(x, filt), 1, 0),
-                "library_ms": library_conv1d_ms(x, filt, tf32=True),
-                "library": "conv1d, f32 with cuDNN TF32 on",
+                "library_ms": lib[lib_name], "library": lib_name,
+                "library_bf16_ms": lib["conv1d, bf16 (real form, 2 -> 6 "
+                                       "channels)"],
+                "library_tf32_ms": lib["conv1d, f32 with cuDNN TF32 on"],
                 **bound(corr_bytes, flop, BF16_TENSOR_FLOP_PER_S)})
     got = pss_mod.pss_detect(x, filt)[:3]
     rp = pss_mod.pss_detect_plain(x, filt)
@@ -2730,11 +2840,11 @@ def turbo_shapes_seen(log: dict):
     (C, n, win, acq) while the block runs (the launches still count)."""
     launch = turbo_mod.half_iteration_kernel
 
-    def recorded(u, v, a_init, b_init, win, acq, wpb):
+    def recorded(u, v, a_init, b_init, win, acq, wpb, *form):
         key = (u.shape[0], u.shape[1], win, acq)
         if key not in log:
             log[key] = tuple(x.clone() for x in (u, v, a_init, b_init))
-        return launch(u, v, a_init, b_init, win, acq, wpb)
+        return launch(u, v, a_init, b_init, win, acq, wpb, *form)
 
     turbo_mod.half_iteration_kernel = recorded
     try:
@@ -3249,6 +3359,136 @@ def run_multihost(dev, card: str, chans: list, caps: list) -> dict:
 PHASE_SECONDS: dict = {}
 
 
+def decode_forms(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
+                 want_ok: int | None, forms: tuple) -> dict:
+    """One decode with every launch count set to 0 just before it and read
+    just after; each kernel form in ``forms`` must have launched and
+    ``want_ok`` blocks pass (None: any), every passing one with the bits
+    sent."""
+    reset_launch_counts()
+    bits, ok, n_iter = dec(x)
+    torch.cuda.synchronize()
+    counts = {f: c for f, c in launch_counts().items() if c}
+    n_ok = int(ok.sum())
+    okn = ok.cpu().numpy()
+    bits_ok = bool(np.array_equal(bits.cpu().numpy()[okn], tb_ref[okn]))
+    print(f"[bf16] {name}: crc ok {n_ok}/{len(tb_ref)}, bits of those equal "
+          f"sent: {bits_ok}, n_iter {n_iter}, retries "
+          f"{dec.last_stats.retries}, launches {counts}")
+    if (want_ok is not None and n_ok != want_ok) or not bits_ok:
+        raise AssertionError(f"[bf16] {name}: {n_ok}/{len(tb_ref)} decoded, "
+                             f"{want_ok} expected (bits equal: {bits_ok})")
+    for f in forms:
+        if counts.get(f, 0) <= 0:
+            raise AssertionError(f"[bf16] {name} never launched {f}")
+    return {"n_ok": n_ok, "n_iter": n_iter, "launches": counts,
+            "bits": bits}
+
+
+def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
+    """``[bf16]``: the reference's shipped numerics (``SHIPPED``) beside
+    the f32 default on the same IQ."""
+    f32 = DecoderTuning()
+    k1, k3 = "turbo_half_iteration_bf16", "demap_bf16"
+    out = {}
+    # the DL headline: the SHIPPED decode is the bf16 forms' main path
+    iq, tb = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
+    x = torch.from_numpy(iq).to(dev)
+    dec_s = make_batch_decoder(*cell.decoder_args(), tuning=SHIPPED,
+                               device=dev)
+    dec_f = make_batch_decoder(*cell.decoder_args(), tuning=f32, device=dev)
+    sh = decode_forms("DL headline SHIPPED", dec_s, x, tb, BATCH, (k1, k3))
+    fl = decode_forms("DL headline f32", dec_f, x, tb, BATCH,
+                      ("turbo_half_iteration", "demap"))
+    if not torch.equal(sh.pop("bits"), fl.pop("bits")):
+        raise AssertionError("[bf16] SHIPPED and f32 bits differ")
+    pairs = [(time_decode(dec_s, x, 1)[0], time_decode(dec_f, x, 1)[0])
+             for _ in range(BF16_REPS)]
+    t_s, t_f = (float(np.median(t)) for t in zip(*pairs))
+    mb = lambda t: BATCH * cell.geom.tbs / t / 1e6
+    print(f"[bf16] DL headline B={BATCH}, {SNR_DB} dB, in turns (n="
+          f"{BF16_REPS} each): SHIPPED {t_s * 1e3:.3f} ms = {mb(t_s):.2f} "
+          f"Mbit/s, n_iter {sh['n_iter']}; f32 {t_f * 1e3:.3f} ms = "
+          f"{mb(t_f):.2f} Mbit/s, n_iter {fl['n_iter']}; ratio "
+          f"{t_s / t_f:.3f}; bits equal ({card})")
+    out["dl"] = {"shipped": {**sh, "ms": t_s * 1e3, "mbit_per_s": mb(t_s)},
+                 "f32": {**fl, "ms": t_f * 1e3, "mbit_per_s": mb(t_f)}}
+    launches = {k1: sh["launches"][k1], k3: sh["launches"][k3]}
+    # the other trellis forms, on 64 of the same subframes (bf16_f32store:
+    # the bf16 kernel, the extrinsic carried in f32)
+    xs = x[:BF16_B]
+    for name, t, form in (
+            ("bf16_f32store",
+             dataclasses.replace(SHIPPED, mdtype="bf16_f32store"), k1),
+            ("bf16_freeze", dataclasses.replace(SHIPPED, pinpad=False),
+             "turbo_half_iteration_bf16_freeze")):
+        r = decode_forms(f"DL B={BF16_B} {name}", make_batch_decoder(
+            *cell.decoder_args(), tuning=t, device=dev), xs, tb[:BF16_B],
+            BF16_B, (form,))
+        if form != k1:
+            launches[form] = r["launches"][form]
+    del x, xs
+    # the threshold cells, both profiles on one IQ each
+    out["threshold"] = {}
+    for snr in BF16_THRESHOLD_DB:
+        iq, tb = dl_subframes(cell, BATCH, snr, seed=SEED)
+        x = torch.from_numpy(iq).to(dev)
+        r = {p: decode_forms(f"DL {snr} dB {p}", d, x, tb, None, ())
+             for p, d in (("shipped", dec_s), ("f32", dec_f))}
+        out["threshold"][snr] = {p: {k: v[k] for k in ("n_ok", "n_iter")}
+                                 for p, v in r.items()}
+        del x
+    print(f"[bf16] threshold cells, CRC ok of {BATCH} (n_iter): " + "; ".join(
+        f"{snr} dB SHIPPED {v['shipped']['n_ok']} ({v['shipped']['n_iter']})"
+        f", f32 {v['f32']['n_ok']} ({v['f32']['n_iter']})"
+        for snr, v in out["threshold"].items()) + f" ({card})")
+    # the other decoders at B=64 under SHIPPED, f32 on the same IQ
+    iq, tb = ul_subframes(ul_cell, BF16_B, SNR_DB, seed=SEED)
+    # (name, factory, args, keywords, IQ, sent rows, forms, CRC passes
+    # required: all but at HARQ's 15 dB, where rv 0 + 2 is near threshold)
+    cases = [("UL", make_pusch_batch_decoder, ul_cell.decoder_args(), {},
+              torch.from_numpy(iq), tb, (k1, k3), len(tb))]
+    iq, tb, cells = harq_transmissions(cell, HARQ_SUBFRAMES, HARQ_RVS,
+                                       BF16_B, HARQ_SNR_DB, seed=SEED)
+    cases.append((f"HARQ {HARQ_SNR_DB} dB", make_batch_harq_decoder,
+                  harq_decoder_args(cells), {}, torch.from_numpy(iq), tb,
+                  (k1, k3), None))
+    iq, tb = mimo_subframes(MIMO_TM3, BF16_B, SNR_DB, "bench", seed=SEED)
+    cases.append(("TM3 MMSE", make_mimo_batch_decoder,
+                  MIMO_TM3.decoder_args(), {}, torch.from_numpy(iq),
+                  decoder_rows(tb), (k1, k3), 2 * BF16_B))
+    iq, tb = mimo_subframes(MIMO_TM4, BF16_B, MIMO_TM4_SNR_DB, "corr",
+                            seed=SEED)
+    cases.append(("TM4 SIC", make_mimo_batch_decoder,
+                  MIMO_TM4.decoder_args(),
+                  {**MIMO_TM4.precoding, "sic": True}, torch.from_numpy(iq),
+                  decoder_rows(tb), (k1, "demap_bf16_out"), 2 * BF16_B))
+    del iq
+    out["b64"] = {}
+    for name, make, args, kw, x, tb, forms, want in cases:
+        x = x.to(dev)
+        kw = dict(kw)
+        sic = kw.pop("sic", False)
+        tune = lambda t: dataclasses.replace(t, mimo_detector="sic") \
+            if sic else t
+        r_s = decode_forms(f"{name} B={BF16_B} SHIPPED", make(
+            *args, **kw, tuning=tune(SHIPPED), device=dev), x, tb, want,
+            forms)
+        r_f = decode_forms(f"{name} B={BF16_B} f32", make(
+            *args, **kw, tuning=tune(f32), device=dev), x, tb, None, ())
+        out["b64"][name] = {"shipped": r_s["n_ok"], "f32": r_f["n_ok"],
+                            "n_iter": [r_s["n_iter"], r_f["n_iter"]]}
+        if name == "TM4 SIC":
+            launches["demap_bf16_out"] = r_s["launches"]["demap_bf16_out"]
+        if name == "UL":
+            launches["demap_bf16 (UL shape)"] = r_s["launches"][k3]
+    print(f"[bf16] B={BF16_B} under SHIPPED (f32), CRC ok: " + ", ".join(
+        f"{k} {v['shipped']} ({v['f32']})" for k, v in out["b64"].items())
+        + f" ({card})")
+    out["launches"] = launches
+    return out
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, its wall time kept under ``name``."""
     t0 = time.perf_counter()
@@ -3292,13 +3532,30 @@ def main() -> None:
     turbo_mimo = timed("check_turbo", check_turbo_mimo, dev)
     turbo_si = timed("check_turbo", check_turbo_si, dev)
     turbo_attach = timed("check_turbo", check_turbo_attach, dev)
+    turbo_forms = timed("check_turbo", check_turbo_forms, cell, dev)
+    # SIC's front (f32 in, bf16 out) at TM4's shape, with codeword 0's
+    # scrambling signs (pad columns emit 0: the de-match's zero slot)
+    g4 = MIMO_TM4.geom
+    sic_sgn = demap_mod.planar_sgn_np(
+        seq.pdsch_c_init(MIMO_TM4.rnti, MIMO_TM4.subframe,
+                         MIMO_TM4.n_cell_id, 0), g4.g, g4.qm,
+        -(-g4.n_re // 128) * 128)
+    bf = torch.bfloat16
+    demap_forms = [
+        timed("check_demap", check_demap, "demap_bf16", dl_sgn,
+              cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev, bf, bf),
+        timed("check_demap", check_demap, "demap_bf16 (UL shape)",
+              ul_dec.ul_front.sgn.numpy(), ul_cell.alloc.n_re,
+              ul_cell.alloc.scheme, dev, bf, bf),
+        timed("check_demap", check_demap, "demap_bf16_out", sic_sgn,
+              g4.n_re, MIMO_TM4.scheme, dev, torch.float32, bf)]
     kernels = [timed("check_demap", check_demap, "demap", dl_sgn,
                      cfg.n_sym_subframe * cfg.n_sc, cell.scheme, dev),
                timed("check_turbo", check_turbo, cell, dev),
                *timed("check_pss", check_pss, dev),
                timed("check_resample", check_resample),
                timed("check_acs_probe", check_acs_probe, dev)]
-    for k in [*kernels, demap_ul]:
+    for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]:
         if "by_shape" in k:             # the resampler: a line a shape below
             continue
         lib_ms = k["library_ms"]
@@ -3384,6 +3641,8 @@ def main() -> None:
     scaling = timed("scaling", run_scaling, dev, card)
     multihost = timed("multihost", run_multihost, dev, card, chans4,
                       scan_out["caps"][SHARD_CHANS])
+    bf16 = timed("bf16", run_bf16, cell, ul_cell, dev, card)
+    launches.update(bf16["launches"])
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -3444,7 +3703,8 @@ def main() -> None:
 
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
-             "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape")
+             "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape",
+             "f32_ops", "bound_nofma_ms", "library_bf16_ms")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],
          "replaces": SOURCES[k["name"]][1], "launches": launches[k["name"]],
@@ -3453,7 +3713,10 @@ def main() -> None:
          **{key: k[key] for key in k
             if key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms") + extra
-            or key.startswith("bf16_")}} for k in [*kernels, demap_ul]],
+            or key.startswith("bf16_")}}
+        for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]],
+        "bf16_profile": {key: bf16[key] for key in
+                         ("dl", "threshold", "b64")},
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",
                             "bound_by", "max_abs_err")},

@@ -30,7 +30,8 @@ import json
 import sys
 
 
-from lteax_torch.bench.timing import IQ_FORMATS, bench_decode, stage_iq
+from lteax_torch.bench.timing import (IQ_FORMATS, add_numerics_args,
+                                      bench_decode, numerics, stage_iq)
 from lteax_torch.pipeline import make_batch_decoder
 from lteax_torch.sim.dl_gen import DlCell, dl_subframes
 
@@ -51,10 +52,11 @@ def main(argv=None) -> dict:
                          "in DIR")
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
+    add_numerics_args(ap)
     a = ap.parse_args(argv)
     cell = DlCell()
     dec = make_batch_decoder(*cell.decoder_args(), n_iter=a.iters,
-                             device=a.device)
+                             tuning=numerics(a), device=a.device)
     iq, tb = dl_subframes(cell, a.batch, a.snr_db, seed=0)
     res = bench_decode(dec, stage_iq(iq, a.iq).to(dec.device), tb, a.reps,
                        a.trace)
@@ -71,7 +73,8 @@ def main(argv=None) -> dict:
            "vs_baseline": round(value / REAL_TIME_MBIT_S, 3),
            "crc_ok": res["crc_ok"], "bits_equal": res["bits_equal"],
            "n_iter": res["n_iter"],
-           "batch": a.batch, "iq": a.iq, "card": res["card"],
+           "batch": a.batch, "iq": a.iq, "mdtype": a.mdtype,
+           "demap_in": a.demap_in, "card": res["card"],
            "trace": res["trace"]}
     print(json.dumps(out))
     return out

@@ -31,7 +31,8 @@ import time
 
 import torch
 
-from lteax_torch.bench.timing import card_line, stage_iq
+from lteax_torch.bench.timing import (add_numerics_args, card_line,
+                                      numerics, stage_iq)
 from lteax_torch.pipeline import make_batch_decoder, make_batch_harq_decoder
 from lteax_torch.sim.dl_gen import (DlCell, harq_decoder_args,
                                     harq_transmissions)
@@ -65,12 +66,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
+    add_numerics_args(ap)
     a = ap.parse_args(argv)
     cells = [DlCell(subframe=sf, rv=rv) for sf, rv in zip(SUBFRAMES, RVS)]
     dec_h = make_batch_harq_decoder(*harq_decoder_args(cells),
-                                    n_iter=N_ITER, device=a.device)
+                                    n_iter=N_ITER, tuning=numerics(a),
+                                    device=a.device)
     dec_1 = make_batch_decoder(*cells[0].decoder_args(), n_iter=N_ITER,
-                               device=a.device)
+                               tuning=numerics(a), device=a.device)
     print(f"building 32 distinct subframes x {len(RVS)} rvs (tiled to "
           f"{a.batch})...", file=sys.stderr)
     iq, _, _ = harq_transmissions(cells[0], SUBFRAMES, RVS, a.batch,
@@ -93,7 +96,8 @@ def main(argv=None) -> dict:
            "combined_ms": t_h * 1e3, "single_ms": t_1 * 1e3,
            "crc_ok": ok_h, "single_crc_ok": ok_1, "n_iter": it_h,
            "single_n_iter": it_1, "batch": a.batch,
-           "depth": a.depth, "iq": IQ,
+           "depth": a.depth, "iq": IQ, "mdtype": a.mdtype,
+           "demap_in": a.demap_in,
            "card": card_line() if on_card else "cpu"}
     print(json.dumps(out))
     return out

@@ -27,8 +27,8 @@ import json
 import sys
 
 
-from lteax_torch.bench.timing import IQ_FORMATS, bench_decode, stage_iq
-from lteax_torch.phy.tuning import DecoderTuning
+from lteax_torch.bench.timing import (IQ_FORMATS, add_numerics_args,
+                                      bench_decode, numerics, stage_iq)
 from lteax_torch.pipeline import make_mimo_batch_decoder
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
 
@@ -55,6 +55,7 @@ def main(argv=None) -> dict:
                          "in DIR")
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
+    add_numerics_args(ap)
     a = ap.parse_args(argv)
     cell = MimoCell(mcs=a.mcs, tm=a.tm, cb_index=a.cb_index)
     geom = cell.geom
@@ -63,7 +64,7 @@ def main(argv=None) -> dict:
           file=sys.stderr)
     dec = make_mimo_batch_decoder(
         *cell.decoder_args(), n_iter=a.iters,
-        tuning=DecoderTuning(mimo_detector=a.detector), **cell.precoding,
+        tuning=numerics(a, mimo_detector=a.detector), **cell.precoding,
         device=a.device)
     iq, tb = mimo_subframes(cell, a.batch, a.snr_db, a.cmat, seed=0)
     res = bench_decode(dec, stage_iq(iq, a.iq).to(dec.device),
@@ -78,7 +79,8 @@ def main(argv=None) -> dict:
            "value": round(res["mbit_per_s"], 2), "unit": res["unit"],
            "crc_ok": res["crc_ok"], "bits_equal": res["bits_equal"],
            "batch": a.batch,
-           "n_iter": res["n_iter"], "iq": a.iq, "card": res["card"],
+           "n_iter": res["n_iter"], "iq": a.iq, "mdtype": a.mdtype,
+           "demap_in": a.demap_in, "card": res["card"],
            "trace": res["trace"]}
     print(json.dumps(out))
     return out

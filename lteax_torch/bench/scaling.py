@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from lteax_torch.bench.timing import card_line
+from lteax_torch.bench.timing import add_numerics_args, card_line, numerics
 from lteax_torch.shard import pipeline as sp
 from lteax_torch.shard.mesh import device_type, make_mesh, mesh_device, spawn
 from lteax_torch.sim.dl_gen import DlCell, dl_subframes
@@ -46,14 +46,15 @@ def _cell(n_rb: int, mcs: int) -> DlCell:
 
 
 def _rank(kind: str, n_rb: int, mcs: int, per_dev: int, reps: int,
-          acquire: bool) -> dict:
+          acquire: bool, tuning=None) -> dict:
     """One rank: its decode times (s) and the global n_ok."""
     mesh = make_mesh(device=kind)
     dev = mesh_device(mesh)
     cell = _cell(n_rb, mcs)
     make = sp.make_sharded_acquire_decoder if acquire else \
         sp.make_sharded_decoder
-    dec = make(mesh, *cell.decoder_args(), n_iter=6, device=dev)
+    dec = make(mesh, *cell.decoder_args(), n_iter=6, tuning=tuning,
+               device=dev)
     iq, _ = dl_subframes(cell, per_dev, snr_db=30.0, seed=0)
     x = torch.from_numpy(iq).to(dev)
     sync = (lambda: torch.cuda.synchronize(dev)) if kind == "cuda" else \
@@ -87,6 +88,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--backend", default=None,
                     help="nccl (default on cards) or gloo (ranks that share "
                          "a card, or the CPU)")
+    add_numerics_args(ap)
     a = ap.parse_args(argv)
     kind = device_type(a.device)
     cell = _cell(a.n_rb, a.mcs)
@@ -96,7 +98,7 @@ def main(argv=None) -> dict:
     rows = []
     for n in (d for d in (1, 2, 4, 8) if d <= nproc):
         ranks = spawn(_rank, n, kind, a.backend, kind, a.n_rb, a.mcs,
-                      a.per_dev, a.reps, a.acquire)
+                      a.per_dev, a.reps, a.acquire, numerics(a))
         t = float(np.median(np.max([r.value["times"] for r in ranks],
                                    axis=0)))
         n_ok = ranks[0].value["n_ok"]
@@ -121,6 +123,7 @@ def main(argv=None) -> dict:
            "unit": "samples/s" if kind == "cuda" else "samples/s (CPU dry "
                                                        "run)",
            "results": rows, "reps": a.reps, "device": kind,
+           "mdtype": a.mdtype, "demap_in": a.demap_in,
            "backend": a.backend or ("nccl" if kind == "cuda" else "gloo"),
            "card": card_line() if kind == "cuda" else "cpu"}
     print(json.dumps(out))

@@ -1,6 +1,6 @@
 """Timing and reporting shared by the decode benches and ``chip_smoke.py``:
 the card's name and power limit, the IQ staging of the device boundary,
-and decode times on the host's clock around synchronised calls (a decode
+the decoders' numerics options, and decode times on the host's clock around synchronised calls (a decode
 syncs on device flags itself, so the host clock is what a caller waits),
 each call a ``decode_batch`` range, optionally profiled into a trace."""
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from lteax_torch.io.iq import from_iq_f32, to_iq_bf16, to_iq_sc8
+from lteax_torch.phy.tuning import MDTYPES, DecoderTuning
 from lteax_torch.utils.trace import profile_to, stage
 
 IQ_FORMATS = ("f32", "bf16", "sc8")
@@ -35,6 +36,22 @@ def stage_iq(iq: np.ndarray, fmt: str) -> torch.Tensor:
         return torch.from_numpy(to_iq_sc8(x, 127.0 / float(np.abs(iq).max())))
     raise ValueError(f"unknown IQ staging {fmt!r} "
                      f"(use {'/'.join(IQ_FORMATS)})")
+
+
+def add_numerics_args(ap) -> None:
+    """``--mdtype`` and ``--demap-in``: the decoder's trellis and demap
+    staging (the counterparts of the reference's ``LTEAX_PALLAS_DTYPE`` and
+    ``LTEAX_DEMAP_IN``), default the exact f32 profile; ``--mdtype bf16
+    --demap-in bf16`` is the reference's shipped numerics (``SHIPPED``)."""
+    ap.add_argument("--mdtype", default="f32", choices=MDTYPES,
+                    help="turbo trellis metric dtype")
+    ap.add_argument("--demap-in", default="f32", choices=("f32", "bf16"),
+                    help="demap kernel input staging dtype")
+
+
+def numerics(a, **kw) -> DecoderTuning:
+    """The tuning of :func:`add_numerics_args`' options (and ``kw``)."""
+    return DecoderTuning(mdtype=a.mdtype, demap_in=a.demap_in, **kw)
 
 
 def card_line() -> str:

@@ -10,12 +10,17 @@ at first use (``_build``) — never at import.
 
 
 def launch_counts() -> dict:
-    """Each kernel's launch count in this process (the counters a caller
-    sets to 0), by the names ``chip_smoke.py`` reports."""
+    """Each kernel form's launch count in this process (the counters a
+    caller sets to 0, :func:`reset_launch_counts`), by the names
+    ``chip_smoke.py`` reports: the turbo half-iteration's and the demap's
+    other forms are ``turbo_half_iteration_<form>`` and ``demap_<form>``."""
     from lteax_torch.kernels import (acs_probe, demap, polyphase, pss,
                                      turbo_mlm)
     return {"demap": demap.LAUNCHES,
+            **{f"demap_{f}": c for f, c in demap.FORM_LAUNCHES.items()},
             "turbo_half_iteration": turbo_mlm.LAUNCHES,
+            **{f"turbo_half_iteration_{f}": c
+               for f, c in turbo_mlm.FORM_LAUNCHES.items()},
             "pss_corr_mag": pss.CORR_LAUNCHES,
             "pss_corr_mag_bf16": pss.CORR_BF16_LAUNCHES,
             "pss_detect": pss.DETECT_LAUNCHES,
@@ -23,3 +28,15 @@ def launch_counts() -> dict:
             "resample_poly": polyphase.LAUNCHES,
             "acs_probe": acs_probe.LAUNCHES}
 
+
+def reset_launch_counts() -> None:
+    """Set every kernel form's launch count in this process to 0."""
+    from lteax_torch.kernels import (acs_probe, demap, polyphase, pss,
+                                     turbo_mlm)
+    demap.LAUNCHES = turbo_mlm.LAUNCHES = polyphase.LAUNCHES = 0
+    acs_probe.LAUNCHES = 0
+    pss.CORR_LAUNCHES = pss.CORR_BF16_LAUNCHES = 0
+    pss.DETECT_LAUNCHES = pss.DETECT_BF16_LAUNCHES = 0
+    for forms in (demap.FORM_LAUNCHES, turbo_mlm.FORM_LAUNCHES):
+        for f in forms:
+            forms[f] = 0

@@ -38,9 +38,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_corr_bf16": [_P, _P, _P, _I, _I, _I, _P],
@@ -133,9 +133,10 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for t in tensors:
-        if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
-            raise ValueError(f"{name}: needs contiguous float32 CUDA tensors, "
-                             f"got {t.dtype} on {t.device}")
+        if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
+            raise ValueError(f"{name}: needs contiguous {dtype} CUDA "
+                             f"tensors, got {t.dtype} on {t.device}")

@@ -57,6 +57,27 @@
 // order, so with -fmad=false the result equals the plain torch version bit
 // for bit.
 //
+// The reference's other forms are a template argument and a flag of the
+// same kernel:
+//   - a bf16 trellis (bf16 u, v, stores and L; the reference's
+//     "bf16_f32store" holds the same bf16 values in f32 stores, so it runs
+//     this form too).  The registers hold f32 values that are bf16 values,
+//     and every ACS add, gamma and renormalisation rounds back to bf16 at
+//     once (rnd): f32 has 24 >= 2 * 8 + 2 bits, so one f32 operation on
+//     two bf16 values rounded to bf16 is the correctly rounded bf16
+//     operation, as torch's per-operation bf16 on the CPU and the
+//     reference's bf16 are.  The inits round to bf16 on loading; the
+//     combine sums in f32 and L rounds once; the main sweeps renormalise
+//     (x -= x[0], state 0 from lane 0 of the direction by one shuffle)
+//     every `period` steps, as the reference's kernels do whatever their
+//     unroll; the acquisition never does;
+//   - the freeze (pinpad=False): a dead position of the beta main sweep
+//     keeps the old beta, so the step is skipped as the acquisition skips
+//     one.  The dead steps are the first t_pin of the last window's sweep,
+//     so its chain starts in the phase of step t_pin and holds it across
+//     them.  (bf16's blend m*new + (1-m)*old keeps the old value too, up to
+//     the sign of a zero, which no comparison sees.)
+//
 // The 8-state wiring is lteax.phy.fec.turbo._unrolled_wiring written out as
 // the two tables below (the tests parse them back and compare): a row of
 // FWD is (p0, p1, g0, g1) of a'[s'] = max(a[p0] + g[g0], a[p1] + g[g1]), a
@@ -64,6 +85,7 @@
 // g[g1]).  The kernel reads its wiring from them, and a static_assert holds
 // them to the butterfly structure its lane layout needs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define TRELLIS_FWD {{0, 1, 0, 3}, {2, 3, 2, 1}, {4, 5, 1, 2}, {6, 7, 3, 0}, \
@@ -125,6 +147,46 @@ __device__ __forceinline__ float with_sign(float x, unsigned sign) {
   return __uint_as_float(__float_as_uint(x) ^ sign);
 }
 
+// The metric arithmetic: in a bf16 form every result rounds to bf16
+// (round to nearest even), in f32 nothing rounds.
+template <bool kB>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kB) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(x);
+  else return x;
+}
+
+// A store slot of type T that a combine step writes its L into: L leaves
+// the combine's f32 sums rounded once to the metric type.
+template <typename T>
+struct LSlot {
+  T v;
+  __device__ __forceinline__ void operator=(float x) { v = from_f32<T>(x); }
+};
+
+// a pair of metrics in a store (8 bytes in f32, 4 in bf16)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // Lane q of a direction holds one butterfly's pair of metrics in (r0, r1):
 // in phase 0 butterfly q, in phase 1 butterfly swap2(q) (q's two bits
 // exchanged).  An alpha pair k is (a[2k], a[2k+1]) and a step turns it into
@@ -155,6 +217,13 @@ __device__ __forceinline__ unsigned outer_sign(int code) {
 __device__ __forceinline__ float gamma_of(float2 uv, unsigned vsign,
                                           unsigned sign) {
   return with_sign(0.5f * (uv.x + with_sign(uv.y, vsign)), sign);
+}
+// ... and in the metric type: each of the sum and the halving rounds
+template <bool kB>
+__device__ __forceinline__ float gamma_m(float2 uv, unsigned vsign,
+                                         unsigned sign) {
+  return with_sign(rnd<kB>(0.5f * rnd<kB>(uv.x + with_sign(uv.y, vsign))),
+                   sign);
 }
 
 __device__ Phase make_phase(int d, int q, int ph) {
@@ -187,23 +256,29 @@ __device__ __forceinline__ int slab_index(int rel, int win, int acq) {
   return rel + acq + (rel + win) / win;
 }
 
-__global__ void turbo_half_kernel(const float* __restrict__ u,
-                                  const float* __restrict__ v,
+// T: the metric type of u, v, L and the alpha/beta stores (float, or bf16
+// for the bf16 trellis).  freeze: the beta main sweep keeps the old beta at
+// dead positions instead of pinning them.
+template <typename T>
+__global__ void turbo_half_kernel(const T* __restrict__ u,
+                                  const T* __restrict__ v,
                                   const float* __restrict__ a_init,
                                   const float* __restrict__ b_init,
-                                  float* __restrict__ l_out,
+                                  T* __restrict__ l_out,
                                   float* __restrict__ a_nii,
                                   float* __restrict__ b_nii,
                                   int n, int n_w, int win, int acq, int wpb,
-                                  int blocks_per_row) {
+                                  int blocks_per_row, int freeze) {
+  constexpr bool kB = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int half = win / 2;
+  const int period = half % 4 == 0 ? 4 : 2;    // bf16 renormalisation
   const int dir_stride = half * 8 + 8;         // one direction's store + pad
   const int chain_stride = 2 * dir_stride;
   const int slab = wpb * win + 2 * acq;        // positions staged
   const int slab_slots = slab + wpb + 1;
   float2* uv = reinterpret_cast<float2*>(smem);   // (u, v) per position
-  float* store = smem + 2 * slab_slots;
+  T* store = reinterpret_cast<T*>(smem + 2 * slab_slots);
 
   const int cb = blockIdx.x / blocks_per_row;
   const int w0 = (blockIdx.x % blocks_per_row) * wpb;
@@ -218,15 +293,20 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
 
   // The block's u, v slab, zero outside [0, n) and in the pad slots: every
   // copy is in flight at once (a loop of loads would pay the device
-  // memory's latency per turn).
+  // memory's latency per turn).  bf16 inputs are read and widened by the
+  // threads (cp.async moves 4 bytes at least).
   for (int i = threadIdx.x; i < slab; i += blockDim.x) {
     const int rel = i - acq;
     const int pos = p0 + rel;
     float2* dst = uv + slab_index(rel, win, acq);
     if (pos >= 0 && pos < n) {
-      const unsigned d32 = (unsigned)__cvta_generic_to_shared(dst);
-      cp_async4(d32, u + row + pos);
-      cp_async4(d32 + 4, v + row + pos);
+      if constexpr (!kB) {
+        const unsigned d32 = (unsigned)__cvta_generic_to_shared(dst);
+        cp_async4(d32, reinterpret_cast<const float*>(u) + row + pos);
+        cp_async4(d32 + 4, reinterpret_cast<const float*>(v) + row + pos);
+      } else {
+        *dst = make_float2(to_f32(u[row + pos]), to_f32(v[row + pos]));
+      }
     } else {
       *dst = make_float2(0.0f, 0.0f);
     }
@@ -244,6 +324,7 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   const int d = sub >> 2;                      // 0 alpha, 1 beta
   const int q = sub & 3;
   const unsigned all = 0xffffffffu;
+  const int lane0 = (threadIdx.x & 31) & ~3;   // this direction's q = 0
   // combine wiring (the same in both phases): lanes 0 and 1 end up with the
   // bit-0 maxima, lanes 2 and 3 with the bit-1 maxima, of code class 0 on
   // lanes 0, 3 and 1 on lanes 1, 2
@@ -254,29 +335,35 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   const long long chain = (long long)cb * n_w + (live_chain ? w : 0);
   const float* init = (d ? b_init : a_init) + chain * 8;
   float* nii = (d ? b_nii : a_nii) + chain * 8;
-  float* mine = store + wl * chain_stride + d * dir_stride;
-  float* theirs = store + wl * chain_stride + (1 - d) * dir_stride;
+  T* mine = store + wl * chain_stride + d * dir_stride;
+  T* theirs = store + wl * chain_stride + (1 - d) * dir_stride;
   const int base = p0 + wl * win;              // first position of the window
 
   // state index of register r of pair k in this direction
   auto state = [&](int k, int r) { return d ? k + 4 * r : 2 * k + r; };
 
+  // The beta sweep's dead positions (beyond n) are its steps t < t_pin.
+  // Pinned, they are steps under the pin's gammas; frozen, no steps: the
+  // chain then holds the phase of step t_pin across them.
+  const int t_pin = d ? win - (n - base) : 0;
+  const int skip = freeze ? max(t_pin, 0) : 0;
+
   // 1. acquisition runs over the live positions only (a dead one is a
   // no-op): alpha of window 0 has none; beta skips the positions beyond n.
-  // The main sweep starts in phase 0, so `live` steps start in phase
-  // live & 1.
+  // The main sweep starts in phase 0 (phase skip & 1, frozen), so `live`
+  // steps start in phase (live + skip) & 1.
   int first = 0;
   if (d == 0) {
     if (w == 0) first = acq;
   } else {
     first = min(max(base + win + acq - n, 0), acq);
   }
-  int phase = (acq - first) & 1;
+  int phase = (acq - first + skip) & 1;
   float r0 = 0.0f, r1 = 0.0f;
   if (live_chain) {
     const int k = phase ? swap2(q) : q;        // the phase's pair
-    r0 = init[state(k, 0)];
-    r1 = init[state(k, 1)];
+    r0 = rnd<kB>(init[state(k, 0)]);
+    r1 = rnd<kB>(init[state(k, 1)]);
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
@@ -288,8 +375,8 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   // lane bit p.swap; `exchange` takes what came back.
   float lo, hi;
   auto butterfly = [&](const Phase& p, float g) {
-    lo = fmaxf(r0 + g, r1 - g);
-    hi = fmaxf(r0 - g, r1 + g);
+    lo = fmaxf(rnd<kB>(r0 + g), rnd<kB>(r1 - g));
+    hi = fmaxf(rnd<kB>(r0 - g), rnd<kB>(r1 + g));
     return (q & p.swap) ? lo : hi;
   };
   auto exchange = [&](const Phase& p, float got) {
@@ -298,9 +385,17 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
     r1 = bit ? hi : got;
   };
   auto step_gamma = [&](const Phase& p, float2 x, bool pin) {
-    float g = gamma_of(x, p.vsign, 0u);
+    float g = gamma_m<kB>(x, p.vsign, 0u);
     if (pin) g = HALF_PIN;
     return with_sign(g, p.sign);
+  };
+  // bf16: after main-sweep step t, every `period` steps, x -= x[0]
+  auto renorm = [&](int t) {
+    if (kB && (t + 1) % period == 0) {
+      const float s0 = __shfl_sync(all, r0, lane0);
+      r0 = rnd<kB>(r0 - s0);
+      r1 = rnd<kB>(r1 - s0);
+    }
   };
 
   const float2* uacq = uv + (d ? wl * win + win + acq - 1 : wl * win - acq) +
@@ -319,27 +414,28 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   // asked for early: the inputs are read two steps ahead (xp runs along this
   // direction's positions, forwards for alpha and backwards for beta) and
   // the gamma of the next step is formed while this step's shuffle is under
-  // way.  The beta sweep pins the positions beyond n: its steps t < t_pin.
+  // way.
   const float2* uwin = uv + wl * win + acq + wl + 1;
   const int xs = d ? -1 : 1;
   const float2* xp = uwin + (d ? win - 1 : 0);
-  const int t_pin = d ? win - (n - base) : 0;
-  float g = step_gamma(ph0, xp[0], 0 < t_pin);
+  const bool pinned = !freeze;
+  float g = step_gamma(ph0, xp[0], pinned && 0 < t_pin);
   float2 xn = xp[xs];
   xp += 2 * xs;
 
   // 2. store phase: the pre-step pair of step t goes to slot t, at its
   // butterfly's place (sp0 and sp1: where this lane's pair goes in phase 0
   // and in phase 1)
-  float* sp0 = mine + 2 * ph0.pair;
-  float* sp1 = mine + 8 + 2 * ph1.pair;
-  auto store_step = [&](const Phase& p, const Phase& p_next, float* sp,
+  T* sp0 = mine + 2 * ph0.pair;
+  T* sp1 = mine + 8 + 2 * ph1.pair;
+  auto store_step = [&](const Phase& p, const Phase& p_next, T* sp,
                         int t) {
     const float2 xnn = *xp;
-    *reinterpret_cast<float2*>(sp) = make_float2(r0, r1);
+    store2(sp, r0, r1);
     const float got = __shfl_xor_sync(all, butterfly(p, g), p.swap);
-    g = step_gamma(p_next, xn, t + 1 < t_pin);
-    exchange(p, got);
+    g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
+    if (t >= skip) exchange(p, got);
+    renorm(t);
     xn = xnn;
     xp += xs;
   };
@@ -368,19 +464,21 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   // the stages carry before they fill, and the steps past the window, is
   // never written (their reads stay inside the block's shared memory).
   // op0 and op1 walk down the opposite store at this lane's pair of phase 0
-  // and of phase 1; lp walks down it two slots behind, where L goes.
-  const float* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;   // step half+1
-  const float* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
-  float* lp = theirs + (half + 1) * 8;         // the slot of step t-2
-  float2 o = *reinterpret_cast<const float2*>(op0 + 8);        // step half
+  // and of phase 1; lp walks down it two slots behind, where L goes.  The
+  // combine sums in f32 whatever the metric type.
+  const T* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;       // step half+1
+  const T* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
+  LSlot<T>* lp =                               // the slot of step t-2
+      reinterpret_cast<LSlot<T>*>(theirs + (half + 1) * 8);
+  float2 o = load2(op0 + 8);                   // step half
   float ga = gamma_of(uwin[d ? half - 1 : half], comb_vsign, comb_sign);
   float in_b = 0.0f, in_c = 0.0f;              // what stages B and C take
   const int t_nii = win - acq;
   float nii0 = 0.0f, nii1 = 0.0f;              // the pair before step t_nii
   auto combine_step = [&](const Phase& p, const Phase& p_next,
-                          const float* op_next, int t) {
+                          const T* op_next, int t) {
     const float2 xnn = *xp;
-    const float2 o_next = *reinterpret_cast<const float2*>(op_next);
+    const float2 o_next = load2(op_next);
     if (t == t_nii) {
       nii0 = r0;
       nii1 = r1;
@@ -393,12 +491,13 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
     const float got_a = __shfl_xor_sync(all, keeps1 ? bit0 : bit1, 3);
     const float got_b = __shfl_xor_sync(all, in_b, 1);
     const float got_c = __shfl_xor_sync(all, in_c, 3);
-    g = step_gamma(p_next, xn, t + 1 < t_pin);
+    g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
     const float ga_next = gamma_of(xn, comb_vsign, comb_sign);
     if (q == 0 && t >= half + 2) *lp = in_c - got_c;
     in_c = fmaxf(in_b, got_b);
     in_b = fmaxf(keeps1 ? bit1 : bit0, got_a) + ga;
-    exchange(p, got_s);
+    if (t >= skip) exchange(p, got_s);
+    if (t < win) renorm(t);
     ga = ga_next;
     xn = xnn;
     o = o_next;
@@ -412,8 +511,10 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
     op1 -= 16;
   }
   if (live_chain) {
-    // the pair before step t_nii belongs to that step's phase
-    const int k = (t_nii & 1) ? ph1.pair : ph0.pair;
+    // the pair before step t_nii belongs to that step's phase, or to step
+    // t_pin's while a frozen chain holds it
+    const int held = t_nii < skip ? skip : t_nii;
+    const int k = (held & 1) ? ph1.pair : ph0.pair;
     nii[state(k, 0)] = nii0;
     nii[state(k, 1)] = nii1;
   }
@@ -422,53 +523,71 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   // L of position t of a window: t < half in the alpha store's slot t, else
   // in the beta store's slot win-1-t
   for (int wl2 = 0; wl2 < wpb; ++wl2) {
-    const float* st = store + wl2 * chain_stride;
+    const T* st = store + wl2 * chain_stride;
     for (int t = threadIdx.x; t < win; t += blockDim.x) {
       const int pos = p0 + wl2 * win + t;
       const int slot = t < half ? t : win - 1 - t;
       if (pos < n)
-        l_out[row + pos] =
-            st[(t < half ? 0 : dir_stride) + slot * 8];
+        l_out[row + pos] = st[(t < half ? 0 : dir_stride) + slot * 8];
     }
   }
 }
 
 }  // namespace
 
-// Shared memory of a block of wpb windows, bytes.
+// Shared memory of a block of wpb windows, bytes: the (u, v) slab in f32
+// and the stores in T.
+template <typename T>
 static size_t turbo_smem_bytes(int win, int acq, int wpb) {
   const size_t slab_slots = (size_t)wpb * win + 2 * acq + wpb + 1;
   const size_t chain = 2 * ((size_t)(win / 2) * 8 + 8);
-  return sizeof(float) * (2 * slab_slots + wpb * chain);
+  return sizeof(float) * 2 * slab_slots + sizeof(T) * wpb * chain;
 }
 
-// u, v: (c, n) f32; a_init, b_init: (c, n_w, 8) f32 (already pinned);
-// l_out: (c, n) f32; a_nii, b_nii: (c, n_w, 8) f32 raw exports; wpb: windows
-// per block (8 * wpb threads).  Returns cudaGetLastError.
-extern "C" int lteax_turbo_half(const float* u, const float* v,
-                                const float* a_init, const float* b_init,
-                                float* l_out, float* a_nii, float* b_nii,
-                                int c, int n, int n_w, int win, int acq,
-                                int wpb, cudaStream_t stream) {
-  if (win % 4 != 0 || acq <= 0 || acq > win / 2 || n_w * win < n ||
-      (n_w - 1) * win >= n || wpb <= 0 || wpb * kLanes > 1024 ||
-      (wpb * kLanes) % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (c <= 0) return 0;
-  const size_t smem = turbo_smem_bytes(win, acq, wpb);
+template <typename T>
+static int launch(const void* u, const void* v, const float* a_init,
+                  const float* b_init, void* l_out, float* a_nii,
+                  float* b_nii, int c, int n, int n_w, int win, int acq,
+                  int wpb, int freeze, cudaStream_t stream) {
+  const size_t smem = turbo_smem_bytes<T>(win, acq, wpb);
+  auto kernel = turbo_half_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
-      turbo_half_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(turbo_half_kernel,
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)c * blocks_per_row;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  turbo_half_kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
-      u, v, a_init, b_init, l_out, a_nii, b_nii, n, n_w, win, acq, wpb,
-      blocks_per_row);
+  kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(v), a_init, b_init,
+      static_cast<T*>(l_out), a_nii, b_nii, n, n_w, win, acq, wpb,
+      blocks_per_row, freeze);
   return (int)cudaGetLastError();
+}
+
+// u, v: (c, n) in the metric type (f32, or bf16 with bf16 = 1);
+// a_init, b_init: (c, n_w, 8) f32 (already pinned); l_out: (c, n) in the
+// metric type; a_nii, b_nii: (c, n_w, 8) f32 raw exports; wpb: windows per
+// block (8 * wpb threads); bf16: 1 runs the bf16 trellis; freeze: 1 keeps
+// the old beta at dead positions instead of pinning them.  Returns
+// cudaGetLastError.
+extern "C" int lteax_turbo_half(const void* u, const void* v,
+                                const float* a_init, const float* b_init,
+                                void* l_out, float* a_nii, float* b_nii,
+                                int c, int n, int n_w, int win, int acq,
+                                int wpb, int bf16, int freeze,
+                                cudaStream_t stream) {
+  if (win % 4 != 0 || acq <= 0 || acq > win / 2 || n_w * win < n ||
+      (n_w - 1) * win >= n || wpb <= 0 || wpb * kLanes > 1024 ||
+      (wpb * kLanes) % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (c <= 0) return 0;
+  if (bf16)
+    return launch<__nv_bfloat16>(u, v, a_init, b_init, l_out, a_nii, b_nii,
+                                 c, n, n_w, win, acq, wpb, freeze, stream);
+  return launch<float>(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
+                       win, acq, wpb, freeze, stream);
 }

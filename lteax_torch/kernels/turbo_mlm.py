@@ -5,10 +5,13 @@ Port of ``lteax/kernels/turbo_mlm.py``: the TPU kernels
 tiles) become ONE CUDA kernel on the natural (C, K+3) layout,
 ``csrc/turbo.cu`` (a block owns consecutive windows of one codeblock, 8
 lanes carry each window's chain, the alpha/beta stores stay in shared
-memory; see the note in the source).  :func:`half_iteration_plain` is the same arithmetic in
-plain torch, vectorised the way the Pallas body is: a Python loop over
-trellis steps on (C, n_w) tensors.  :func:`half_iteration_raw` runs it for
-CPU tensors and launches the kernel for CUDA tensors.
+memory; see the note in the source), in the reference's forms: an f32 or
+bf16 trellis (``mdtype`` "f32", or "bf16" and "bf16_f32store", whose
+stores hold the same bf16 values) and pinned or frozen padding
+(``pinpad``).  :func:`half_iteration_plain` is the same
+arithmetic in plain torch, vectorised the way the Pallas body is: a Python
+loop over trellis steps on (C, n_w) tensors.  :func:`half_iteration_raw`
+runs it for CPU tensors and launches the kernel for CUDA tensors.
 
 :func:`turbo_decode_batch` is the natural-path half of
 ``turbo_decode_batch_pallas``: DEC1/DEC2 halves with the QPP gathers,
@@ -29,6 +32,7 @@ import torch
 from lteax_torch.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
 from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok
 from lteax_torch.phy.fec.turbo import _unrolled_wiring
+from lteax_torch.phy.tuning import MDTYPES
 
 NEG = -1e9
 PIN = 512.0
@@ -41,7 +45,15 @@ the decoders (8 lanes each, so one warp a block): 21.4 KB of shared memory
 a block at win 128, ten blocks (40 chains) an SM."""
 
 LAUNCHES = 0
-"""Kernel launches since the last reset (plain-version calls do not count)."""
+"""Launches of the f32 pinned-padding form since the last reset
+(plain-version calls do not count)."""
+
+FORM_LAUNCHES = {"bf16": 0, "bf16_freeze": 0, "f32_freeze": 0}
+"""Launches of every other form, by trellis (``bf16``: the kernel of both
+bf16 mdtypes) and ``_freeze`` without pinned padding, as :data:`LAUNCHES`."""
+
+_TRELLIS = {"f32": "f32", "bf16": "bf16", "bf16_f32store": "bf16"}
+"""The kernel's trellis of each ``mdtype``."""
 
 
 def _gammas(uu, vv):
@@ -61,17 +73,52 @@ def _live_masks(win: int, acq: int, n_w: int, n: int, device):
             t(pos_bacq < n))
 
 
-def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
+def _metric_dtypes(mdtype: str):
+    """(metric dtype, extrinsic-carry dtype) of an ``mdtype``
+    (``turbo_mlm.py:549``, ``:1246`` in the reference; the store dtype
+    changes no value and is the kernel's alone)."""
+    if mdtype not in MDTYPES:
+        raise ValueError(f"mdtype {mdtype!r}: one of {MDTYPES}")
+    if mdtype == "f32":
+        return torch.float32, torch.float32
+    return torch.bfloat16, (torch.bfloat16 if mdtype == "bf16"
+                            else torch.float32)
+
+
+def renorm_period(win: int) -> int:
+    """Trellis steps between two bf16 renormalisations (a -= a[0],
+    b -= b[0]) of the main sweeps: 4, or 2 when win/2 is not a multiple of
+    4.  Both reference kernels renormalise at this cadence whatever their
+    unroll (``_renorm_at``; the fused kernel's loop body); the
+    acquisition never does."""
+    return 4 if (win // 2) % 4 == 0 else 2
+
+
+def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
+                         mdtype: str = "f32", pinpad: bool = True):
     """Plain torch version of the kernel.
 
-    u, v (C, n) f32; a_init, b_init (C, n_w, 8) f32 (pinned by the caller).
-    Returns (l (C, n), a_nii, b_nii (C, n_w, 8)) — the raw NII exports:
-    a_nii[w] = alpha at (w+1)*win - acq, b_nii[w] = beta at w*win + acq."""
+    u, v (C, n); a_init, b_init (C, n_w, 8) f32 (pinned by the caller).
+    Returns (l (C, n), a_nii, b_nii (C, n_w, 8) f32) — the raw NII exports:
+    a_nii[w] = alpha at (w+1)*win - acq, b_nii[w] = beta at w*win + acq.
+
+    ``mdtype`` "f32": every operation in f32 and l in f32.  "bf16" and
+    "bf16_f32store" (one arithmetic; the stores hold bf16 values either
+    way): u, v and the inits rounded to bf16, every ACS add in bf16, the
+    main sweeps renormalised every :func:`renorm_period` steps, the combine
+    summed in f32 from the bf16 metrics, l rounded to bf16.  ``pinpad``
+    False keeps the old beta at dead positions of the main sweep (a select
+    in f32, ``m*new + (1-m)*old`` in bf16), as the acquisition always does.
+    """
     fwd, bwd, out0, out1 = _unrolled_wiring()
+    dt, _ = _metric_dtypes(mdtype)
+    bf16 = dt == torch.bfloat16
+    f32 = torch.float32
     c, n = u.shape
     n_w = -(-n // win)
     half = win // 2
-    pad = lambda x: torch.nn.functional.pad(x, (0, n_w * win - n))
+    period = renorm_period(win)
+    pad = lambda x: torch.nn.functional.pad(x.to(dt), (0, n_w * win - n))
     um = pad(u).reshape(c, n_w, win)
     vm = pad(v).reshape(c, n_w, win)
 
@@ -84,7 +131,7 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
     ua, ub = acq_slices(um)
     va, vb = acq_slices(vm)
     lv_main, lv_a, lv_b = _live_masks(win, acq, n_w, n, u.device)
-    lm = (~lv_main).to(torch.float32) * PIN          # (n_w, win) pin addend
+    lm = ((~lv_main).to(f32) * PIN).to(dt)           # (n_w, win) pin addend
 
     def acs_fwd(a, uu, vv):
         g = _gammas(uu, vv)
@@ -97,10 +144,26 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
                 for (n0, n1, g0, g1) in bwd]
 
     def freeze(new, old, keep):
+        if bf16:
+            m = keep.to(dt)
+            return [m * x + (1.0 - m) * y for x, y in zip(new, old)]
         return [torch.where(keep, x, y) for x, y in zip(new, old)]
 
+    def beta_step(b, j):
+        if pinpad:
+            return acs_bwd(b, um[..., j] + lm[:, j], vm[..., j])
+        return freeze(acs_bwd(b, um[..., j], vm[..., j]), b, lv_main[:, j])
+
+    def renorm(a, b, t):
+        if bf16 and (t + 1) % period == 0:
+            a = [x - a[0] for x in a]
+            b = [x - b[0] for x in b]
+        return a, b
+
     def combine(a_s, b_s, uu, vv):
-        g = _gammas(uu, vv)
+        g = _gammas(uu.to(f32), vv.to(f32))
+        a_s = [x.to(f32) for x in a_s]
+        b_s = [x.to(f32) for x in b_s]
         m = [None] * 4
         for s in range(8):
             for ns, gc in (out0[s], out1[s]):
@@ -108,10 +171,10 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
                 m[gc] = t if m[gc] is None else torch.maximum(m[gc], t)
         l0 = torch.maximum(m[0] + g[0], m[1] + g[1])
         l1 = torch.maximum(m[2] + g[2], m[3] + g[3])
-        return l0 - l1
+        return (l0 - l1).to(dt)
 
-    a = [a_init[..., s] for s in range(8)]
-    b = [b_init[..., s] for s in range(8)]
+    a = [a_init[..., s].to(dt) for s in range(8)]
+    b = [b_init[..., s].to(dt) for s in range(8)]
     for t in range(acq):
         a = freeze(acs_fwd(a, ua[..., t], va[..., t]), a, lv_a[:, t])
         j = acq - 1 - t
@@ -123,59 +186,91 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int):
         a = acs_fwd(a, um[..., t], vm[..., t])
         j = win - 1 - t
         bstore[j - half] = b
-        b = acs_bwd(b, um[..., j] + lm[:, j], vm[..., j])
+        b = beta_step(b, j)
+        a, b = renorm(a, b, t)
 
-    l = torch.empty((c, n_w, win), dtype=torch.float32, device=u.device)
+    l = torch.empty((c, n_w, win), dtype=dt, device=u.device)
     a_nii = b_nii = None
     for t in range(half, win):
         j = win - 1 - t
         if t == win - acq:
-            a_nii, b_nii = torch.stack(a, -1), torch.stack(b, -1)
+            a_nii = torch.stack(a, -1).to(f32)
+            b_nii = torch.stack(b, -1).to(f32)
         l[..., t] = combine(a, bstore[t - half], um[..., t], vm[..., t])
         l[..., j] = combine(astore[j], b, um[..., j], vm[..., j])
         a = acs_fwd(a, um[..., t], vm[..., t])
-        b = acs_bwd(b, um[..., j] + lm[:, j], vm[..., j])
+        b = beta_step(b, j)
+        a, b = renorm(a, b, t)
     return l.reshape(c, n_w * win)[:, :n], a_nii, b_nii
 
 
-def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int):
+def _form(mdtype: str, pinpad: bool) -> str:
+    """The kernel form's name: its trellis, "_freeze" without pinned
+    padding."""
+    return _TRELLIS[mdtype] + ("" if pinpad else "_freeze")
+
+
+def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int,
+                       mdtype: str = "f32", pinpad: bool = True):
     """(l, a_nii, b_nii) of one half-iteration; CPU tensors take the plain
-    version, CUDA tensors launch the kernel."""
+    version, CUDA tensors launch the kernel.  l is in the metric dtype."""
     c, n = u.shape
     n_w = -(-n // win)
     if a_init.shape != (c, n_w, 8) or b_init.shape != (c, n_w, 8):
         raise ValueError(f"boundary inits must be {(c, n_w, 8)}")
     if win % 2 or not 0 < acq <= win // 2:
         raise ValueError("need an even win and 0 < acq <= win/2")
+    _metric_dtypes(mdtype)
     if not u.is_cuda:
-        return half_iteration_plain(u, v, a_init, b_init, win, acq)
+        return half_iteration_plain(u, v, a_init, b_init, win, acq, mdtype,
+                                    pinpad)
     # at most WINDOWS_PER_BLOCK windows a block, in whole warps
     wpb = -(-min(WINDOWS_PER_BLOCK, n_w) // 4) * 4
-    return half_iteration_kernel(u, v, a_init, b_init, win, acq, wpb)
+    return half_iteration_kernel(u, v, a_init, b_init, win, acq, wpb, mdtype,
+                                 pinpad)
 
 
 def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
-                          wpb: int):
+                          wpb: int, mdtype: str = "f32",
+                          pinpad: bool = True):
     """Launch the kernel on CUDA tensors with ``wpb`` windows per block: a
     multiple of 4 (8 lanes a window, whole warps a block; windows beyond
     the row run on zeros and write nothing).  It needs no scratch: the
-    three outputs are all it allocates."""
+    three outputs are all it allocates.  u, v are staged in the metric
+    dtype (a bf16 form reads bf16 u, v and writes bf16 l); the inits and
+    the NII exports stay f32."""
     global LAUNCHES
     from lteax_torch.kernels._build import check_cuda, library, stream_handle
-    check_cuda("half_iteration", u, v, a_init, b_init)
+    dt, _ = _metric_dtypes(mdtype)
+
+    def staged(x):
+        # a bf16 form rounds f32 u, v to bf16, as the reference's
+        # um.astype(dt) does; anything else must come in the metric dtype
+        if x.dtype == torch.float32 and dt == torch.bfloat16:
+            check_cuda("half_iteration", x)
+            return x.to(dt)
+        return x
+
+    u, v = staged(u), staged(v)
+    check_cuda("half_iteration", u, v, dtype=dt)
+    check_cuda("half_iteration", a_init, b_init)
     if win % 4 or wpb <= 0 or wpb % 4:
         raise ValueError("the kernel needs win and wpb to be multiples of 4")
     c, n = u.shape
     n_w = a_init.shape[1]
     dev = u.device
-    l = torch.empty((c, n), dtype=torch.float32, device=dev)
+    l = torch.empty((c, n), dtype=dt, device=dev)
     a_nii = torch.empty((c, n_w, 8), dtype=torch.float32, device=dev)
     b_nii = torch.empty_like(a_nii)
     library().call("lteax_turbo_half", u.data_ptr(), v.data_ptr(),
                    a_init.data_ptr(), b_init.data_ptr(), l.data_ptr(),
                    a_nii.data_ptr(), b_nii.data_ptr(), c, n, n_w, win, acq,
-                   wpb, stream_handle(u))
-    LAUNCHES += 1
+                   wpb, int(_TRELLIS[mdtype] == "bf16"), int(not pinpad),
+                   stream_handle(u))
+    if mdtype == "f32" and pinpad:
+        LAUNCHES += 1
+    else:
+        FORM_LAUNCHES[_form(mdtype, pinpad)] += 1
     return l, a_nii, b_nii
 
 
@@ -188,10 +283,12 @@ def _nii_post(a_nii, b_nii):
     return a_next, b_next
 
 
-def half_iteration(u, v, a_init, b_init, win: int, acq: int):
+def half_iteration(u, v, a_init, b_init, win: int, acq: int,
+                   mdtype: str = "f32", pinpad: bool = True):
     """u, v (C, n); a_init/b_init (C, n_w, 8) -> (L (C, n), a_next, b_next)
     with the reference's NII convention (``half_iteration_pallas``)."""
-    l, a_nii, b_nii = half_iteration_raw(u, v, a_init, b_init, win, acq)
+    l, a_nii, b_nii = half_iteration_raw(u, v, a_init, b_init, win, acq,
+                                         mdtype, pinpad)
     return (l, *_nii_post(a_nii, b_nii))
 
 
@@ -244,8 +341,9 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
                        win: int = 128, acq: int = 16,
                        ext_scale: float = 0.75,
                        early_crc: str | None = None, retry_m: int = 0,
-                       retry_levels: int = 2):
-    """Batched turbo decode.  llr_d (C, 3, K+4) f32 -> (bits (C, K) int8,
+                       retry_levels: int = 2, mdtype: str = "f32",
+                       pinpad: bool = True):
+    """Batched turbo decode.  llr_d (C, 3, K+4) -> (bits (C, K) int8,
     :class:`TurboStats`).
 
     Same schedule as ``turbo_decode_batch_pallas`` on its natural path:
@@ -253,7 +351,18 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     tested after each half; with 0 < retry_m < C, after one full-batch
     iteration only the <= retry_m failing blocks keep iterating in a
     gathered subbatch, else another full-batch iteration runs, up to
-    ``retry_levels`` of them, then the full-batch early-stop loop."""
+    ``retry_levels`` of them, then the full-batch early-stop loop.
+
+    ``mdtype`` picks the trellis (:func:`half_iteration_plain`) and the
+    extrinsic carry: bf16 for "bf16", f32 otherwise; the CRC reads the
+    signs of the kernel's l.  A bf16 form keeps the reference's rounding
+    order, which differs between its two paths: where the reference runs
+    its layout path (no early stop, or 0 < retry_m < C, the compacted
+    retry included) u is pre-summed, u = ls + le, and the extrinsic is
+    ext_scale * (l - u); on its natural path the extrinsic subtracts twice,
+    ext_scale * (l - ls - le), and LLRs keep their dtype.  The f32 form
+    runs the natural order on every path, as it always has (in f32 the two
+    orders differ in the last ulp only)."""
     stats = TurboStats()
     dev = llr_d.device
     c = llr_d.shape[0]
@@ -261,7 +370,10 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     n_w = -(-n // win)
     tab = _tables(k, early_crc, dev)
     pi, inv = tab["pi"], tab["inv"]
-    llr_d = llr_d.to(torch.float32)
+    _, dt_e = _metric_dtypes(mdtype)
+    presum = mdtype != "f32" and (early_crc is None or 0 < retry_m < c)
+    if mdtype == "f32" or presum:
+        llr_d = llr_d.to(dt_e)
 
     def data_from(x):
         d0, d1, d2 = x[:, 0], x[:, 1], x[:, 2]
@@ -274,32 +386,57 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         v2 = torch.cat([d2[:, :k], par_t2], dim=1)
         return (ls, ls[:, pi], v1, v2, sys_t1, sys_t2)
 
+    def half(u, v, a, b):
+        return half_iteration(u, v, *_pin_boundaries(a, b), win, acq,
+                              mdtype, pinpad)
+
     def make_halves(data):
         ls_, lsi_, v1_, v2_, st1_, st2_ = data
+        if presum:
+            # the reference's layout path: u = static + extrinsic, and the
+            # extrinsic comes back as ext_scale * (l - u)
+            def dec1(le21, a1, b1):
+                u1 = torch.cat([ls_ + le21, st1_], dim=1)
+                l1, a1n, b1n = half(u1, v1_, a1, b1)
+                return (l1[:, :k].to(dt_e), u1[:, :k]), a1n, b1n
+
+            def ext12(l1, le21):
+                l1, u1 = l1
+                return ext_scale * (l1 - u1)
+
+            def dec2(le12, a2, b2):
+                u2 = torch.cat([lsi_ + le12[:, pi], st2_], dim=1)
+                l2, a2n, b2n = half(u2, v2_, a2, b2)
+                l2 = l2[:, :k].to(dt_e)
+                return l2, (ext_scale * (l2 - u2[:, :k]))[:, inv], a2n, b2n
+
+            return dec1, dec2, ext12
 
         def dec1(le21, a1, b1):
-            u1 = torch.cat([ls_ + le21, st1_], dim=1)
-            l1, a1n, b1n = half_iteration(u1, v1_, *_pin_boundaries(a1, b1),
-                                          win, acq)
-            return l1[:, :k], a1n, b1n
+            u1 = torch.cat([(ls_ + le21).to(dt_e), st1_.to(dt_e)], dim=1)
+            l1, a1n, b1n = half(u1, v1_, a1, b1)
+            return l1[:, :k].to(dt_e), a1n, b1n
 
         def ext12(l1, le21):
-            return ext_scale * (l1 - ls_ - le21)
+            return (ext_scale * (l1 - ls_ - le21)).to(dt_e)
 
         def dec2(le12, a2, b2):
             la2 = le12[:, pi]
-            u2 = torch.cat([lsi_ + la2, st2_], dim=1)
-            l2, a2n, b2n = half_iteration(u2, v2_, *_pin_boundaries(a2, b2),
-                                          win, acq)
-            l2 = l2[:, :k]
-            le21n = (ext_scale * (l2 - lsi_ - la2))[:, inv]
+            u2 = torch.cat([(lsi_ + la2).to(dt_e), st2_.to(dt_e)], dim=1)
+            l2, a2n, b2n = half(u2, v2_, a2, b2)
+            l2 = l2[:, :k].to(dt_e)
+            le21n = (ext_scale * (l2 - lsi_ - la2)).to(dt_e)[:, inv]
             return l2, le21n, a2n, b2n
 
         return dec1, dec2, ext12
 
+    def l_of(l1):
+        """DEC1's APP LLR (the presum form carries its u beside it)."""
+        return l1[0] if presum else l1
+
     data_full = data_from(llr_d)
     zero = torch.zeros((c, n_w, 8), dtype=torch.float32, device=dev)
-    init = (torch.zeros((c, k), dtype=torch.float32, device=dev),
+    init = (torch.zeros((c, k), dtype=dt_e, device=dev),
             zero, zero, zero, zero)
 
     def one_iteration(le21, a1, b1, a2, b2):
@@ -328,14 +465,13 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
             return torch.all(par if ignore is None else par | ignore)
 
         le21, a1, b1, a2, b2 = state
-        llast = torch.zeros((data[0].shape[0], k), dtype=torch.float32,
-                            device=dev)
+        llast = torch.zeros((data[0].shape[0], k), dtype=dt_e, device=dev)
         it, from1 = 0, False
         while it < iters_left:
             l1, a1, b1 = dec1(le21, a1, b1)
             it += 1
-            if stats.flag(allok(crc_parity_ok(l1 < 0, m_nat))):
-                llast, from1 = l1, True          # skip DEC2
+            if stats.flag(allok(crc_parity_ok(l_of(l1) < 0, m_nat))):
+                llast, from1 = l_of(l1), True    # skip DEC2
                 break
             llast, le21, a2, b2 = dec2(ext12(l1, le21), a2, b2)
             if stats.flag(allok(crc_parity_ok(llast < 0, m_perm))):

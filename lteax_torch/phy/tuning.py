@@ -2,9 +2,10 @@
 
 Only the knobs that change what a decode computes are carried over;
 the TPU layout and scheduling knobs (tile sizes, lane folds, layout glue,
-planar boundaries, bf16 staging) have no meaning on the GPU port.  Values
-are the reference's shipped defaults, so a decode with this profile is the
-reference decode with ``mdtype="f32"``.
+planar boundaries) have no meaning on the GPU port.  The default profile
+is the exact one: the reference's shipped values with an f32 trellis and
+f32 demap staging (``mdtype="f32"``, ``demap_in="f32"``).  :data:`SHIPPED`
+is the reference's shipped numerics, bf16 trellis and bf16 demap staging.
 """
 
 from __future__ import annotations
@@ -12,13 +13,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 
+MDTYPES = ("f32", "bf16", "bf16_f32store")
+"""The trellis metric dtypes of the reference's turbo kernels."""
+
+
 @dataclass(frozen=True)
 class DecoderTuning:
     """- ``win``/``acq``: max-log-MAP window and acquisition length.
     - ``ext_scale``: extrinsic damping (max-log standard 0.75).
     - ``earlystop``: CRC-based half-iteration early termination.
-    - ``pinpad``: dead trellis positions carry u=+PIN in the beta sweep
-      instead of a freeze blend (the only form the port implements).
+    - ``pinpad``: dead trellis positions carry u=+PIN in the beta sweep;
+      False keeps the old beta there (the freeze: a select in f32, the
+      blend ``m*new + (1-m)*old`` in bf16).
     - ``n_iter``: full turbo iterations of the single-subframe decode
       (``pdsch.pdsch_decode_device``; the batch decoders take theirs as an
       argument).
@@ -29,7 +35,15 @@ class DecoderTuning:
       SIC).
     - ``retry_levels``: full-batch iterations checked for compaction before
       the full-batch early-stop loop takes over.
-    - ``mdtype``: trellis metric dtype; the port runs "f32" only.
+    - ``mdtype``: trellis metric dtype: "f32"; "bf16" (bf16 ACS, alpha/beta
+      stores, L output and extrinsic carries; the combine sums in f32);
+      "bf16_f32store" (the same trellis with f32 extrinsic carries; its
+      f32 stores hold the same bf16 values, so the port runs the bf16
+      kernel).  A bf16 form also carries the de-matched LLRs in bf16.
+    - ``demap_in``: staging dtype of the demap kernel's inputs ("f32" or
+      "bf16"; the kernel computes in f32 either way).  Only where the
+      reference demaps with its kernel: an injective rate match, not the
+      SIC front.
     - ``mimo_detector``: "mmse" (per-RE linear demix, both codewords in one
       turbo batch) or "sic" (decode CW0, re-encode, cancel, decode CW1 from
       an MRC of the clean layer; CW0-failed subframes keep the MMSE LLRs).
@@ -52,16 +66,20 @@ class DecoderTuning:
     retry_m_mimo: int = 192
     retry_levels: int = 2
     mdtype: str = "f32"
+    demap_in: str = "f32"
     mimo_detector: str = "mmse"
     mimo_chest: str = "ls"
     mimo_denoise: bool = False
     mimo_chest_nv: float = 3e-3
 
     def __post_init__(self):
-        if self.mdtype != "f32":
-            raise NotImplementedError("the port's trellis runs in f32 only")
-        if not self.pinpad:
-            raise NotImplementedError("the port implements pinned padding only")
+        if self.mdtype not in MDTYPES:
+            raise ValueError(f"mdtype {self.mdtype!r}: one of {MDTYPES}")
+        if self.demap_in not in ("f32", "bf16"):
+            raise ValueError(f"demap_in {self.demap_in!r}: \"f32\" or "
+                             "\"bf16\"")
+        if not isinstance(self.pinpad, bool):
+            raise ValueError("pinpad is a bool")
         if self.win % 2 or not 0 < self.acq <= self.win // 2:
             raise ValueError("need an even win and 0 < acq <= win/2")
         if self.n_iter < 1:
@@ -93,3 +111,12 @@ SINGLE_SUBFRAME = DecoderTuning(win=32, earlystop=False, retry_m=0,
 calls it): win 32, acq 16, ext_scale 0.75, a fixed 6 iterations (no
 CRC early stop) and no compacted retry.  The SI decode and
 :func:`lteax_torch.phy.channels.pdsch.pdsch_decode_device` run with it."""
+
+
+SHIPPED = DecoderTuning(mdtype="bf16", demap_in="bf16")
+"""The reference's shipped numerics (``lteax.phy.tuning.DecoderTuning()``,
+``configs/tuning_default.yaml``): a bf16 trellis (ACS, stores, L and the
+extrinsic carries in bf16) and bf16 demap staging, every other numerics
+knob as the port's default.  It leaves out the reference's factored OFDM
+DFT (``ofdm_dft="factored"``), which the port does not carry: compare it
+against the reference with ``ofdm_dft="fft"`` and ``ul_dft="fft"``."""

@@ -29,6 +29,12 @@ Three decoders share one turbo + CRC tail (:class:`TurboTail`):
   ``make_mimo_sic_batch_decoder``) decodes CW0, re-encodes and cancels it,
   and decodes CW1 from the clean layer.
 
+Every decoder takes the tuning's numerics (:mod:`lteax_torch.phy.tuning`):
+``mdtype`` picks the turbo kernel's trellis and the dtype the de-matched
+LLRs travel in (bf16 under a bf16 trellis, the reference's ``ldt``), and
+``demap_in`` the dtype the demap kernel's inputs are staged in, where the
+reference demaps with its kernel (:func:`llr_dtypes`).
+
 A decoder runs on the current CUDA device unless the caller names another
 device; without a CUDA device and without ``device="cpu"`` the factories
 raise.  Every plan (sign planes, de-match map, chest matrices, CRC matrices, QPP
@@ -107,6 +113,24 @@ def ul_rm_inv_planar(geom: PdschGeometry, qm: int, m_sc: int,
     return out.astype(np.int32)
 
 
+def llr_dtypes(tuning: DecoderTuning, dematch: np.ndarray,
+               kernel_front: bool = True):
+    """(demap input staging dtype, LLR dtype) of a front under ``tuning``.
+
+    The LLRs (the demap kernel's planar output and everything after it up
+    to the turbo decoder) are bf16 under a bf16 trellis and f32 otherwise,
+    as the reference carries them (its ``ldt``).  The inputs are staged in
+    ``tuning.demap_in`` where the reference demaps with its kernel: an
+    injective rate match (a de-match map ``dematch`` of one cycle: no
+    circular-buffer wrap) and a front other than SIC's
+    (``kernel_front``).  Elsewhere the reference demaps in f32 XLA and
+    casts the LLRs, which the port's kernel does with f32 inputs."""
+    llr = torch.float32 if tuning.mdtype == "f32" else torch.bfloat16
+    staged = (kernel_front and tuning.demap_in == "bf16"
+              and np.atleast_2d(dematch).shape[0] == 1)
+    return (torch.bfloat16 if staged else torch.float32), llr
+
+
 def _resolve_device(device) -> torch.device:
     """``None`` -> the current CUDA device; raises when there is none."""
     if device is None:
@@ -147,11 +171,13 @@ class DlFront:
 
     def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
                  scheme: str, k: int, sgn: np.ndarray, grid_inv: np.ndarray,
-                 device: torch.device):
+                 device: torch.device,
+                 dtypes: tuple = (torch.float32, torch.float32)):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, k + 4
         self.sgn = torch.as_tensor(sgn, dtype=torch.float32, device=device)
         self.grid_inv = _plan(grid_inv, device)
+        self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
 
     def equalize(self, samples_iq: torch.Tensor):
         """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
@@ -169,8 +195,10 @@ class DlFront:
         return x.real.contiguous(), x.imag.contiguous(), (p / nv).contiguous()
 
     def __call__(self, samples_iq: torch.Tensor) -> torch.Tensor:
-        xr, xi, inv_nv = self.equalize(samples_iq)
-        llr = demap_planar(xr, xi, inv_nv, self.sgn, self.scheme)
+        xr, xi, inv_nv = (x.to(self.in_dtype)
+                          for x in self.equalize(samples_iq))
+        llr = demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
+                           self.llr_dtype)
         return _gather_dematch(llr, self.grid_inv, self.d_len)
 
 
@@ -189,7 +217,8 @@ class PuschFront:
     def __init__(self, scheme: str, k: int, ref0: np.ndarray,
                  ref1: np.ndarray, w: np.ndarray, taps: np.ndarray,
                  sgn: np.ndarray, ul_inv: np.ndarray,
-                 noise_var: float | None, device: torch.device):
+                 noise_var: float | None, device: torch.device,
+                 dtypes: tuple = (torch.float32, torch.float32)):
         t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
                                           device=device)
         self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
@@ -197,6 +226,7 @@ class PuschFront:
         self.w, self.taps = t(w, torch.float32), t(taps, torch.float32)
         self.sgn, self.ul_inv = t(sgn, torch.float32), _plan(ul_inv, device)
         self.data_syms = t(pusch.DATA_SYMS, torch.int64)
+        self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
 
     def equalize(self, grid_iq: torch.Tensor):
         """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
@@ -227,16 +257,19 @@ class PuschFront:
                 inv_eff.reshape(bsz, -1).contiguous())
 
     def __call__(self, grid_iq: torch.Tensor) -> torch.Tensor:
-        xr, xi, inv_eff = self.equalize(grid_iq)
-        llr = demap_planar(xr, xi, inv_eff, self.sgn, self.scheme)
+        xr, xi, inv_eff = (x.to(self.in_dtype)
+                           for x in self.equalize(grid_iq))
+        llr = demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
+                           self.llr_dtype)
         return _gather_dematch(llr, self.ul_inv, self.d_len)
 
 
 class TurboTail:
     """De-matched LLRs (B*C, 3, K+4) -> (tb_bits (B, TBS) int8, ok (B,)
-    bool, n_iter): turbo decode with CRC early stop and compacted retry,
-    CRC24B, desegmentation, CRC24A.  ``last_stats`` holds the turbo
-    schedule of the latest call."""
+    bool, n_iter): turbo decode with CRC early stop and compacted retry
+    under the tuning's trellis (``mdtype``, ``pinpad``), CRC24B,
+    desegmentation, CRC24A.  ``last_stats`` holds the turbo schedule of the
+    latest call."""
 
     def __init__(self, geom: PdschGeometry, n_iter: int,
                  tuning: DecoderTuning, retry_m: int, m24a: np.ndarray,
@@ -260,7 +293,8 @@ class TurboTail:
         cb_bits, stats = turbo_decode_batch(
             llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
             ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
-            retry_m=self.retry_m, retry_levels=t.retry_levels)
+            retry_m=self.retry_m, retry_levels=t.retry_levels,
+            mdtype=t.mdtype, pinpad=t.pinpad)
         self.last_stats = stats
         bits = cb_bits.reshape(-1, info.c, geom.k)
         if info.cb_crc:
@@ -334,7 +368,7 @@ class BatchDecoder(_Decoder):
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
         return cls(DlFront(cfg, n_cell_id, subframe, scheme, geom.k, sgn,
-                           grid_inv, device),
+                           grid_inv, device, llr_dtypes(tuning, grid_inv)),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m_dl, m24a,
                              m24b, device), device)
 
@@ -375,7 +409,8 @@ class HarqBatchDecoder(_Decoder):
                              "per transmission")
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
-        fronts = [DlFront(cfg, n_cell_id, sf, scheme, geom.k, s, g, device)
+        fronts = [DlFront(cfg, n_cell_id, sf, scheme, geom.k, s, g, device,
+                          llr_dtypes(tuning, g))
                   for sf, s, g in zip(subframes, sgns, grid_invs)]
         return cls(fronts, TurboTail(geom, n_iter, tuning, tuning.retry_m_dl,
                                      m24a, m24b, device), device)
@@ -414,7 +449,8 @@ class PuschBatchDecoder(_Decoder):
         tuning = tuning or DecoderTuning()
         geom = alloc.geom
         return cls(PuschFront(alloc.scheme, geom.k, ref0, ref1, w, taps, sgn,
-                              ul_inv, noise_var, device),
+                              ul_inv, noise_var, device,
+                              llr_dtypes(tuning, ul_inv)),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m, m24a,
                              m24b, device), device)
 
@@ -527,7 +563,8 @@ class MimoFront:
                  scheme: str, geom: PdschGeometry, tm: int, cb_index: int,
                  re_idx: np.ndarray, sgn: np.ndarray, rm_inv: np.ndarray,
                  chest_kind: str, denoise: bool, chest_nv: float,
-                 device: torch.device):
+                 device: torch.device,
+                 dtypes: tuple = (torch.float32, torch.float32)):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, geom.k + 4
         self.tm, self.cb_index = tm, cb_index
@@ -538,6 +575,7 @@ class MimoFront:
         self.re_idx = t(re_idx, torch.int64)
         self.sgn = t(sgn, torch.float32)
         self.rm_inv = _plan(rm_inv, device)
+        self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
 
     def _estimate(self, grids: torch.Tensor, port: int) -> torch.Tensor:
         if self.chest_kind == "mmse":
@@ -570,9 +608,9 @@ class MimoFront:
     def demap(self, x: torch.Tensor, eff: torch.Tensor, q: int):
         """One codeword's symbols (B, M) and effective noise -> planar LLRs
         (B, qm, npad) descrambled with codeword q's signs."""
-        return demap_planar(x.real.contiguous(), x.imag.contiguous(),
-                            (1.0 / eff).contiguous(), self.sgn[q],
-                            self.scheme)
+        st = lambda y: y.contiguous().to(self.in_dtype)
+        return demap_planar(st(x.real), st(x.imag), st(1.0 / eff),
+                            self.sgn[q], self.scheme, self.llr_dtype)
 
     def dematch(self, llr: torch.Tensor) -> torch.Tensor:
         """Planar LLRs (B', qm, npad) -> (B'*C, 3, K+4)."""
@@ -685,7 +723,7 @@ def _mimo_front(cfg: PhyConfig, n_cell_id: int, cfi: int,
                 prbs: tuple[int, ...], subframe: int, rnti: int,
                 geom: PdschGeometry, scheme: str, tm: int, cb_index: int,
                 chest_kind: str, tuning: DecoderTuning,
-                device: torch.device) -> MimoFront:
+                device: torch.device, sic: bool = False) -> MimoFront:
     if cfg.n_ant != 2:
         raise ValueError("2x2 MIMO needs a 2-port cell (PhyConfig(n_ant=2))")
     if tm not in (3, 4):
@@ -700,9 +738,12 @@ def _mimo_front(cfg: PhyConfig, n_cell_id: int, cfi: int,
     sgn = np.stack([planar_sgn_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
                                                    q), geom.g, geom.qm, npad)
                     for q in range(2)])
+    rm_inv = rm_inv_planar(geom, npad)
+    # the reference's SIC front demaps in f32 XLA (no staging)
     return MimoFront(cfg, n_cell_id, subframe, scheme, geom, tm, cb_index,
-                     re_idx, sgn, rm_inv_planar(geom, npad), chest_kind,
-                     tuning.mimo_denoise, tuning.mimo_chest_nv, device)
+                     re_idx, sgn, rm_inv, chest_kind, tuning.mimo_denoise,
+                     tuning.mimo_chest_nv, device,
+                     llr_dtypes(tuning, rm_inv, kernel_front=not sic))
 
 
 def make_mimo_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
@@ -750,7 +791,7 @@ def make_mimo_sic_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
     tuning = tuning or DecoderTuning()
     device = _resolve_device(device)
     front = _mimo_front(cfg, n_cell_id, cfi, prbs, subframe, rnti, geom,
-                        scheme, tm, cb_index, "ls", tuning, device)
+                        scheme, tm, cb_index, "ls", tuning, device, sic=True)
     scr0 = seq.gold_sequence_np(seq.pdsch_c_init(rnti, subframe, n_cell_id,
                                                  0), geom.g)
     return MimoSicBatchDecoder(front, TurboTail(

@@ -21,9 +21,12 @@ its XLA turbo (the slow-path oracle) and ``make_sharded_decoder_pallas``
 over its Pallas turbo.  The port has one turbo decoder, so both map to the
 one :func:`make_sharded_decoder`.
 
-The reference's factories default to ``DecoderTuning.from_env()``, a bf16
-trellis with bf16 demap staging and the factored OFDM DFT; the port's
-default to its f32 ``DecoderTuning()``, the exact numerics the port runs.
+Every factory passes its ``tuning`` through to the single-device factory,
+trellis and demap staging included.  The reference's factories default to
+``DecoderTuning.from_env()``, a bf16 trellis with bf16 demap staging and
+the factored OFDM DFT; the port's default to its exact f32
+``DecoderTuning()``, and ``tuning=SHIPPED`` (``phy.tuning``) gives the
+reference's shipped numerics, its OFDM DFT aside.
 A decoder runs on the current CUDA device unless the caller passes
 ``device="cpu"`` (on a CPU mesh); the device must be of the mesh's type.
 """

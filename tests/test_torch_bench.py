@@ -68,3 +68,19 @@ def test_benches_need_a_card(bench):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--batch", "1"])
+
+
+@pytest.mark.parametrize("bench,n_tb", [(dl_throughput, 1),
+                                        (ul_throughput, 1),
+                                        (mimo_throughput, 2),
+                                        (harq_throughput, 1)],
+                         ids=["dl", "ul", "mimo", "harq"])
+def test_benches_take_the_shipped_numerics(bench, n_tb):
+    """``--mdtype bf16 --demap-in bf16``: the reference's shipped numerics,
+    named in the line."""
+    out = bench.main(["--batch", "1", "--reps", "1", "--device", "cpu",
+                      "--mdtype", "bf16", "--demap-in", "bf16",
+                      *(["--depth", "1"] if bench is harq_throughput
+                        else [])])
+    _dry_run(out, n_tb)
+    assert (out["mdtype"], out["demap_in"]) == ("bf16", "bf16")

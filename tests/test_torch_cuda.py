@@ -64,6 +64,50 @@ def test_turbo_kernel_matches_plain(dev, k, win, acq):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("mdtype,pinpad", [
+    ("bf16", True), ("bf16_f32store", True), ("bf16", False),
+    ("bf16_f32store", False), ("f32", False)])
+@pytest.mark.parametrize("k,win,acq", [
+    (40, 32, 8), (40, 128, 16), (1152, 128, 16), (5824, 128, 16),
+    (512, 64, 32), (1024, 36, 16)])      # win/2 = 18: renormalised every 2
+def test_turbo_kernel_forms_match_plain(dev, mdtype, pinpad, k, win, acq):
+    """The bf16 trellis (both bf16 mdtypes launch it) and the freeze, bit
+    for bit, at a C (37) that is no multiple of anything the kernel groups
+    by, and at last windows with 3 and 43 live positions."""
+    c, n = 37, k + 3
+    n_w = -(-n // win)
+    rng = np.random.default_rng(k + win)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u, v = t(rng.standard_normal((c, n)) * 6), t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, n_w, 8))),
+                                t(rng.standard_normal((c, n_w, 8))))
+    before = dict(tm.FORM_LAUNCHES)
+    got = tm.half_iteration_raw(u, v, a0, b0, win, acq, mdtype, pinpad)
+    form = tm._form(mdtype, pinpad)
+    assert tm.FORM_LAUNCHES[form] == before[form] + 1
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, mdtype, pinpad)
+    assert got[0].dtype == (torch.float32 if mdtype == "f32"
+                            else torch.bfloat16)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("in_dt,out_dt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("scheme,m", [("qpsk", 2), ("64qam", 6)])
+def test_demap_kernel_forms_match_plain(dev, in_dt, out_dt, scheme, m):
+    rng = np.random.default_rng(m)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).to(in_dt)
+    xr, xi = t(rng.standard_normal((5, 1000))), t(rng.standard_normal((5, 1000)))
+    inv_nv = t(rng.uniform(1, 500, (5, 1000)))
+    sgn = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], (m, 1024)),
+                          dtype=torch.float32, device=dev)
+    got = demap.demap_planar(xr, xi, inv_nv, sgn, scheme, out_dt)
+    ref = demap.demap_planar_plain(xr, xi, inv_nv, sgn, scheme, out_dt)
+    assert got.dtype == out_dt and torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("wpb", [4, 8, 24, 40])
 def test_turbo_kernel_any_windows_per_block(dev, wpb):
     """The block's window count is a launch parameter, not part of the

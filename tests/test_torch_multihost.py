@@ -211,6 +211,15 @@ def test_scaling_cli_on_the_cpu(capsys):
         assert r["samples_per_s"] > 0 and r["mbit_per_s"] > 0
 
 
+def test_scaling_cli_takes_the_shipped_numerics(capsys):
+    """``--mdtype bf16 --demap-in bf16`` reaches the ranks' decoders."""
+    out = scaling.main(["--nproc", "1", "--device", "cpu", "--n-rb", "6",
+                        "--mcs", "9", "--per-dev", "1", "--reps", "1",
+                        "--mdtype", "bf16", "--demap-in", "bf16"])
+    assert (out["mdtype"], out["demap_in"]) == ("bf16", "bf16")
+    assert [r["n_ok"] for r in out["results"]] == [1]
+
+
 def test_multihost_dryrun_cli_on_the_cpu(capfd):
     multihost_dryrun.main(["--nproc", "2", "--device", "cpu"])
     out = capfd.readouterr().out

@@ -68,8 +68,18 @@ def test_decoder_rejects_iq_on_another_device():
         dec(torch.zeros((1, CELL.cfg.n_samps_subframe, 2)))
 
 
-@pytest.mark.parametrize("kw", [dict(mdtype="bf16"), dict(pinpad=False),
+@pytest.mark.parametrize("kw", [dict(mdtype="f16"), dict(demap_in="int8"),
                                 dict(acq=100), dict(win=127)])
 def test_tuning_rejects_unported_numerics(kw):
     with pytest.raises((NotImplementedError, ValueError)):
         DecoderTuning(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(mdtype="bf16"),
+                                dict(mdtype="bf16_f32store"),
+                                dict(pinpad=False)])
+def test_tuning_accepts_reference_numerics(kw):
+    """The reference's trellis forms construct (they raised until the bf16
+    trellis and the freeze were ported)."""
+    t = DecoderTuning(**kw)
+    assert all(getattr(t, k) == v for k, v in kw.items())
