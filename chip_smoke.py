@@ -188,7 +188,10 @@ them from what each rank returns):
     kernel forms (turbo bf16 and bf16 freeze; demap bf16 in and out at the
     DL and UL shapes, and f32 in with bf16 out for SIC's front) are held to
     their plain versions at the main paths' shapes beforehand and counted
-    in these runs.
+    in these runs; the turbo bf16 forms also at the ragged and SI shapes
+    and at those the bf16 kernel's layout must survive (``TURBO_BF16``),
+    and the bf16 kernel's variants (``BF16_VARIANTS``, lever by lever) are
+    timed in turns with the f32 form at the main shape.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -331,6 +334,12 @@ PSS_CHECK_SHAPE = (4, 20 * SCAN_CFG.n_samps_subframe)   # K4/K5 vs plain
 # live positions (K = 1152), a block grid with dead windows (K = 5824)
 TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
                 (5, 43, 32, 8))
+# ... and what the bf16 kernel's layout (two codeblocks a lane, the slab
+# staged by cp.async) must survive besides: an odd C at the main shape (the
+# last pair's high half dead), win 36 (renormalised every 2 steps), last
+# windows whose dead steps number 122 and 123 (t_pin of either parity)
+TURBO_BF16 = ((3329, 5827, 128, 16), (37, 1027, 36, 16), (38, 1030, 128, 16),
+              (37, 1029, 128, 16))
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 # [loopback]: config #1 (configs/config1_loopback_1p4.yaml) and its 100-PRB
@@ -594,12 +603,14 @@ TURBO_FORMS = (("turbo_half_iteration_bf16", "bf16", True),
 
 def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
     """The bf16 forms of the half-iteration kernel vs plain at the main
-    path's shape (C = 3328, K = 5824, win 128) and at the ragged shapes,
-    bit for bit, each timed on bf16 u, v (the wrapper's cast left out).
-    Bound: u, v and L move as bf16 (2 bytes), the inits and NII exports as
-    f32; the alpha and beta stores stay in shared memory.  The 60 ACS
-    operations of a position (and an acquisition step's 60) run in bf16 at
-    the packed bf16 rate, the combine's 39 in f32."""
+    path's shape (C = 3328, K = 5824, win 128) and at the ragged, SI and
+    bf16-layout shapes, bit for bit, each timed on bf16 u, v (the wrapper's
+    cast left out); then the bf16 kernel's variants (``BF16_VARIANTS``) and
+    the f32 form, timed in turns at the main shape.  Bound: u, v and L move
+    as bf16 (2 bytes), the inits and NII exports as f32; the alpha and beta
+    stores stay in shared memory.  The 60 ACS operations of a position (and
+    an acquisition step's 60) run in bf16 at the packed bf16 rate, the
+    combine's 39 in f32."""
     geom = cell.geom
     c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
     n_w = -(-n // win)
@@ -610,7 +621,7 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
     eq_ops = f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S
     out = []
     for name, mdtype, pinpad in TURBO_FORMS:
-        for cr, nr, wr, ar in TURBO_RAGGED:
+        for cr, nr, wr, ar in TURBO_RAGGED + TURBO_SI + TURBO_BF16:
             turbo_equal_plain(turbo_inputs(cr, nr, wr, SEED + nr, dev), wr,
                               ar, mdtype, pinpad)
         errs = turbo_equal_plain((ub, vb, a0, b0), win, acq, mdtype, pinpad)
@@ -624,7 +635,34 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
                     "f32_ops": f32_ops,
                     **bound(2 * 3 * c * n + 4 * 4 * c * n_w * 8, eq_ops,
                             F32_OPS_PER_S)})
+    out[0].update(time_turbo_variants((ub, vb, a0, b0), (u, v, a0, b0),
+                                      win, acq))
     return out
+
+
+def time_turbo_variants(args_bf16, args_f32, win: int, acq: int,
+                        rounds: int = 3) -> dict:
+    """The bf16 kernel's variants (pinned padding) and the f32 form on the
+    same inputs, each held to its plain version bit for bit, then timed in
+    turns (f32, 1, 2, 3, 3, 2, 1, f32, ...): the medians of
+    ``rounds`` turns of 20 launches."""
+    ref = turbo_mod.half_iteration_plain(*args_bf16, win, acq, "bf16")
+    for var in turbo_mod.BF16_VARIANTS:
+        got = turbo_mod.half_iteration_bf16_variant(*args_bf16, win, acq, var)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"turbo bf16 variant {var} != plain")
+    runs = {"f32": lambda: turbo_mod.half_iteration_raw(*args_f32, win, acq),
+            **{var: (lambda vr=var: turbo_mod.half_iteration_bf16_variant(
+                *args_bf16, win, acq, vr))
+               for var in turbo_mod.BF16_VARIANTS}}
+    times = {k: [] for k in runs}
+    for r in range(rounds):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            times[k].append(cuda_time_ms(runs[k], 20))
+    med = {k: float(np.median(t)) for k, t in times.items()}
+    return {"variant_ms": {k: med[k] for k in turbo_mod.BF16_VARIANTS},
+            "f32_same_run_ms": med["f32"]}
 
 
 def check_turbo_mimo(dev) -> dict:
@@ -3555,6 +3593,14 @@ def main() -> None:
                *timed("check_pss", check_pss, dev),
                timed("check_resample", check_resample),
                timed("check_acs_probe", check_acs_probe, dev)]
+    k1 = turbo_forms[0]
+    print(f"[kernel] turbo_half_iteration_bf16 {k1['shape']}, its variants "
+          f"in turns, bit-exact vs plain: " + "; ".join(
+              f"{var} {turbo_mod.BF16_VARIANTS[var]}: {ms:.4f} ms = "
+              f"{ms / k1['bound_ms']:.2f}x the bound"
+              for var, ms in k1["variant_ms"].items())
+          + f"; the f32 form {k1['f32_same_run_ms']:.4f} ms; bound "
+          f"{k1['bound_ms']:.4f} ms by {k1['bound_by']} ({card})")
     for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]:
         if "by_shape" in k:             # the resampler: a line a shape below
             continue
@@ -3704,7 +3750,8 @@ def main() -> None:
     extra = ("bytes", "ops", "shape", "tops", "bf16_over_f32", "library",
              "max_rel_err_of_peak", "sum_rel_err", "tolerance_of_peak",
              "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape",
-             "f32_ops", "bound_nofma_ms", "library_bf16_ms")
+             "f32_ops", "bound_nofma_ms", "library_bf16_ms", "variant_ms",
+             "f32_same_run_ms")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],
          "replaces": SOURCES[k["name"]][1], "launches": launches[k["name"]],

@@ -8,9 +8,9 @@ root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
 ``-fmad=false``: the kernels on the CUDA cores are adds, multiplies, maxes
-and mins in f32 (the ACS probe also in packed bf16), and with no
-contraction into fused multiply-adds each one equals its plain torch
-version bit for bit.  The one tensor-core kernel (the bf16 PSS routine)
+and mins in f32 (the ACS probe and the turbo kernel's bf16 trellis also
+in packed bf16), and with no contraction into fused multiply-adds each one
+equals its plain torch version bit for bit.  The one tensor-core kernel (the bf16 PSS routine)
 sums in the hardware's order and is held to its plain version by a
 tolerance.
 """
@@ -41,6 +41,8 @@ SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lteax_turbo_half_bf16_variant": [_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_corr_bf16": [_P, _P, _P, _I, _I, _I, _P],

@@ -1,5 +1,6 @@
 // Max-log-MAP turbo half-iteration, resident in shared memory: a block owns
-// W consecutive windows of one codeblock, 8 lanes carry each window's chain.
+// W consecutive windows of one codeblock (two codeblocks in the bf16 form),
+// 8 lanes carry each window's chain.
 //
 // Replaces the TPU Pallas kernels lteax/kernels/turbo_mlm.py ::
 // half_iteration_blane (_make_kernel_blane, the flipped tile) and
@@ -20,14 +21,17 @@
 // (u + PIN, v = 0 there: both gammas are PIN/2 exactly).
 //
 // What bounds it on an H100: bytes by the roofline (u, v in, L out: 0.075 ms
-// at C = 3328, n = 5827), but what decides the time is latency.  A chain is
-// acq + win dependent steps, its win/2 x 8 alpha and beta stores are 4 KB,
-// and 227 KB of shared memory hold ~40 chains an SM: ten warps, each
-// issuing in order, so a step costs the sum of what it waits for (a
-// shuffle, a shared-memory load, five dependent f32 operations), and the
-// card idles between them.  Measured per block of 8 windows, by clock64:
-// 32k clocks, of which the combine phase 13k, the store phase 8k, staging
-// and set-up 4k, the write-out 4k, acquisition 2.5k.  The design:
+// at C = 3328, n = 5827), but it takes ~6x that.  A chain is acq + win
+// dependent steps, its win/2 x 8 alpha and beta stores are 4 KB, and 227 KB
+// of shared memory hold ~40 chains an SM: ten warps, 2.5 a scheduler, each
+// issuing in order.  Its trellis loops' instructions (their SASS, counted
+// by bench/turbo_variants.py --sass), issued at one a clock by every
+// scheduler, would take about half its time; the other half the
+// schedulers wait, for what a step waits on (a shuffle, a shared-memory
+// load, dependent f32 operations) with too few warps to cover it, and for
+// the work outside the loops (staging, set-up, the write-out).  So both
+// count: the instructions a chain executes and what each step waits for.
+// The design:
 //   - the block's u and v are one contiguous slab of the row, halos of acq
 //     on both sides, copied from device memory by cp.async, all at once (a
 //     loop of loads pays the memory's latency per turn), zero outside
@@ -57,36 +61,72 @@
 // order, so with -fmad=false the result equals the plain torch version bit
 // for bit.
 //
-// The reference's other forms are a template argument and a flag of the
-// same kernel:
-//   - a bf16 trellis (bf16 u, v, stores and L; the reference's
-//     "bf16_f32store" holds the same bf16 values in f32 stores, so it runs
-//     this form too).  The registers hold f32 values that are bf16 values,
-//     and every ACS add, gamma and renormalisation rounds back to bf16 at
-//     once (rnd): f32 has 24 >= 2 * 8 + 2 bits, so one f32 operation on
-//     two bf16 values rounded to bf16 is the correctly rounded bf16
-//     operation, as torch's per-operation bf16 on the CPU and the
-//     reference's bf16 are.  The inits round to bf16 on loading; the
-//     combine sums in f32 and L rounds once; the main sweeps renormalise
-//     (x -= x[0], state 0 from lane 0 of the direction by one shuffle)
-//     every `period` steps, as the reference's kernels do whatever their
-//     unroll; the acquisition never does;
-//   - the freeze (pinpad=False): a dead position of the beta main sweep
-//     keeps the old beta, so the step is skipped as the acquisition skips
-//     one.  The dead steps are the first t_pin of the last window's sweep,
-//     so its chain starts in the phase of step t_pin and holds it across
-//     them.  (bf16's blend m*new + (1-m)*old keeps the old value too, up to
-//     the sign of a zero, which no comparison sees.)
+// The freeze (pinpad=False): a dead position of the beta main sweep keeps
+// the old beta, so the step is skipped as the acquisition skips one.  The
+// dead steps are the first t_pin of the last window's sweep, so its chain
+// starts in the phase of step t_pin and holds it across them.  (bf16's
+// blend m*new + (1-m)*old keeps the old value too, up to the sign of a
+// zero, which no comparison sees.)
+//
+// The bf16 trellis (the reference's "bf16" and "bf16_f32store", whose
+// stores hold the same bf16 values) is a kernel of its own,
+// turbo_half_bf16_kernel, on the same lane layout and wiring.  Every metric
+// operation rounds to bf16: u + v and its halving, each ACS add, the
+// renormalisation x -= x[0] of the main sweeps every `period` steps; the
+// combine sums the bf16 metrics in f32 and L rounds once.
+// What bounds it on an H100: the same walk and the same ten warps an SM
+// (21 KB a block of four windows), and again its trellis loops'
+// instructions at one a clock a scheduler are about half its time
+// (turbo_variants --sass).  The f32 kernel's rounding to bf16 put three
+// dependent instructions on each metric operation, and the design cuts
+// both what a chain executes and what its steps wait for:
+//   - native bf16x2 arithmetic, two chains a lane: a register holds one
+//     metric of the same window of two codeblocks (2i, 2i+1) in its two
+//     halves, and the ACS runs as add.rn / sub.rn / max on bf16x2 and the
+//     gamma as one fma.rn (u + v*(+-1)) and one mul.rn by +-0.5 (the
+//     signs ride on the constants: negation is exact, rounding to nearest
+//     symmetric): one instruction where rounding an f32 result costs
+//     three, and each instruction, shuffle and store serves both chains.
+//     The two halves share K, the window and its phase, so the skips, pins
+//     and phases are equal and control flow stays uniform; with an odd C
+//     the high half of the last pair runs on zeros and writes nothing.  One
+//     correctly rounded bf16 operation equals the f32 operation rounded to
+//     bf16 (24 >= 2 * 8 + 2 bits), which is what torch's bf16 does, so the
+//     result is the plain version's bit for bit.  The combine widens its
+//     operands (the gamma's signs put on as they widen) and sums in f32,
+//     two chains a lane; its fold takes two shuffles a stage;
+//   - the renormalisation without a shuffle of its own on the chain: the
+//     new state 0 is lane 0's own `lo` before the exchange, so its
+//     broadcast goes out back to back with the exchange, not after it, and
+//     the step waits for one shuffle, not two (in a frozen step, lane 0's
+//     held state 0).  Renormalisation falls on odd steps only, a literal
+//     at every call: no per-step division;
+//   - a bf16 slab: the block's u and v of both codeblocks are copied by
+//     cp.async as four raw planes (a row starts at any bf16 address, n may
+//     be odd: a plane starts one slot late where its row is not 4-byte
+//     aligned, so every 4-byte word copies as one; the word past the row's
+//     end copies 2 bytes and fills zeros, the word before its start is
+//     loaded), into the store region, which is free until the store phase.
+//     One pass re-packs them as (u, v) of both codeblocks, 8 bytes a
+//     position (4 a position and codeblock, half the f32 slab's), with the
+//     same padding slot per window.  A step then reads one 8-byte word.
+// The levers are template flags, so that each one's time can be taken
+// against the others (lteax_turbo_half_bf16_variant); the decoders launch
+// all three.  The second and third leave the trellis loops' instructions
+// as they are (within 4%) and take waits off: a shuffle off each
+// renormalising step's chain, the memory latency of a loop of 2-byte loads
+// off the staging.  At C = 3328, n = 5827 on an H100 SXM at 700 W: lever 1
+// 0.38 ms, 2 0.36, 3 0.29; the f32 form 0.44.
 //
 // The 8-state wiring is lteax.phy.fec.turbo._unrolled_wiring written out as
 // the two tables below (the tests parse them back and compare): a row of
 // FWD is (p0, p1, g0, g1) of a'[s'] = max(a[p0] + g[g0], a[p1] + g[g1]), a
 // row of BWD is (n0, n1, g0, g1) of b'[s] = max(b[n0] + g[g0], b[n1] +
-// g[g1]).  The kernel reads its wiring from them, and a static_assert holds
-// them to the butterfly structure its lane layout needs.
+// g[g1]).  The kernels read their wiring from them, and a static_assert
+// holds them to the butterfly structure the lane layout needs.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 #define TRELLIS_FWD {{0, 1, 0, 3}, {2, 3, 2, 1}, {4, 5, 1, 2}, {6, 7, 3, 0}, \
                      {0, 1, 3, 0}, {2, 3, 1, 2}, {4, 5, 2, 1}, {6, 7, 0, 3}}
@@ -147,44 +187,12 @@ __device__ __forceinline__ float with_sign(float x, unsigned sign) {
   return __uint_as_float(__float_as_uint(x) ^ sign);
 }
 
-// The metric arithmetic: in a bf16 form every result rounds to bf16
-// (round to nearest even), in f32 nothing rounds.
-template <bool kB>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kB) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(x);
-  else return x;
-}
-
-// A store slot of type T that a combine step writes its L into: L leaves
-// the combine's f32 sums rounded once to the metric type.
-template <typename T>
-struct LSlot {
-  T v;
-  __device__ __forceinline__ void operator=(float x) { v = from_f32<T>(x); }
-};
-
-// a pair of metrics in a store (8 bytes in f32, 4 in bf16)
+// a pair of metrics in a store
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // Lane q of a direction holds one butterfly's pair of metrics in (r0, r1):
@@ -218,13 +226,6 @@ __device__ __forceinline__ float gamma_of(float2 uv, unsigned vsign,
                                           unsigned sign) {
   return with_sign(0.5f * (uv.x + with_sign(uv.y, vsign)), sign);
 }
-// ... and in the metric type: each of the sum and the halving rounds
-template <bool kB>
-__device__ __forceinline__ float gamma_m(float2 uv, unsigned vsign,
-                                         unsigned sign) {
-  return with_sign(rnd<kB>(0.5f * rnd<kB>(uv.x + with_sign(uv.y, vsign))),
-                   sign);
-}
 
 __device__ Phase make_phase(int d, int q, int ph) {
   Phase p;
@@ -256,29 +257,25 @@ __device__ __forceinline__ int slab_index(int rel, int win, int acq) {
   return rel + acq + (rel + win) / win;
 }
 
-// T: the metric type of u, v, L and the alpha/beta stores (float, or bf16
-// for the bf16 trellis).  freeze: the beta main sweep keeps the old beta at
-// dead positions instead of pinning them.
-template <typename T>
-__global__ void turbo_half_kernel(const T* __restrict__ u,
-                                  const T* __restrict__ v,
+// The f32 trellis.  freeze: the beta main sweep keeps the old beta at dead
+// positions instead of pinning them.
+__global__ void turbo_half_kernel(const float* __restrict__ u,
+                                  const float* __restrict__ v,
                                   const float* __restrict__ a_init,
                                   const float* __restrict__ b_init,
-                                  T* __restrict__ l_out,
+                                  float* __restrict__ l_out,
                                   float* __restrict__ a_nii,
                                   float* __restrict__ b_nii,
                                   int n, int n_w, int win, int acq, int wpb,
                                   int blocks_per_row, int freeze) {
-  constexpr bool kB = sizeof(T) == 2;
   extern __shared__ float smem[];
   const int half = win / 2;
-  const int period = half % 4 == 0 ? 4 : 2;    // bf16 renormalisation
   const int dir_stride = half * 8 + 8;         // one direction's store + pad
   const int chain_stride = 2 * dir_stride;
   const int slab = wpb * win + 2 * acq;        // positions staged
   const int slab_slots = slab + wpb + 1;
   float2* uv = reinterpret_cast<float2*>(smem);   // (u, v) per position
-  T* store = reinterpret_cast<T*>(smem + 2 * slab_slots);
+  float* store = smem + 2 * slab_slots;
 
   const int cb = blockIdx.x / blocks_per_row;
   const int w0 = (blockIdx.x % blocks_per_row) * wpb;
@@ -293,20 +290,15 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
 
   // The block's u, v slab, zero outside [0, n) and in the pad slots: every
   // copy is in flight at once (a loop of loads would pay the device
-  // memory's latency per turn).  bf16 inputs are read and widened by the
-  // threads (cp.async moves 4 bytes at least).
+  // memory's latency per turn).
   for (int i = threadIdx.x; i < slab; i += blockDim.x) {
     const int rel = i - acq;
     const int pos = p0 + rel;
     float2* dst = uv + slab_index(rel, win, acq);
     if (pos >= 0 && pos < n) {
-      if constexpr (!kB) {
-        const unsigned d32 = (unsigned)__cvta_generic_to_shared(dst);
-        cp_async4(d32, reinterpret_cast<const float*>(u) + row + pos);
-        cp_async4(d32 + 4, reinterpret_cast<const float*>(v) + row + pos);
-      } else {
-        *dst = make_float2(to_f32(u[row + pos]), to_f32(v[row + pos]));
-      }
+      const unsigned d32 = (unsigned)__cvta_generic_to_shared(dst);
+      cp_async4(d32, u + row + pos);
+      cp_async4(d32 + 4, v + row + pos);
     } else {
       *dst = make_float2(0.0f, 0.0f);
     }
@@ -324,7 +316,6 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   const int d = sub >> 2;                      // 0 alpha, 1 beta
   const int q = sub & 3;
   const unsigned all = 0xffffffffu;
-  const int lane0 = (threadIdx.x & 31) & ~3;   // this direction's q = 0
   // combine wiring (the same in both phases): lanes 0 and 1 end up with the
   // bit-0 maxima, lanes 2 and 3 with the bit-1 maxima, of code class 0 on
   // lanes 0, 3 and 1 on lanes 1, 2
@@ -335,8 +326,8 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   const long long chain = (long long)cb * n_w + (live_chain ? w : 0);
   const float* init = (d ? b_init : a_init) + chain * 8;
   float* nii = (d ? b_nii : a_nii) + chain * 8;
-  T* mine = store + wl * chain_stride + d * dir_stride;
-  T* theirs = store + wl * chain_stride + (1 - d) * dir_stride;
+  float* mine = store + wl * chain_stride + d * dir_stride;
+  float* theirs = store + wl * chain_stride + (1 - d) * dir_stride;
   const int base = p0 + wl * win;              // first position of the window
 
   // state index of register r of pair k in this direction
@@ -362,8 +353,8 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   float r0 = 0.0f, r1 = 0.0f;
   if (live_chain) {
     const int k = phase ? swap2(q) : q;        // the phase's pair
-    r0 = rnd<kB>(init[state(k, 0)]);
-    r1 = rnd<kB>(init[state(k, 1)]);
+    r0 = init[state(k, 0)];
+    r1 = init[state(k, 1)];
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
@@ -375,8 +366,8 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   // lane bit p.swap; `exchange` takes what came back.
   float lo, hi;
   auto butterfly = [&](const Phase& p, float g) {
-    lo = fmaxf(rnd<kB>(r0 + g), rnd<kB>(r1 - g));
-    hi = fmaxf(rnd<kB>(r0 - g), rnd<kB>(r1 + g));
+    lo = fmaxf(r0 + g, r1 - g);
+    hi = fmaxf(r0 - g, r1 + g);
     return (q & p.swap) ? lo : hi;
   };
   auto exchange = [&](const Phase& p, float got) {
@@ -385,17 +376,9 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
     r1 = bit ? hi : got;
   };
   auto step_gamma = [&](const Phase& p, float2 x, bool pin) {
-    float g = gamma_m<kB>(x, p.vsign, 0u);
+    float g = gamma_of(x, p.vsign, 0u);
     if (pin) g = HALF_PIN;
     return with_sign(g, p.sign);
-  };
-  // bf16: after main-sweep step t, every `period` steps, x -= x[0]
-  auto renorm = [&](int t) {
-    if (kB && (t + 1) % period == 0) {
-      const float s0 = __shfl_sync(all, r0, lane0);
-      r0 = rnd<kB>(r0 - s0);
-      r1 = rnd<kB>(r1 - s0);
-    }
   };
 
   const float2* uacq = uv + (d ? wl * win + win + acq - 1 : wl * win - acq) +
@@ -426,16 +409,15 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   // 2. store phase: the pre-step pair of step t goes to slot t, at its
   // butterfly's place (sp0 and sp1: where this lane's pair goes in phase 0
   // and in phase 1)
-  T* sp0 = mine + 2 * ph0.pair;
-  T* sp1 = mine + 8 + 2 * ph1.pair;
-  auto store_step = [&](const Phase& p, const Phase& p_next, T* sp,
+  float* sp0 = mine + 2 * ph0.pair;
+  float* sp1 = mine + 8 + 2 * ph1.pair;
+  auto store_step = [&](const Phase& p, const Phase& p_next, float* sp,
                         int t) {
     const float2 xnn = *xp;
     store2(sp, r0, r1);
     const float got = __shfl_xor_sync(all, butterfly(p, g), p.swap);
     g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
     if (t >= skip) exchange(p, got);
-    renorm(t);
     xn = xnn;
     xp += xs;
   };
@@ -464,19 +446,17 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   // the stages carry before they fill, and the steps past the window, is
   // never written (their reads stay inside the block's shared memory).
   // op0 and op1 walk down the opposite store at this lane's pair of phase 0
-  // and of phase 1; lp walks down it two slots behind, where L goes.  The
-  // combine sums in f32 whatever the metric type.
-  const T* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;       // step half+1
-  const T* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
-  LSlot<T>* lp =                               // the slot of step t-2
-      reinterpret_cast<LSlot<T>*>(theirs + (half + 1) * 8);
+  // and of phase 1; lp walks down it two slots behind, where L goes.
+  const float* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;   // step half+1
+  const float* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
+  float* lp = theirs + (half + 1) * 8;         // the slot of step t-2
   float2 o = load2(op0 + 8);                   // step half
   float ga = gamma_of(uwin[d ? half - 1 : half], comb_vsign, comb_sign);
   float in_b = 0.0f, in_c = 0.0f;              // what stages B and C take
   const int t_nii = win - acq;
   float nii0 = 0.0f, nii1 = 0.0f;              // the pair before step t_nii
   auto combine_step = [&](const Phase& p, const Phase& p_next,
-                          const T* op_next, int t) {
+                          const float* op_next, int t) {
     const float2 xnn = *xp;
     const float2 o_next = load2(op_next);
     if (t == t_nii) {
@@ -497,7 +477,6 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
     in_c = fmaxf(in_b, got_b);
     in_b = fmaxf(keeps1 ? bit1 : bit0, got_a) + ga;
     if (t >= skip) exchange(p, got_s);
-    if (t < win) renorm(t);
     ga = ga_next;
     xn = xnn;
     o = o_next;
@@ -523,7 +502,7 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   // L of position t of a window: t < half in the alpha store's slot t, else
   // in the beta store's slot win-1-t
   for (int wl2 = 0; wl2 < wpb; ++wl2) {
-    const T* st = store + wl2 * chain_stride;
+    const float* st = store + wl2 * chain_stride;
     for (int t = threadIdx.x; t < win; t += blockDim.x) {
       const int pos = p0 + wl2 * win + t;
       const int slot = t < half ? t : win - 1 - t;
@@ -533,61 +512,506 @@ __global__ void turbo_half_kernel(const T* __restrict__ u,
   }
 }
 
+// ---- the bf16 trellis: two codeblocks a lane, native bf16x2 arithmetic --
+
+// A bf16x2 register holds one metric of codeblock 2i (low half) and of
+// codeblock 2i+1 (high half).  Each operation is one correctly rounded
+// bf16 operation a half (sm_90: add, sub and mul with .rn, max exact).
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned sub2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned fma2(unsigned a, unsigned b, unsigned c) {
+  unsigned d;   // a * b + c, rounded once
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ unsigned max2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// each half widened to f32 (exact), and two f32 rounded into one register
+__device__ __forceinline__ float lo_f(unsigned x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_f(unsigned x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+// ... with a sign bit put on (the low half shifted up by the multiply, the
+// sign added: one instruction each)
+__device__ __forceinline__ float lo_f(unsigned x, unsigned sign) {
+  return __uint_as_float(x * 0x10000u + sign);
+}
+__device__ __forceinline__ float hi_f(unsigned x, unsigned sign) {
+  return __uint_as_float((x & 0xffff0000u) ^ sign);
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+constexpr unsigned kOne2 = 0x3f803f80u;        // (1, 1)
+constexpr unsigned kHalf2 = 0x3f003f00u;       // (0.5, 0.5)
+constexpr unsigned kHalfPin2 = 0x43804380u;    // (HALF_PIN, HALF_PIN)
+constexpr unsigned kSign2 = 0x80008000u;       // both halves' sign bits
+
+// A Phase in bf16x2 constants: the step's gamma is (v * vmul + u) * half,
+// vmul = +-1 and half = +-0.5 carrying the inner and the outer sign (a
+// negation is exact, and rounding to nearest is symmetric, so this is
+// +-((u +- v) rounded * 0.5) rounded), or `pin` at a pinned dead position;
+// and the combine's choice: a lane sends Q = max(x + q, y + p) across the
+// fold's first stage and keeps P, or the other way round.
+struct Phase2 {
+  int pair;
+  unsigned vmul, half, pin;
+  int swap;
+  bool sends_q;
+};
+__device__ __forceinline__ Phase2 phase2(const Phase& p, bool keeps1) {
+  const unsigned sign = p.sign ? kSign2 : 0u;
+  // the f32 kernel sends keeps1 ? bit0 : bit1, bit0 being P where
+  // bit0_is_p
+  return {p.pair, kOne2 ^ (p.vsign ? kSign2 : 0u), kHalf2 ^ sign,
+          kHalfPin2 ^ sign, p.swap, keeps1 != (bool)p.bit0_is_p};
+}
+
+// 4 bytes (src_bytes of them read, the rest zero) into shared memory
+__device__ __forceinline__ void cp_async4_zfill(unsigned dst, const void* src,
+                                                int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+// One raw plane of a block's slab, staged by cp.async: slot j holds
+// position p0 - acq + j - shift of row `src`, zero outside [0, n) (and
+// everywhere where the row is not `live`); returns shift, 1 where the row
+// starts at an odd bf16 address, so that every 4-byte word of the plane is
+// a 4-byte word of the row.  `plane` is even.
+__device__ __forceinline__ int stage_plane(uint16_t* dst, int plane,
+                                           const uint16_t* src, bool live,
+                                           int p0, int acq, int n) {
+  const int shift =
+      live ? (int)(((reinterpret_cast<uintptr_t>(src) >> 1) + acq) & 1) : 0;
+  for (int wi = threadIdx.x; wi < plane / 2; wi += blockDim.x) {
+    const int pa = p0 - acq - shift + 2 * wi;    // slot 2wi's position
+    const bool la = live && pa >= 0 && pa < n;
+    const bool lb = live && pa + 1 >= 0 && pa + 1 < n;
+    const unsigned d32 = (unsigned)__cvta_generic_to_shared(dst + 2 * wi);
+    if (la)
+      cp_async4_zfill(d32, src + pa, lb ? 4 : 2);
+    else
+      *reinterpret_cast<unsigned*>(dst + 2 * wi) =
+          lb ? (unsigned)src[pa + 1] << 16 : 0u;
+  }
+  return shift;
+}
+
+// kFold: the renormalisation's broadcast rides beside the exchange (lever
+// 2); kAsync: the slab is staged by cp.async (lever 3); kFreeze: the beta
+// main sweep keeps the old beta at dead positions instead of pinning them.
+// u, v, l_out: bf16 bits.  A block owns windows w0 .. w0+wpb-1 of
+// codeblocks 2i and 2i+1.
+template <bool kFold, bool kAsync, bool kFreeze>
+__global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
+                                       const uint16_t* __restrict__ v,
+                                       const float* __restrict__ a_init,
+                                       const float* __restrict__ b_init,
+                                       uint16_t* __restrict__ l_out,
+                                       float* __restrict__ a_nii,
+                                       float* __restrict__ b_nii, int c,
+                                       int n, int n_w, int win, int acq,
+                                       int wpb, int blocks_per_row) {
+  extern __shared__ uint2 smem2[];
+  const int half = win / 2;
+  const int period = half % 4 == 0 ? 4 : 2;    // renormalisation
+  const int dir_stride = half * 8 + 8;         // one direction's store + pad
+  const int chain_stride = 2 * dir_stride;
+  const int slab = wpb * win + 2 * acq;        // positions staged
+  const int slab_slots = slab + wpb + 1;
+  uint2* uv = smem2;                           // (u, v), both codeblocks
+  unsigned* store = reinterpret_cast<unsigned*>(smem2 + slab_slots);
+
+  const int pr = blockIdx.x / blocks_per_row;  // codeblocks 2pr and 2pr+1
+  const bool has1 = 2 * pr + 1 < c;
+  const int w0 = (blockIdx.x % blocks_per_row) * wpb;
+  const long long row0 = 2LL * pr * n, row1 = row0 + n;
+  const int p0 = w0 * win;
+
+  __shared__ Phase phases[2][kLanes];
+  if (threadIdx.x < 2 * kLanes)
+    phases[threadIdx.x >> 3][threadIdx.x & 7] = make_phase(
+        (threadIdx.x >> 2) & 1, threadIdx.x & 3, threadIdx.x >> 3);
+
+  // The slab, zero outside [0, n), in the pad slots and in a missing
+  // codeblock's half.
+  const int plane = slab + 2;                  // a raw plane, in bf16 slots
+  int shift[4];                                // its late start (0 or 1)
+  if constexpr (kAsync) {
+    // planes u0, v0, u1, v1 (a missing codeblock's two all zero)
+    uint16_t* raw = reinterpret_cast<uint16_t*>(store);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      shift[x] = stage_plane(raw + x * plane, plane,
+                             (x & 1 ? v : u) + (x < 2 ? row0 : row1),
+                             x < 2 || has1, p0, acq, n);
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    // a loop of 2-byte loads
+    for (int i = threadIdx.x; i < slab; i += blockDim.x) {
+      const int pos = p0 + i - acq;
+      uint2 x = make_uint2(0u, 0u);
+      if (pos >= 0 && pos < n) {
+        x.x = u[row0 + pos] | (has1 ? (unsigned)u[row1 + pos] << 16 : 0u);
+        x.y = v[row0 + pos] | (has1 ? (unsigned)v[row1 + pos] << 16 : 0u);
+      }
+      uv[slab_index(i - acq, win, acq)] = x;
+    }
+  }
+  if (threadIdx.x <= wpb)                      // the pads between windows
+    uv[acq + threadIdx.x * (win + 1)] = make_uint2(0u, 0u);
+
+  const int wl = threadIdx.x / kLanes;         // window within the block
+  const int sub = threadIdx.x % kLanes;
+  const int w = w0 + wl;
+  const bool live_chain = w < n_w;
+  const int d = sub >> 2;                      // 0 alpha, 1 beta
+  const int q = sub & 3;
+  const unsigned all = 0xffffffffu;
+  // the combine's wiring, as the f32 kernel's
+  const bool keeps1 = q >= 2;
+  const int mcode = keeps1 ? 3 - (q == 3 ? 0 : 1) : (q == 0 ? 0 : 1);
+  // its gamma +-0.5 * (u +- v) in f32 as 0.5 * (+-u +- v): both signs put
+  // on as the operands widen
+  const unsigned comb_usign = outer_sign(mcode);
+  const unsigned comb_vsign = inner_sign(mcode) ^ comb_usign;
+
+  const long long chain0 = 2LL * pr * n_w + (live_chain ? w : 0);
+  const long long chain1 = has1 ? chain0 + n_w : chain0;
+  const float* init = d ? b_init : a_init;
+  float* nii = d ? b_nii : a_nii;
+  unsigned* mine = store + wl * chain_stride + d * dir_stride;
+  unsigned* theirs = store + wl * chain_stride + (1 - d) * dir_stride;
+  const int base = p0 + wl * win;
+
+  auto state = [&](int k, int r) { return d ? k + 4 * r : 2 * k + r; };
+  const int t_pin = d ? win - (n - base) : 0;
+  const int skip = kFreeze ? max(t_pin, 0) : 0;
+  int first = 0;
+  if (d == 0) {
+    if (w == 0) first = acq;
+  } else {
+    first = min(max(base + win + acq - n, 0), acq);
+  }
+  unsigned r0 = 0u, r1 = 0u;
+  if (live_chain) {                            // the inits round to bf16
+    const int k = (acq - first + skip) & 1 ? swap2(q) : q;
+    const float* i0 = init + chain0 * 8;
+    const float* i1 = init + chain1 * 8;
+    r0 = pack2(i0[state(k, 0)], has1 ? i1[state(k, 0)] : 0.0f);
+    r1 = pack2(i0[state(k, 1)], has1 ? i1[state(k, 1)] : 0.0f);
+  }
+  if constexpr (kAsync) {
+    // re-pack the raw planes into the slab; the store region is then free
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    const uint16_t* raw = reinterpret_cast<const uint16_t*>(store);
+    for (int i = threadIdx.x; i < slab; i += blockDim.x)
+      uv[slab_index(i - acq, win, acq)] = make_uint2(
+          raw[i + shift[0]] | (unsigned)raw[2 * plane + i + shift[2]] << 16,
+          raw[plane + i + shift[1]] |
+              (unsigned)raw[3 * plane + i + shift[3]] << 16);
+  }
+  __syncthreads();
+  const Phase2 ph0 = phase2(phases[0][sub], keeps1);
+  const Phase2 ph1 = phase2(phases[1][sub], keeps1);
+
+  unsigned lo, hi;
+  auto butterfly = [&](const Phase2& p, unsigned g) {
+    lo = max2(add2(r0, g), sub2(r1, g));
+    hi = max2(sub2(r0, g), add2(r1, g));
+    return (q & p.swap) ? lo : hi;
+  };
+  auto exchange = [&](const Phase2& p, unsigned got) {
+    const bool bit = q & p.swap;
+    r0 = bit ? got : lo;
+    r1 = bit ? hi : got;
+  };
+  // (u + v) rounded, then its halving rounded, as torch's bf16 does
+  auto step_gamma = [&](const Phase2& p, uint2 x, bool pin) {
+    return pin ? p.pin : mul2(fma2(x.y, p.vmul, x.x), p.half);
+  };
+  // The main sweeps' renormalisation after step t, every `period` steps
+  // (2 or 4, so only after odd steps: `odd` is a literal at every call):
+  // x -= x[0], state 0 being r0 of the direction's lane 0 (q = 0: the
+  // first of its 4 lanes).  After the step that is lane 0's own lo (its
+  // held r0 in a frozen step), so with kFold its broadcast is asked for
+  // beside the exchange (`early`), else after it (`late`).
+  auto renorms = [&](bool odd, int t) {
+    return odd && ((t + 1) & (period - 1)) == 0;
+  };
+  auto renorm_early = [&](bool rn, int t) {
+    unsigned s0 = 0u;
+    if (kFold && rn) s0 = __shfl_sync(all, t >= skip ? lo : r0, 0, 4);
+    return s0;
+  };
+  auto renorm_late = [&](bool rn, unsigned s0) {
+    if (rn) {
+      if (!kFold) s0 = __shfl_sync(all, r0, 0, 4);
+      r0 = sub2(r0, s0);
+      r1 = sub2(r1, s0);
+    }
+  };
+
+  // A live acquisition step t runs in phase (acq + skip + t) & 1 (a dead
+  // one, t < first, is dropped), so the loop takes two fixed phases.
+  const uint2* uacq = uv + (d ? wl * win + win + acq - 1 : wl * win - acq) +
+                      acq + wl + 2 * d;
+  const bool odd_start = (acq + skip) & 1;
+  const Phase2 pa = odd_start ? ph1 : ph0, pb = odd_start ? ph0 : ph1;
+  auto acq_step = [&](const Phase2& p, int t) {
+    const unsigned send =
+        butterfly(p, step_gamma(p, uacq[d ? -t : t], false));
+    const unsigned got = __shfl_xor_sync(all, send, p.swap);
+    if (t >= first) exchange(p, got);
+  };
+  for (int t = 0; t < acq; t += 2) {
+    acq_step(pa, t);
+    if (t + 1 < acq) acq_step(pb, t + 1);
+  }
+
+  const uint2* uwin = uv + wl * win + acq + wl + 1;
+  const int xs = d ? -1 : 1;
+  const uint2* xp = uwin + (d ? win - 1 : 0);
+  const bool pinned = !kFreeze;
+  unsigned g = step_gamma(ph0, xp[0], pinned && 0 < t_pin);
+  uint2 xn = xp[xs];
+  xp += 2 * xs;
+
+  unsigned* sp0 = mine + 2 * ph0.pair;
+  unsigned* sp1 = mine + 8 + 2 * ph1.pair;
+  auto store_step = [&](const Phase2& p, const Phase2& p_next, unsigned* sp,
+                        int t, bool odd) {
+    const uint2 xnn = *xp;
+    *reinterpret_cast<uint2*>(sp) = make_uint2(r0, r1);
+    const unsigned got = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+    const bool rn = renorms(odd, t);
+    const unsigned s0 = renorm_early(rn, t);
+    g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
+    if (t >= skip) exchange(p, got);
+    renorm_late(rn, s0);
+    xn = xnn;
+    xp += xs;
+  };
+  for (int t = 0; t < half; t += 2) {
+    store_step(ph0, ph1, sp0, t, false);
+    store_step(ph1, ph0, sp1, t + 1, true);
+    sp0 += 16;
+    sp1 += 16;
+  }
+  __syncwarp();
+
+  // the combine, in f32 a codeblock (h = 0: low halves, 1: high halves),
+  // pipelined as the f32 kernel's
+  auto comb_gamma = [&](uint2 x) {
+    return make_float2(
+        0.5f * (lo_f(x.x, comb_usign) + lo_f(x.y, comb_vsign)),
+        0.5f * (hi_f(x.x, comb_usign) + hi_f(x.y, comb_vsign)));
+  };
+  const unsigned* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;
+  const unsigned* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
+  unsigned* lp = theirs + (half + 1) * 8;
+  uint2 o = *reinterpret_cast<const uint2*>(op0 + 8);
+  float2 ga = comb_gamma(uwin[d ? half - 1 : half]);
+  float in_b0 = 0.0f, in_b1 = 0.0f, in_c0 = 0.0f, in_c1 = 0.0f;
+  const int t_nii = win - acq;
+  unsigned nii0 = 0u, nii1 = 0u;
+  auto combine_step = [&](const Phase2& p, const Phase2& p_next,
+                          const unsigned* op_next, int t, bool odd) {
+    const uint2 xnn = *xp;
+    const uint2 o_next = *reinterpret_cast<const uint2*>(op_next);
+    if (t == t_nii) {
+      nii0 = r0;
+      nii1 = r1;
+    }
+    const float x0 = lo_f(r0), x1 = hi_f(r0), y0 = lo_f(r1), y1 = hi_f(r1);
+    const float p0_ = lo_f(o.x), p1_ = hi_f(o.x);
+    const float q0_ = lo_f(o.y), q1_ = hi_f(o.y);
+    const float pm0 = fmaxf(x0 + p0_, y0 + q0_);
+    const float qm0 = fmaxf(x0 + q0_, y0 + p0_);
+    const float pm1 = fmaxf(x1 + p1_, y1 + q1_);
+    const float qm1 = fmaxf(x1 + q1_, y1 + p1_);
+    const float send0 = p.sends_q ? qm0 : pm0, keep0 = p.sends_q ? pm0 : qm0;
+    const float send1 = p.sends_q ? qm1 : pm1, keep1 = p.sends_q ? pm1 : qm1;
+    const unsigned got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+    const bool rn = t < win && renorms(odd, t);
+    const unsigned s0 = renorm_early(rn, t);
+    const float got_a0 = __shfl_xor_sync(all, send0, 3);
+    const float got_a1 = __shfl_xor_sync(all, send1, 3);
+    const float got_b0 = __shfl_xor_sync(all, in_b0, 1);
+    const float got_b1 = __shfl_xor_sync(all, in_b1, 1);
+    const float got_c0 = __shfl_xor_sync(all, in_c0, 3);
+    const float got_c1 = __shfl_xor_sync(all, in_c1, 3);
+    g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
+    const float2 ga_next = comb_gamma(xn);
+    if (q == 0 && t >= half + 2) *lp = pack2(in_c0 - got_c0, in_c1 - got_c1);
+    in_c0 = fmaxf(in_b0, got_b0);
+    in_c1 = fmaxf(in_b1, got_b1);
+    in_b0 = fmaxf(keep0, got_a0) + ga.x;
+    in_b1 = fmaxf(keep1, got_a1) + ga.y;
+    if (t >= skip) exchange(p, got_s);
+    renorm_late(rn, s0);
+    ga = ga_next;
+    xn = xnn;
+    o = o_next;
+    xp += xs;
+    lp -= 8;
+  };
+  for (int t = half; t < win + 2; t += 2) {
+    combine_step(ph0, ph1, op1, t, false);
+    combine_step(ph1, ph0, op0 - 8, t + 1, true);
+    op0 -= 16;
+    op1 -= 16;
+  }
+  if (live_chain) {
+    const int held = t_nii < skip ? skip : t_nii;
+    const int k = (held & 1) ? ph1.pair : ph0.pair;
+    float* n0 = nii + chain0 * 8;
+    n0[state(k, 0)] = lo_f(nii0);
+    n0[state(k, 1)] = lo_f(nii1);
+    if (has1) {
+      float* n1 = nii + chain1 * 8;
+      n1[state(k, 0)] = hi_f(nii0);
+      n1[state(k, 1)] = hi_f(nii1);
+    }
+  }
+  __syncthreads();
+
+  for (int wl2 = 0; wl2 < wpb; ++wl2) {
+    const unsigned* st = store + wl2 * chain_stride;
+    for (int t = threadIdx.x; t < win; t += blockDim.x) {
+      const int pos = p0 + wl2 * win + t;
+      const int slot = t < half ? t : win - 1 - t;
+      if (pos < n) {
+        const unsigned x = st[(t < half ? 0 : dir_stride) + slot * 8];
+        l_out[row0 + pos] = (uint16_t)x;
+        if (has1) l_out[row1 + pos] = (uint16_t)(x >> 16);
+      }
+    }
+  }
+}
+
 }  // namespace
 
-// Shared memory of a block of wpb windows, bytes: the (u, v) slab in f32
-// and the stores in T.
-template <typename T>
+// Shared memory of a block of wpb windows, bytes: the slab, 8 bytes a
+// position (f32 (u, v); bf16 (u, v) of two codeblocks), and the stores,
+// 4 bytes a metric (f32; a bf16 pair of two codeblocks).  The bf16
+// kernel's raw planes fit in its stores.
 static size_t turbo_smem_bytes(int win, int acq, int wpb) {
   const size_t slab_slots = (size_t)wpb * win + 2 * acq + wpb + 1;
   const size_t chain = 2 * ((size_t)(win / 2) * 8 + 8);
-  return sizeof(float) * 2 * slab_slots + sizeof(T) * wpb * chain;
+  return 8 * slab_slots + 4 * wpb * chain;
 }
 
-template <typename T>
-static int launch(const void* u, const void* v, const float* a_init,
-                  const float* b_init, void* l_out, float* a_nii,
-                  float* b_nii, int c, int n, int n_w, int win, int acq,
-                  int wpb, int freeze, cudaStream_t stream) {
-  const size_t smem = turbo_smem_bytes<T>(win, acq, wpb);
-  auto kernel = turbo_half_kernel<T>;
+template <typename Kernel>
+static int prepare(Kernel kernel, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+}
+
+static int launch_f32(const void* u, const void* v, const float* a_init,
+                      const float* b_init, void* l_out, float* a_nii,
+                      float* b_nii, int c, int n, int n_w, int win, int acq,
+                      int wpb, int freeze, cudaStream_t stream) {
+  const size_t smem = turbo_smem_bytes(win, acq, wpb);
+  if (int e = prepare(turbo_half_kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)c * blocks_per_row;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
-      static_cast<const T*>(u), static_cast<const T*>(v), a_init, b_init,
-      static_cast<T*>(l_out), a_nii, b_nii, n, n_w, win, acq, wpb,
-      blocks_per_row, freeze);
+  turbo_half_kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
+      static_cast<const float*>(u), static_cast<const float*>(v), a_init,
+      b_init, static_cast<float*>(l_out), a_nii, b_nii, n, n_w, win, acq,
+      wpb, blocks_per_row, freeze);
   return (int)cudaGetLastError();
+}
+
+template <bool kFold, bool kAsync>
+static int launch_bf16(const void* u, const void* v, const float* a_init,
+                       const float* b_init, void* l_out, float* a_nii,
+                       float* b_nii, int c, int n, int n_w, int win, int acq,
+                       int wpb, int freeze, cudaStream_t stream) {
+  const size_t smem = turbo_smem_bytes(win, acq, wpb);
+  auto kernel = freeze ? turbo_half_bf16_kernel<kFold, kAsync, true>
+                       : turbo_half_bf16_kernel<kFold, kAsync, false>;
+  if (int e = prepare(kernel, smem)) return e;
+  const int blocks_per_row = (n_w + wpb - 1) / wpb;
+  const long long blocks = (long long)((c + 1) / 2) * blocks_per_row;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
+      static_cast<const uint16_t*>(u), static_cast<const uint16_t*>(v),
+      a_init, b_init, static_cast<uint16_t*>(l_out), a_nii, b_nii, c, n, n_w,
+      win, acq, wpb, blocks_per_row);
+  return (int)cudaGetLastError();
+}
+
+static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
+  return !(win % 4 != 0 || acq <= 0 || acq > win / 2 || n_w * win < n ||
+           (n_w - 1) * win >= n || wpb <= 0 || wpb * kLanes > 1024 ||
+           (wpb * kLanes) % 32 != 0);
 }
 
 // u, v: (c, n) in the metric type (f32, or bf16 with bf16 = 1);
 // a_init, b_init: (c, n_w, 8) f32 (already pinned); l_out: (c, n) in the
 // metric type; a_nii, b_nii: (c, n_w, 8) f32 raw exports; wpb: windows per
-// block (8 * wpb threads); bf16: 1 runs the bf16 trellis; freeze: 1 keeps
-// the old beta at dead positions instead of pinning them.  Returns
-// cudaGetLastError.
+// block (8 * wpb threads; in bf16 each window of two codeblocks); bf16: 1
+// runs the bf16 trellis; freeze: 1 keeps the old beta at dead positions
+// instead of pinning them.  Returns cudaGetLastError.
 extern "C" int lteax_turbo_half(const void* u, const void* v,
                                 const float* a_init, const float* b_init,
                                 void* l_out, float* a_nii, float* b_nii,
                                 int c, int n, int n_w, int win, int acq,
                                 int wpb, int bf16, int freeze,
                                 cudaStream_t stream) {
-  if (win % 4 != 0 || acq <= 0 || acq > win / 2 || n_w * win < n ||
-      (n_w - 1) * win >= n || wpb <= 0 || wpb * kLanes > 1024 ||
-      (wpb * kLanes) % 32 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_args(n, n_w, win, acq, wpb)) return (int)cudaErrorInvalidValue;
   if (c <= 0) return 0;
   if (bf16)
-    return launch<__nv_bfloat16>(u, v, a_init, b_init, l_out, a_nii, b_nii,
-                                 c, n, n_w, win, acq, wpb, freeze, stream);
-  return launch<float>(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
-                       win, acq, wpb, freeze, stream);
+    return launch_bf16<true, true>(u, v, a_init, b_init, l_out, a_nii, b_nii,
+                                   c, n, n_w, win, acq, wpb, freeze, stream);
+  return launch_f32(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
+                    win, acq, wpb, freeze, stream);
+}
+
+// The bf16 kernel's variants, for timing them against one another: after
+// lever 1 (native bf16x2 arithmetic, two codeblocks a lane), 2 (+ the
+// renormalisation's broadcast beside the exchange) or 3 (+ the slab staged
+// by cp.async: the kernel lteax_turbo_half launches); arguments as
+// lteax_turbo_half's with bf16 = 1.
+extern "C" int lteax_turbo_half_bf16_variant(
+    const void* u, const void* v, const float* a_init, const float* b_init,
+    void* l_out, float* a_nii, float* b_nii, int c, int n, int n_w, int win,
+    int acq, int wpb, int freeze, int variant, cudaStream_t stream) {
+  if (!valid_args(n, n_w, win, acq, wpb) || variant < 1 || variant > 3)
+    return (int)cudaErrorInvalidValue;
+  if (c <= 0) return 0;
+  auto launch = variant == 1   ? &launch_bf16<false, false>
+                : variant == 2 ? &launch_bf16<true, false>
+                               : &launch_bf16<true, true>;
+  return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
+                acq, wpb, freeze, stream);
 }

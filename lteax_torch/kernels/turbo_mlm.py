@@ -7,10 +7,11 @@ tiles) become ONE CUDA kernel on the natural (C, K+3) layout,
 lanes carry each window's chain, the alpha/beta stores stay in shared
 memory; see the note in the source), in the reference's forms: an f32 or
 bf16 trellis (``mdtype`` "f32", or "bf16" and "bf16_f32store", whose
-stores hold the same bf16 values) and pinned or frozen padding
-(``pinpad``).  :func:`half_iteration_plain` is the same
-arithmetic in plain torch, vectorised the way the Pallas body is: a Python
-loop over trellis steps on (C, n_w) tensors.  :func:`half_iteration_raw`
+stores hold the same bf16 values; the bf16 kernel carries two codeblocks
+a lane in bf16x2 registers) and pinned or frozen padding (``pinpad``).
+:func:`half_iteration_plain` is the same arithmetic in plain torch,
+vectorised the way the Pallas body is: a Python loop over trellis steps on
+(C, n_w) tensors.  :func:`half_iteration_raw`
 runs it for CPU tensors and launches the kernel for CUDA tensors.
 
 :func:`turbo_decode_batch` is the natural-path half of
@@ -42,7 +43,9 @@ so the state-0 self-loop dominates every dead step (the termination pin)."""
 WINDOWS_PER_BLOCK = 4
 """Consecutive windows of a codeblock that one block of the kernel owns in
 the decoders (8 lanes each, so one warp a block): 21.4 KB of shared memory
-a block at win 128, ten blocks (40 chains) an SM."""
+a block at win 128, ten blocks (40 chains) an SM.  The bf16 kernel's
+window carries two codeblocks: 21.0 KB, ten blocks (80 chains); 4 is its
+fastest count too (``bench/turbo_variants.py --mdtype bf16``)."""
 
 LAUNCHES = 0
 """Launches of the f32 pinned-padding form since the last reset
@@ -240,6 +243,39 @@ def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
     dtype (a bf16 form reads bf16 u, v and writes bf16 l); the inits and
     the NII exports stay f32."""
     global LAUNCHES
+    out = _launch("lteax_turbo_half", u, v, a_init, b_init, win, acq, wpb,
+                  mdtype, int(_TRELLIS[mdtype] == "bf16"), int(not pinpad))
+    if mdtype == "f32" and pinpad:
+        LAUNCHES += 1
+    else:
+        FORM_LAUNCHES[_form(mdtype, pinpad)] += 1
+    return out
+
+
+BF16_VARIANTS = {
+    1: "(b) two codeblocks a lane, native bf16x2 arithmetic",
+    2: "(b) + the renormalisation's broadcast beside the exchange",
+    3: "(b) + the slab staged by cp.async"}
+"""The bf16 kernel's variants (``csrc/turbo.cu``), lever by lever; the
+decoders launch 3."""
+
+
+def half_iteration_bf16_variant(u, v, a_init, b_init, win: int, acq: int,
+                                variant: int, pinpad: bool = True,
+                                wpb: int = WINDOWS_PER_BLOCK):
+    """The bf16 kernel as :data:`BF16_VARIANTS` ``variant``, for timing
+    them against one another: as :func:`half_iteration_kernel` with
+    ``mdtype="bf16"``, and not counted (no decoder launches it)."""
+    if variant not in BF16_VARIANTS:
+        raise ValueError(f"variant {variant}: one of {sorted(BF16_VARIANTS)}")
+    return _launch("lteax_turbo_half_bf16_variant", u, v, a_init, b_init,
+                   win, acq, wpb, "bf16", int(not pinpad), variant)
+
+
+def _launch(entry: str, u, v, a_init, b_init, win: int, acq: int, wpb: int,
+            mdtype: str, *flags: int):
+    """Check, allocate the outputs and call the C entry ``entry`` with its
+    trailing int ``flags``."""
     from lteax_torch.kernels._build import check_cuda, library, stream_handle
     dt, _ = _metric_dtypes(mdtype)
 
@@ -262,15 +298,10 @@ def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
     l = torch.empty((c, n), dtype=dt, device=dev)
     a_nii = torch.empty((c, n_w, 8), dtype=torch.float32, device=dev)
     b_nii = torch.empty_like(a_nii)
-    library().call("lteax_turbo_half", u.data_ptr(), v.data_ptr(),
-                   a_init.data_ptr(), b_init.data_ptr(), l.data_ptr(),
-                   a_nii.data_ptr(), b_nii.data_ptr(), c, n, n_w, win, acq,
-                   wpb, int(_TRELLIS[mdtype] == "bf16"), int(not pinpad),
+    library().call(entry, u.data_ptr(), v.data_ptr(), a_init.data_ptr(),
+                   b_init.data_ptr(), l.data_ptr(), a_nii.data_ptr(),
+                   b_nii.data_ptr(), c, n, n_w, win, acq, wpb, *flags,
                    stream_handle(u))
-    if mdtype == "f32" and pinpad:
-        LAUNCHES += 1
-    else:
-        FORM_LAUNCHES[_form(mdtype, pinpad)] += 1
     return l, a_nii, b_nii
 
 

@@ -84,3 +84,53 @@ def test_benches_take_the_shipped_numerics(bench, n_tb):
                         else [])])
     _dry_run(out, n_tb)
     assert (out["mdtype"], out["demap_in"]) == ("bf16", "bf16")
+
+
+# A turbo kernel's SASS as ``cuobjdump -sass`` prints it, cut down: an
+# acquisition loop (exchange only), a store loop (exchange and a shared
+# store) in two compiled versions, a combine loop (exchange and a fold),
+# an outer loop around the combine (not innermost) and a staging loop (no
+# shuffle); encodings left out.
+_SASS = """
+		Function : _ZN4_GLOBAL_17turbo_half_kernelEPKf
+        /*0000*/                   MOV R1, R2 ;
+        /*0010*/                   FADD R3, R3, R4 ;
+        /*0020*/                   SHFL.BFLY PT, R3, R3, R9, 0x1f ;
+        /*0030*/              @P0 BRA 0x10 ;
+        /*0040*/                   STS [R5], R3 ;
+        /*0050*/                   SHFL.BFLY PT, R3, R3, R9, 0x1f ;
+        /*0060*/                   NOP ;
+        /*0070*/              @P1 BRA 0x40 ;
+        /*0080*/                   STS.64 [R5], R2 ;
+        /*0090*/                   FMNMX R3, R3, R4, !PT ;
+        /*00a0*/                   SHFL.BFLY PT, R3, R3, R9, 0x1f ;
+        /*00b0*/              @P1 BRA 0x80 ;
+        /*00c0*/                   SHFL.BFLY PT, R3, R3, R9, 0x1f ;
+        /*00d0*/                   SHFL.BFLY PT, R6, R6, 0x3, 0x1f ;
+        /*00e0*/              @P2 BRA 0xc0 ;
+        /*00f0*/              @P3 BRA 0xc0 ;
+        /*0100*/                   LDG.E R7, desc[UR4][R10.64] ;
+        /*0110*/              @P4 BRA 0x100 ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_turbo_sass_issue_model():
+    """``turbo_variants --sass``: the trellis loops found by phase, and the
+    warp instructions a launch they give."""
+    from lteax_torch.bench import turbo_variants as tv
+    funcs = tv.sass_functions(_SASS)
+    (body,) = funcs.values()
+    assert len(body) == 19
+    loops = tv.trellis_loops(body)
+    assert loops == {"acq": [[3, 1]], "store": [[3, 1], [4, 1]],
+                     "combine": [[3, 1]]}
+    m = tv.issue_model(loops, 4, 100, 32, 8, 4, 1)
+    assert m["instr_per_step"] == {"acq": [3.0, 3.0], "store": [3.0, 4.0],
+                                   "combine": [3.0, 3.0]}
+    # 4 windows a row in one block of one warp; 8, 16 and 18 steps
+    assert m["warps"] == 4
+    assert m["warp_instr"] == [4 * (8 * 3 + 16 * 3 + 18 * 3),
+                               4 * (8 * 3 + 16 * 4 + 18 * 3)]
+    # two codeblocks a lane halve the warps
+    assert tv.issue_model(loops, 4, 100, 32, 8, 4, 2)["warps"] == 2

@@ -67,14 +67,21 @@ def test_turbo_kernel_matches_plain(dev, k, win, acq):
 @pytest.mark.parametrize("mdtype,pinpad", [
     ("bf16", True), ("bf16_f32store", True), ("bf16", False),
     ("bf16_f32store", False), ("f32", False)])
-@pytest.mark.parametrize("k,win,acq", [
-    (40, 32, 8), (40, 128, 16), (1152, 128, 16), (5824, 128, 16),
-    (512, 64, 32), (1024, 36, 16)])      # win/2 = 18: renormalised every 2
-def test_turbo_kernel_forms_match_plain(dev, mdtype, pinpad, k, win, acq):
+@pytest.mark.parametrize("c,k,win,acq", [
+    (37, 40, 32, 8), (37, 40, 128, 16), (37, 1152, 128, 16),
+    (37, 5824, 128, 16), (37, 512, 64, 32),
+    (37, 1024, 36, 16),      # win/2 = 18: renormalised every 2
+    (38, 1152, 128, 16),     # an even C: the bf16 kernel's pairs all whole
+    (1, 224, 32, 16),        # the SI shape: C = 1 (the pair's high half dead)
+    (38, 1027, 128, 16),     # the last window's t_pin 122 (even) ...
+    (37, 1026, 128, 16),     # ... and 123 (odd)
+    (37, 1152, 128, 15)])    # an odd acq: the NII export at an odd step
+def test_turbo_kernel_forms_match_plain(dev, mdtype, pinpad, c, k, win, acq):
     """The bf16 trellis (both bf16 mdtypes launch it) and the freeze, bit
-    for bit, at a C (37) that is no multiple of anything the kernel groups
-    by, and at last windows with 3 and 43 live positions."""
-    c, n = 37, k + 3
+    for bit, at an odd C (37, no multiple of anything the kernels group by)
+    and an even one, at C = 1, and at last windows with 3 and 43 live
+    positions and with dead steps of either parity."""
+    n = k + 3
     n_w = -(-n // win)
     rng = np.random.default_rng(k + win)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -88,6 +95,31 @@ def test_turbo_kernel_forms_match_plain(dev, mdtype, pinpad, k, win, acq):
     ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, mdtype, pinpad)
     assert got[0].dtype == (torch.float32 if mdtype == "f32"
                             else torch.bfloat16)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("variant", sorted(tm.BF16_VARIANTS))
+@pytest.mark.parametrize("pinpad", [True, False])
+@pytest.mark.parametrize("c,k,win,acq", [(37, 1152, 128, 16),
+                                         (3, 1024, 36, 16), (1, 224, 32, 16),
+                                         (38, 1027, 128, 16)])
+def test_turbo_bf16_variants_match_plain(dev, variant, pinpad, c, k, win,
+                                         acq):
+    """Each of the bf16 kernel's timing variants bit for bit, and none of
+    them counted as a launch of the decoders' form."""
+    n = k + 3
+    n_w = -(-n // win)
+    rng = np.random.default_rng(variant)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u, v = t(rng.standard_normal((c, n)) * 6), t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, n_w, 8))),
+                                t(rng.standard_normal((c, n_w, 8))))
+    before = dict(tm.FORM_LAUNCHES)
+    got = tm.half_iteration_bf16_variant(u, v, a0, b0, win, acq, variant,
+                                         pinpad)
+    assert tm.FORM_LAUNCHES == before
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, "bf16", pinpad)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
 
@@ -108,22 +140,25 @@ def test_demap_kernel_forms_match_plain(dev, in_dt, out_dt, scheme, m):
     assert got.dtype == out_dt and torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("mdtype", ["f32", "bf16"])
 @pytest.mark.parametrize("wpb", [4, 8, 24, 40])
-def test_turbo_kernel_any_windows_per_block(dev, wpb):
+def test_turbo_kernel_any_windows_per_block(dev, wpb, mdtype):
     """The block's window count is a launch parameter, not part of the
     result: one warp, two, and 46 windows in ragged pairs of blocks (24 and
-    22 with two dead, 40 and 6 with two dead)."""
+    22 with two dead, 40 and 6 with two dead); in bf16 a window carries two
+    codeblocks, and C = 5 leaves the last pair's high half dead."""
     c, n, win, acq = 5, 5827, 128, 16
     rng = np.random.default_rng(wpb)
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     u, v = t(rng.standard_normal((c, n)) * 6), t(rng.standard_normal((c, n)) * 6)
     a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, 46, 8))),
                                 t(rng.standard_normal((c, 46, 8))))
-    for g, r in zip(tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb),
-                    tm.half_iteration_plain(u, v, a0, b0, win, acq)):
+    for g, r in zip(tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb,
+                                             mdtype),
+                    tm.half_iteration_plain(u, v, a0, b0, win, acq, mdtype)):
         assert torch.equal(g, r)
     with pytest.raises(ValueError):
-        tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb + 1)
+        tm.half_iteration_kernel(u, v, a0, b0, win, acq, wpb + 1, mdtype)
 
 
 def test_turbo_kernel_allocates_no_scratch(dev):
