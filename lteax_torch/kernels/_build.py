@@ -10,9 +10,10 @@ rebuilds and an unchanged one loads at once.
 ``-fmad=false``: the kernels on the CUDA cores are adds, multiplies, maxes
 and mins in f32 (the ACS probe and the turbo kernel's bf16 trellis also
 in packed bf16), and with no contraction into fused multiply-adds each one
-equals its plain torch version bit for bit.  The one tensor-core kernel (the bf16 PSS routine)
-sums in the hardware's order and is held to its plain version by a
-tolerance.
+equals its plain torch version bit for bit.  The one tensor-core kernel,
+the PSS correlator and detect in both arithmetics (bf16, and f32 as three
+bf16 planes), sums in the hardware's order and is held to its plain
+version by a tolerance.
 """
 
 from __future__ import annotations

@@ -12,197 +12,85 @@
 // What bounds it on an H100: operations.  At 20 MHz (nf = 2048) an output
 // sample costs 49k flop against 8 bytes of IQ read, far above the memory
 // roofline either way, so both routines keep the tile on chip and the detect
-// entries never write the (C, 3, L) magnitudes at all.
+// entries never write the (C, 3, L) magnitudes at all.  On the tensor cores
+// a bf16 pass costs 8 flop a (output, root, tap) at 989 TFLOP/s; the f32
+// routine makes six such passes (below), so its bound is six times the bf16
+// one (0.733 ms at 4 x 614 400 samples and 2048 taps, against 1.80 ms for
+// an f32 correlator on the CUDA cores with every multiply-add fused).
 //
-// The bf16 routine (pss_gemm_kernel<DETECT>) does what the TPU kernel does —
-// x and the replicas rounded to bf16, exact products, f32 accumulation — as
-// a Toeplitz GEMM on the tensor cores.  Frames of 64 samples are GEMM rows;
-// a tile of T frames x 64 outputs is sum_c X[c : c+T, :] * G_c over the
-// nf/64 + 1 chunk matrices G_c[s, i] = conj(h[64 c + s - i]).  The complex
-// product is one real GEMM: A = the frame's (re, im) pairs as they lie in
-// memory (K = 128), B = [[gr, gi], [-gi, gr]] in the same interleaving
-// (N = 128 per root), so a thread's accumulator holds (re, im) of an output
-// side by side.  A block takes one carrier, one root and 256 frames: the
-// A slab is staged once in the no-swizzle core-matrix layout, in which the
-// shifted operand X[c : c+T] is the same slab at a 16-byte row offset (no
-// im2col copy); the B chunks (32 KB each, 3 MB in all, L2-resident) stream
-// through a 4-stage cp.async ring already in their shared-memory image; two
+// One kernel body, pss_gemm_kernel<DETECT, PLANES>, runs both as a Toeplitz
+// GEMM on the tensor cores.  Frames of 64 samples are GEMM rows; a tile of
+// T frames x 64 outputs is sum_c X[c : c+T, :] * G_c over the nf/64 + 1
+// chunk matrices G_c[s, i] = conj(h[64 c + s - i]).  The complex product is
+// one real GEMM: A = the frame's (re, im) pairs as they lie in memory
+// (K = 128), B = [[gr, gi], [-gi, gr]] in the same interleaving (N = 128 per
+// root), so a thread's accumulator holds (re, im) of an output side by side.
+// A block takes one carrier, one root and 256 frames: the A slab is staged
+// in the no-swizzle core-matrix layout, in which the shifted operand
+// X[c : c+T] is the same slab at a 16-byte row offset (no im2col copy); the
+// B chunks (32 KB each, 3 MB a plane at 20 MHz, L2-resident) stream through
+// a 4-stage cp.async ring already in their shared-memory image; two
 // warpgroups issue wgmma m64n128k16 with 128 x 128 f32 accumulators each.
-// The Toeplitz form does (nf + 64)/nf = 1.03 of the useful work.  Measured
-// with the loads or the wgmmas taken out, the wgmmas are the longer part and
-// the loads hide behind them; the prologue (staging A) and the epilogue are
-// not overlapped (one block an SM).  Its sums run in another order than the
-// plain version's, so it is held to it by a tolerance, and exactly in root
-// and peak index.
+// The Toeplitz form does (nf + 64)/nf = 1.03 of the useful work.  The
+// prologue (staging A) and the epilogue are not overlapped (one block an SM).
 //
-// The f32 routine (pss_kernel<DETECT>) is the direct time-domain correlator
-// on the CUDA cores, k accumulated in order in f32.  A block owns one
-// carrier and one tile of kTile outputs: it stages x[t0, t0+kTile+nf) and
-// the 3 replicas (3 x 2048 complex = 48 KB at 20 MHz) in shared memory; each
-// thread owns kPer outputs kThreads apart (so a warp's x reads are
-// consecutive) and all 3 roots, 24 accumulators in registers.  It is bound
-// by FP32 issue: per output, root and tap 4 multiplies and 4 adds (no FMA:
-// -fmad=false keeps every rounding the plain version makes).  Its detect
-// entry reduces each tile per root: a thread sums its kPer magnitudes in
-// order, a warp folds with shuffles (offsets 16..1), thread 0 adds the 8
-// warp sums in order; the max is exact and ties go to the smallest index.
-// The plain torch version (lteax_torch/kernels/pss.py) reduces in the same
-// tree, so all outputs equal it bit for bit.
+// PLANES = 1, the bf16 routine, does what the TPU kernel does: x and the
+// replicas rounded to bf16, exact products, f32 accumulation, one pass over
+// the chunks.  Measured with the loads or the wgmmas taken out, the wgmmas
+// are the longer part and the loads hide behind them.
+//
+// PLANES = 3, the f32 routine, splits both operands into three bf16 planes,
+// v = v0 + v1 + v2 with v0 = bf16(v), v1 = bf16(v - v0), v2 = bf16(v - v0 -
+// v1) (both subtractions exact in f32; the sum is v itself for every f32
+// value of magnitude 2^-110 or more, far below any IQ sample that moves a
+// correlation).  x is split while its slab is staged, the replicas' operand
+// on the host (lteax_torch/kernels/pss.py::_toeplitz_planes).  The product
+// keeps the six plane products X_i B_j with i + j <= 2 (PSS_F32_PASSES
+// below); the three left out are of order 2^-24 of a product.  The slab
+// holds one A plane (three and the ring would pass the 227 KB a block may
+// use), so the passes are grouped by A plane: stage x0, sweep the chunks with
+// B0, B1, B2; stage x1, sweep with B0, B1; stage x2, sweep with B0 -- six
+// sweeps in one ordered list through the same ring, the accumulators in
+// registers throughout.  The tensor cores round each accumulation toward
+// zero, so 6 x 264 accumulations into one register would lose ~1e-4 of the
+// peak, one-sided; instead each warpgroup sums a chunk's eight k-steps into
+// fresh registers and adds them to its accumulators in f32 (round to
+// nearest), which keeps the sum at the f32 level.
+//
+// Both routines sum in another order than their plain torch versions, so
+// each is held to its plain version by a tolerance (pss.py's BF16_TOL and
+// F32_TOL), and exactly in root and peak index.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// (A plane, B plane) of each pass of the f32 routine, grouped by A plane
+// (the tests parse this table back and emulate it).
+#define PSS_F32_PASSES {{0, 0}, {0, 1}, {0, 2}, {1, 0}, {1, 1}, {2, 0}}
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 4;
-constexpr int kTile = kThreads * kPer;   // outputs per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kF32Passes = 6;
+constexpr int kPassHost[kF32Passes][2] = PSS_F32_PASSES;
+__constant__ int kPass[kF32Passes][2] = PSS_F32_PASSES;
 
-template <bool DETECT>
-__global__ void __launch_bounds__(kThreads)
-pss_kernel(const float2* __restrict__ x, const float2* __restrict__ h,
-           float* __restrict__ out, float* __restrict__ maxv,
-           int* __restrict__ argv, float* __restrict__ sumv, int l, int nf,
-           int n_tiles) {
-  extern __shared__ float2 smem[];
-  float2* sh = smem;                  // 3 * nf replicas
-  float2* sx = smem + 3 * nf;         // kTile + nf samples
-  const int c = blockIdx.y;
-  const int tile = blockIdx.x;
-  const long long t0 = (long long)tile * kTile;
-  const float2* xc = x + (long long)c * l;
-  for (int i = threadIdx.x; i < 3 * nf; i += kThreads) sh[i] = h[i];
-  for (int i = threadIdx.x; i < kTile + nf; i += kThreads) {
-    const long long n = t0 + i;
-    sx[i] = n < l ? xc[n] : make_float2(0.0f, 0.0f);
-  }
-  __syncthreads();
-
-  float cr[kPer][3], ci[kPer][3];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      cr[j][r] = 0.0f;
-      ci[j][r] = 0.0f;
+// What the kernel relies on: every product with i + j <= 2 exactly once,
+// and the passes of one A plane together (the slab is staged once a plane).
+constexpr bool passes_are_the_split() {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; i + j < 3; ++j) {
+      int n = 0;
+      for (int p = 0; p < kF32Passes; ++p)
+        n += kPassHost[p][0] == i && kPassHost[p][1] == j;
+      if (n != 1) return false;
     }
-#pragma unroll 2
-  for (int k = 0; k < nf; ++k) {
-    float2 hv[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) hv[r] = sh[r * nf + k];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const float2 xv = sx[threadIdx.x + j * kThreads + k];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        float tr = xv.x * hv[r].x;
-        tr = tr + xv.y * hv[r].y;          // Re(x conj h)
-        float ti = xv.y * hv[r].x;
-        ti = ti - xv.x * hv[r].y;          // Im(x conj h)
-        cr[j][r] = cr[j][r] + tr;
-        ci[j][r] = ci[j][r] + ti;
-      }
-    }
-  }
-  float m[kPer][3];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      float v = cr[j][r] * cr[j][r];
-      m[j][r] = v + ci[j][r] * ci[j][r];
-    }
-
-  if (!DETECT) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const long long n = t0 + threadIdx.x + j * kThreads;
-      if (n < l) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r) out[((long long)c * 3 + r) * l + n] = m[j][r];
-      }
-    }
-    return;
-  }
-
-  __shared__ float ws[3][kWarps];
-  __shared__ float wb[3][kWarps];
-  __shared__ int wi[3][kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    float s = m[0][r];
-    float best = m[0][r];
-    int bi = threadIdx.x;
-#pragma unroll
-    for (int j = 1; j < kPer; ++j) {
-      s = s + m[j][r];
-      if (m[j][r] > best) {
-        best = m[j][r];
-        bi = threadIdx.x + j * kThreads;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s = s + __shfl_down_sync(0xffffffffu, s, off);
-      const float ob = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (ob > best || (ob == best && oi < bi)) {
-        best = ob;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      ws[r][warp] = s;
-      wb[r][warp] = best;
-      wi[r][warp] = bi;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    const int r = threadIdx.x;
-    float s = ws[r][0];
-    float best = wb[r][0];
-    int bi = wi[r][0];
-    for (int w = 1; w < kWarps; ++w) {
-      s = s + ws[r][w];
-      if (wb[r][w] > best || (wb[r][w] == best && wi[r][w] < bi)) {
-        best = wb[r][w];
-        bi = wi[r][w];
-      }
-    }
-    const long long o = ((long long)c * 3 + r) * n_tiles + tile;
-    maxv[o] = best;
-    argv[o] = bi;
-    sumv[o] = s;
-  }
+  for (int p = 1; p < kF32Passes; ++p)
+    if (kPassHost[p][0] < kPassHost[p - 1][0]) return false;
+  return kPassHost[0][0] == 0;
 }
-
-template <bool DETECT>
-int launch(const float* x, const float* h, float* out, float* maxv, int* argv,
-           float* sumv, int c, int l, int nf, cudaStream_t stream) {
-  const int n_tiles = (l + kTile - 1) / kTile;
-  if (c <= 0 || n_tiles <= 0) return 0;
-  const size_t smem = (size_t)(3 * nf + kTile + nf) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pss_kernel<DETECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((unsigned)n_tiles, (unsigned)c);
-  pss_kernel<DETECT><<<grid, kThreads, smem, stream>>>(
-      reinterpret_cast<const float2*>(x), reinterpret_cast<const float2*>(h),
-      out, maxv, argv, sumv, l, nf, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// The bf16 routine: the correlator as a Toeplitz GEMM on the tensor cores.
+static_assert(passes_are_the_split(),
+              "the f32 routine needs the six plane products with i + j <= 2, "
+              "grouped by A plane");
 
 constexpr int kFrame = 64;               // samples per GEMM row
 constexpr int kRows = 256;               // frames (GEMM rows) per block
@@ -227,11 +115,12 @@ __device__ __forceinline__ unsigned long long smem_desc(unsigned addr,
          ((unsigned long long)(sbo >> 4) << 32);
 }
 
-// D (64 x 128, f32, in registers) += A (64 x 16, shared) * B (16 x 128,
-// shared), both bf16 and K-major.
+// D (64 x 128, f32, in registers) = scale_d * D + A (64 x 16, shared) *
+// B (16 x 128, shared), both bf16 and K-major; scale_d is 0 or 1.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  unsigned long long da,
-                                                 unsigned long long db) {
+                                                 unsigned long long db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -264,7 +153,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
@@ -277,24 +166,39 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
 // is written).
 __host__ __device__ inline int slab_rows(int nc) { return (kRows + nc) | 1; }
 
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Plane `plane` of the three-plane split of v: v0 = bf16(v), v1 = bf16(v -
+// v0), v2 = bf16(v - v0 - v1), each subtraction exact in f32.  Plane 0 is
+// the bf16 routine's rounding of v.
+__device__ __forceinline__ float plane_rest(float v, int plane) {
+  for (int p = 0; p < plane; ++p) v = v - bf16_rn(v);
+  return v;                       // plane `plane` is bf16_rn of this
+}
+
 // A block owns one carrier, one root and kRows frames of kFrame outputs.
 //   A: the frames as GEMM rows, K = 128 interleaved (re, im) values of a
-//      frame's 64 samples, rounded to bf16 and laid out as 16 K-groups of
+//      frame's 64 samples, one bf16 plane of them laid out as 16 K-groups of
 //      16-byte rows: X[c : c + 64] for chunk c is the same slab read c rows
 //      further down, no copy.
-//   B: per chunk the 128 x 128 matrix [[gr, gi], [-gi, gr]] in the same
-//      interleaving, streamed from device memory (3 MB in all at 20 MHz,
-//      resident in L2) through a ring of cp.async stages, already in its
-//      shared-memory image.
+//   B: per plane, chunk and root the 128 x 128 matrix [[gr, gi], [-gi, gr]]
+//      in the same interleaving, streamed from device memory (resident in
+//      L2) through a ring of cp.async stages, already in its shared-memory
+//      image.
 //   D: each warpgroup accumulates 128 rows x 128 columns in registers over
-//      all chunks; a thread holds (re, im) of an output in neighbouring
-//      registers, so |.|^2 needs no exchange.
-template <bool DETECT>
+//      all passes and chunks; a thread holds (re, im) of an output in
+//      neighbouring registers, so |.|^2 needs no exchange.
+// PLANES = 1 makes one pass (x0, B0); PLANES = 3 the kF32Passes of kPass.
+template <bool DETECT, int PLANES>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 pss_gemm_kernel(const float* __restrict__ x,
                 const unsigned char* __restrict__ b, float* __restrict__ out,
                 float* __restrict__ maxv, int* __restrict__ argv,
                 float* __restrict__ sumv, int l, int nch, int n_tiles) {
+  static_assert(PLANES == 1 || PLANES == 3, "one plane (bf16) or three (f32)");
+  constexpr int kPasses = PLANES == 1 ? 1 : kF32Passes;
   extern __shared__ __align__(128) unsigned char gsm[];
   const int tile = blockIdx.x % n_tiles;
   const int root = (blockIdx.x / n_tiles) % 3;
@@ -304,47 +208,60 @@ pss_gemm_kernel(const float* __restrict__ x,
   unsigned char* slab = gsm;                           // 16 x rows x 16 B
   const unsigned slab_s = smem_addr(slab);
   const unsigned ring_s = slab_s + 16 * lbo_a;         // kStages chunks
+  const int n_steps = kPasses * nch;                   // (pass, chunk) pairs
+  auto a_plane = [&](int pass) { return PLANES == 1 ? 0 : kPass[pass][0]; };
 
-  // chunk k of this root into its stage, 16 bytes a thread and step
+  // step q = (pass q / nch, chunk q % nch) of this root into its stage, 16
+  // bytes a thread and step
   const unsigned char* bsrc = b + (size_t)root * kChunkBytes;
-  auto load_chunk = [&](int k) {
-    if (k < nch) {
-      const unsigned char* src = bsrc + (size_t)k * 3 * kChunkBytes;
-      const unsigned dst = ring_s + (k % kStages) * kChunkBytes;
+  auto load_chunk = [&](int q) {
+    if (q < n_steps) {
+      const int pass = PLANES == 1 ? 0 : q / nch;
+      const int bp = PLANES == 1 ? 0 : kPass[pass][1];
+      const unsigned char* src =
+          bsrc + ((size_t)bp * nch + q - pass * nch) * 3 * kChunkBytes;
+      const unsigned dst = ring_s + (q % kStages) * kChunkBytes;
       for (int i = threadIdx.x * 16; i < kChunkBytes; i += kGemmThreads * 16)
         cp_async16(dst + i, src + i);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  for (int k = 0; k < kStages - 1; ++k) load_chunk(k);
+  for (int q = 0; q < kStages - 1; ++q) load_chunk(q);
 
   // A slab: 8 floats (4 samples) -> 8 bf16 = one 16-byte row of a K-group
   const long long f0 = (long long)tile * kRows * kK;   // first float of tile
   const float* xc = x + (long long)c * l * 2;
   const long long lim = (long long)l * 2;
-  for (int i = threadIdx.x; i < (kRows + nch - 1) * 16; i += kGemmThreads) {
-    const int row = i >> 4, grp = i & 15;
-    const long long f = f0 + (long long)row * kK + grp * 8;
-    float v[8];
-    if (f + 8 <= lim) {
-      // 8-byte loads: a carrier's row starts at an even float, no more
+  auto stage_a = [&](int plane) {
+    for (int i = threadIdx.x; i < (kRows + nch - 1) * 16; i += kGemmThreads) {
+      const int row = i >> 4, grp = i & 15;
+      const long long f = f0 + (long long)row * kK + grp * 8;
+      float v[8];
+      if (f + 8 <= lim) {
+        // 8-byte loads: a carrier's row starts at an even float, no more
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 p = *reinterpret_cast<const float2*>(xc + f + 2 * e);
-        v[2 * e] = p.x;
-        v[2 * e + 1] = p.y;
+        for (int e = 0; e < 4; ++e) {
+          const float2 p = *reinterpret_cast<const float2*>(xc + f + 2 * e);
+          v[2 * e] = p.x;
+          v[2 * e + 1] = p.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = f + e < lim ? xc[f + e] : 0.0f;
       }
-    } else {
+      if (PLANES > 1) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = f + e < lim ? xc[f + e] : 0.0f;
+        for (int e = 0; e < 8; ++e) v[e] = plane_rest(v[e], plane);
+      }
+      __nv_bfloat162 pk[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pk[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      *reinterpret_cast<uint4*>(slab + (size_t)grp * lbo_a + row * 16) =
+          *reinterpret_cast<const uint4*>(pk);
     }
-    __nv_bfloat162 pk[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      pk[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    *reinterpret_cast<uint4*>(slab + (size_t)grp * lbo_a + row * 16) =
-        *reinterpret_cast<const uint4*>(pk);
-  }
+  };
+  stage_a(0);
 
   const int wg = threadIdx.x >> 7;                     // warpgroup
   float acc[2][64];
@@ -352,26 +269,59 @@ pss_gemm_kernel(const float* __restrict__ x,
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[h][i] = 0.0f;
+  float part[64];              // PLANES = 3: a chunk's k-steps, then to acc
+  if constexpr (PLANES > 1) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  }
 
-  for (int k = 0; k < nch; ++k) {
+  int pass = 0, kc = 0;         // PLANES = 3: step q's pass and chunk
+  for (int q = 0; q < n_steps; ++q) {
+    const int k = PLANES == 1 ? q : kc;
+    if (PLANES > 1 && k == 0 && pass > 0 &&
+        a_plane(pass) != a_plane(pass - 1)) {
+      __syncthreads();         // both warpgroups are done with the old plane
+      stage_a(a_plane(pass));
+    }
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
     // this thread's copies and slab stores, before the async proxy reads
     asm volatile("fence.proxy.async.shared::cta;\n" ::);
-    __syncthreads();           // chunk k is whole; stage (k-1) % kStages free
-    load_chunk(k + kStages - 1);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::);
-    const unsigned bs = ring_s + (k % kStages) * kChunkBytes;
+    __syncthreads();           // step q is whole; stage (q-1) % kStages free
+    load_chunk(q + kStages - 1);
+    const unsigned bs = ring_s + (q % kStages) * kChunkBytes;
+    if constexpr (PLANES == 1) {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const unsigned as = slab_s + (k + wg * 128 + h * 64) * 16;
+      for (int h = 0; h < 2; ++h) {
+        const unsigned as = slab_s + (k + wg * 128 + h * 64) * 16;
 #pragma unroll
-      for (int kk = 0; kk < kK / 16; ++kk)
-        wgmma_m64n128k16(acc[h],
-                         smem_desc(as + kk * 2 * lbo_a, lbo_a, 128),
-                         smem_desc(bs + kk * 2 * (kN * 16), kN * 16, 128));
+        for (int kk = 0; kk < kK / 16; ++kk)
+          wgmma_m64n128k16(acc[h],
+                           smem_desc(as + kk * 2 * lbo_a, lbo_a, 128),
+                           smem_desc(bs + kk * 2 * (kN * 16), kN * 16, 128));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned as = slab_s + (k + wg * 128 + h * 64) * 16;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::);
+#pragma unroll
+        for (int kk = 0; kk < kK / 16; ++kk)
+          wgmma_m64n128k16(part, smem_desc(as + kk * 2 * lbo_a, lbo_a, 128),
+                           smem_desc(bs + kk * 2 * (kN * 16), kN * 16, 128),
+                           kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[h][i] = acc[h][i] + part[i];
+      }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::);
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::);
+    if (PLANES > 1 && ++kc == nch) {
+      kc = 0;
+      ++pass;
+    }
   }
 
   // a thread's accumulators: rows r0 and r0 + 8 of each 64-row half, and of
@@ -442,7 +392,7 @@ pss_gemm_kernel(const float* __restrict__ x,
   }
 }
 
-template <bool DETECT>
+template <bool DETECT, int PLANES>
 int launch_gemm(const float* x, const void* b, float* out, float* maxv,
                 int* argv, float* sumv, int c, int l, int nf,
                 cudaStream_t stream) {
@@ -455,46 +405,53 @@ int launch_gemm(const float* x, const void* b, float* out, float* maxv,
   const size_t smem =
       (size_t)16 * slab_rows(nch - 1) * 16 + (size_t)kStages * kChunkBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      pss_gemm_kernel<DETECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      pss_gemm_kernel<DETECT, PLANES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pss_gemm_kernel<DETECT><<<(unsigned)blocks, kGemmThreads, smem, stream>>>(
-      x, static_cast<const unsigned char*>(b), out, maxv, argv, sumv, l, nch,
-      n_tiles);
+  pss_gemm_kernel<DETECT, PLANES>
+      <<<(unsigned)blocks, kGemmThreads, smem, stream>>>(
+          x, static_cast<const unsigned char*>(b), out, maxv, argv, sumv, l,
+          nch, n_tiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (C, L) complex as interleaved f32 pairs; h: (3, nf) complex replicas
-// (not conjugated); out: (C, 3, L) f32.  Returns cudaGetLastError().
-extern "C" int lteax_pss_corr(const float* x, const float* h, float* out,
+// x: (C, L) complex as interleaved f32 pairs; b: the Toeplitz operand,
+// bf16 (planes, nf/64 + 1, 3, 16, 128, 8) (lteax_torch/kernels/pss.py::
+// _operand): one plane of the bf16-rounded replicas for the bf16 routine,
+// the three planes of the replicas for the f32 one; out: (C, 3, L) f32.
+// Each returns cudaGetLastError().
+
+// The f32 routine: |corr|^2 over the three-plane split.
+extern "C" int lteax_pss_corr(const float* x, const void* b, float* out,
                               int c, int l, int nf, cudaStream_t stream) {
-  return launch<false>(x, h, out, nullptr, nullptr, nullptr, c, l, nf, stream);
+  return launch_gemm<false, 3>(x, b, out, nullptr, nullptr, nullptr, c, l,
+                               nf, stream);
 }
 
-// As lteax_pss_corr, but writes per-tile partials (C, 3, n_tiles) instead:
-// maxv f32, argv i32 (index within the tile, first maximum), sumv f32.
-extern "C" int lteax_pss_detect(const float* x, const float* h, float* maxv,
+// As lteax_pss_corr, but writes per-tile partials (C, 3, n_tiles) of tiles
+// of 256 * 64 outputs instead: maxv f32, argv i32 (index within the tile,
+// first maximum), sumv f32.
+extern "C" int lteax_pss_detect(const float* x, const void* b, float* maxv,
                                 int* argv, float* sumv, int c, int l, int nf,
                                 cudaStream_t stream) {
-  return launch<true>(x, h, nullptr, maxv, argv, sumv, c, l, nf, stream);
+  return launch_gemm<true, 3>(x, b, nullptr, maxv, argv, sumv, c, l, nf,
+                              stream);
 }
 
-// The bf16 routine.  x as above; b: the Toeplitz operand, bf16
-// (nf/64 + 1, 3, 16, 128, 8) (lteax_torch/kernels/pss.py::_toeplitz_operand);
-// out: (C, 3, L) f32.
+// The bf16 routine, as lteax_pss_corr.
 extern "C" int lteax_pss_corr_bf16(const float* x, const void* b, float* out,
                                    int c, int l, int nf, cudaStream_t stream) {
-  return launch_gemm<false>(x, b, out, nullptr, nullptr, nullptr, c, l, nf,
-                            stream);
+  return launch_gemm<false, 1>(x, b, out, nullptr, nullptr, nullptr, c, l,
+                               nf, stream);
 }
 
-// As lteax_pss_corr_bf16, with per-tile partials (C, 3, n_tiles) of tiles of
-// 256 * 64 outputs instead of the magnitudes.
+// The bf16 routine, as lteax_pss_detect.
 extern "C" int lteax_pss_detect_bf16(const float* x, const void* b,
                                      float* maxv, int* argv, float* sumv,
                                      int c, int l, int nf,
                                      cudaStream_t stream) {
-  return launch_gemm<true>(x, b, nullptr, maxv, argv, sumv, c, l, nf, stream);
+  return launch_gemm<true, 1>(x, b, nullptr, maxv, argv, sumv, c, l, nf,
+                              stream);
 }

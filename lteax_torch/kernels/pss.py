@@ -10,16 +10,18 @@ Ports of two TPU kernels of ``lteax/kernels/pss.py`` to one CUDA source,
   tile of outputs reduced in the kernel to (max, first argmax, sum) per
   root, combined by :func:`pss_reduce_combine`.
 
-Both take the reference's ``mdtype``.  ``"bf16"``, the default as in the
-reference, is the Toeplitz-chunk GEMM on the tensor cores: x and the
-replicas rounded to bfloat16, products exact, float32 accumulation.
-``"f32"`` is the direct time-domain correlator on the CUDA cores, taps
-accumulated in order in float32.  Each has a plain torch version of the
-same arithmetic, which CPU tensors take; CUDA tensors launch the kernel.
-The f32 kernel equals its plain version bit for bit; the bf16 kernel sums
-in another order than its plain version (the bf16-rounded inputs through
-the same f32 loop), so it is held to it by :data:`BF16_TOL` and exactly in
-the root and peak index.
+Both take the reference's ``mdtype`` and run one kernel, the Toeplitz-chunk
+GEMM on the tensor cores.  ``"bf16"``, the default as in the reference,
+makes one pass: x and the replicas rounded to bfloat16, products exact,
+float32 accumulation.  ``"f32"`` splits x and the replicas into three
+bfloat16 planes each (:func:`split_bf16`) and makes the six passes of the
+plane products with i + j <= 2 (``PSS_F32_PASSES`` in pss.cu), which keep
+the correlation at the float32 level.  Each has a plain torch version,
+which CPU tensors take (the bf16-rounded inputs, or x and the replicas as
+they are, through one f32 loop with the taps in order); CUDA tensors
+launch the kernel.  Each kernel sums in another order than its plain
+version, so it is held to it by :data:`BF16_TOL` or :data:`F32_TOL` of each
+carrier's peak, and exactly in the root and peak index.
 """
 
 from __future__ import annotations
@@ -29,17 +31,17 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-TILE = 1024
-"""Outputs per block and per detect partial of the f32 kernel (``kTile`` in
-pss.cu)."""
-_THREADS, _PER = 256, 4       # kThreads, kPer: the reduction tree's shape
-
 FRAME = 64
-"""Samples per GEMM row of the bf16 kernel (``kFrame`` in pss.cu)."""
+"""Samples per GEMM row of the kernel (``kFrame`` in pss.cu)."""
 TILE_ROWS = 256
-"""Frames per block of the bf16 kernel (``kRows`` in pss.cu)."""
+"""Frames per block of the kernel (``kRows`` in pss.cu)."""
 TILE_BF16 = FRAME * TILE_ROWS
-"""Outputs per block and per detect partial of the bf16 kernel."""
+"""Outputs per block and per detect partial of either routine."""
+PLANES = 3
+"""bfloat16 planes of each operand in the f32 routine."""
+F32_PASSES = PLANES * (PLANES + 1) // 2
+"""Passes of the f32 routine: the plane products X_i B_j with i + j <= 2
+(``PSS_F32_PASSES`` in pss.cu)."""
 
 BF16_TOL = 1e-4
 """Largest |kernel - plain| of the bf16 routine, relative to the carrier's
@@ -47,6 +49,20 @@ peak magnitude.  Both sum the same exact products of bf16-rounded inputs
 in float32; a 4096-term sum whose partial sums stay below the peak's
 square root carries at most a few 1e-6 of the peak in either order, and
 the magnitude doubles the relative error: 1e-4 leaves a factor of ten."""
+
+F32_TOL = 2e-5
+"""Largest |kernel - plain| of the f32 routine, relative to the carrier's
+peak magnitude.  Neither side is exact.  The kernel's three-plane split
+leaves out products of order 2^-24 and adds each chunk's partial sums in
+float32; the plain version sums 2048 taps in order in float32, which
+carries ~u * sqrt(nf / 3) of the correlation at its peak.  Against a
+float64 correlation at 20 MHz (``chip_smoke.py``'s ``[pss-f32]``, a PSS at
+30x the noise's amplitude) the kernel is ~1e-6 of the peak magnitude off
+and the plain version ~2e-6, so no bound near 1e-6 holds between them;
+2e-5 leaves a factor of six over their sum.  It lies well below the bf16
+routine's distance from the same correlation (its inputs keep 8
+significant bits: a few 1e-4 of the peak, ``[pss-bf16]``), so a kernel
+that fell back to bf16 products would fail it."""
 
 CORR_LAUNCHES = 0
 """Launches of the f32 correlator entry since the last reset."""
@@ -117,30 +133,57 @@ def toeplitz_operand_np(filt) -> np.ndarray:
     return b.reshape(nch, 3, 2 * f, 2 * f)
 
 
-def _toeplitz_image(filt: np.ndarray) -> torch.Tensor:
-    """The B operand in the kernel's shared-memory image: bfloat16
-    (nc+1, 3, K/8, N, 8), i.e. per chunk and root the K-major core
-    matrices of 8 rows x 16 bytes that ``wgmma`` reads without a swizzle.
-    The replicas are rounded to bfloat16 before the chunks are cut
-    (negation is exact), so the kernel multiplies what the plain version
-    does."""
-    b = toeplitz_operand_np(_round_bf16(torch.from_numpy(filt)).numpy())
+def split_bf16(v: torch.Tensor) -> list[torch.Tensor]:
+    """The f32 routine's split of float32 ``v`` into :data:`PLANES`
+    bfloat16 planes, v0 = bf16(v), v1 = bf16(v - v0), v2 = bf16(v - v0 -
+    v1) (nearest even; both subtractions exact in float32), as the kernel
+    splits x.  The planes sum to v exactly for every float32 value of
+    magnitude 2^-110 or more."""
+    planes, rest = [], v.to(torch.float32)
+    for _ in range(PLANES):
+        p = rest.to(torch.bfloat16)
+        planes.append(p)
+        rest = rest - p.to(torch.float32)
+    return planes
+
+
+def _image(b: torch.Tensor) -> torch.Tensor:
+    """(nch, 3, K, N) bfloat16 -> the kernel's shared-memory image
+    (nch, 3, K/8, N, 8): per chunk and root the K-major core matrices of 8
+    rows x 16 bytes that ``wgmma`` reads without a swizzle."""
     nch, _, k, n = b.shape
-    img = b.reshape(nch, 3, k // 8, 8, n).transpose(0, 1, 2, 4, 3)
-    return torch.from_numpy(np.ascontiguousarray(img)).to(torch.bfloat16)
+    return b.reshape(nch, 3, k // 8, 8, n).transpose(3, 4).contiguous()
+
+
+def _toeplitz_image(filt: np.ndarray) -> torch.Tensor:
+    """The bf16 routine's B operand in the kernel's image, bfloat16
+    (nc+1, 3, K/8, N, 8).  The replicas are rounded to bfloat16 before the
+    chunks are cut (negation is exact), so the kernel multiplies what the
+    plain version does."""
+    b = toeplitz_operand_np(_round_bf16(torch.from_numpy(filt)).numpy())
+    return _image(torch.from_numpy(b).to(torch.bfloat16))
+
+
+def _toeplitz_planes(filt: np.ndarray) -> torch.Tensor:
+    """The f32 routine's B operand: the Toeplitz operand of the unrounded
+    replicas split into :data:`PLANES` bfloat16 planes, each in the
+    kernel's image, (PLANES, nc+1, 3, K/8, N, 8).  Plane 0 is the bf16
+    routine's image (negation commutes with rounding)."""
+    b = torch.from_numpy(toeplitz_operand_np(filt))
+    return torch.stack([_image(p) for p in split_bf16(b)])
 
 
 @lru_cache(maxsize=8)
 def _operand(mdtype: str, raw: bytes, nf: int, device: str) -> torch.Tensor:
-    """The kernel's replica operand on ``device``: the (3, nf, 2) float32
-    replicas for "f32", the Toeplitz image for "bf16".  Kept per content
+    """The kernel's replica operand on ``device``: the Toeplitz image, in
+    three planes for "f32" and one for "bf16".  Kept per content
     of the replicas (``raw``, their complex64 bytes): the wrappers run
     once per capture batch, and neither the operand's construction nor its
     upload belongs on that path, while replicas that changed, in place or
     not, get a new operand."""
     filt = np.frombuffer(raw, np.complex64).reshape(3, nf).copy()
     if mdtype == "f32":
-        return torch.view_as_real(torch.from_numpy(filt)).to(device)
+        return _toeplitz_planes(filt).to(device)
     return _toeplitz_image(filt).to(device)
 
 
@@ -196,7 +239,8 @@ def _split(x: torch.Tensor, name: str):
 def _launch(entry: str, name: str, xc: torch.Tensor, filt, mdtype: str,
             outs: list) -> None:
     """Launch ``entry`` (f32) or ``entry + "_bf16"`` on (C, L) complex64
-    ``xc`` with the output tensors ``outs``."""
+    ``xc`` with the output tensors ``outs``; both take the Toeplitz image
+    of their arithmetic (:func:`_operand`)."""
     from lteax_torch.kernels._build import check_cuda, library, stream_handle
     xv = torch.view_as_real(xc.contiguous())
     nf = np.asarray(filt).shape[1]
@@ -229,38 +273,16 @@ def pss_corr_mag(x: torch.Tensor, filt, mdtype: str = "bf16") -> torch.Tensor:
     return out.reshape(*lead, 3, l)
 
 
-def detect_tile(mdtype: str) -> int:
-    """Outputs per detect partial of the ``mdtype`` routine."""
-    _check_mdtype(mdtype)
-    return TILE if mdtype == "f32" else TILE_BF16
-
-
 def pss_detect_plain(x: torch.Tensor, filt, mdtype: str = "bf16"):
     """Plain torch version of the detect entry: (C, L) complex64 ->
-    (maxv f32, argv int32, sumv f32), each (C, 3, n_tiles).  The f32
-    routine's tile sum is taken in the kernel's order (per thread, warp
-    shuffle tree, warps in order); the bf16 routine's is a plain sum."""
+    (maxv f32, argv int32, sumv f32), each (C, 3, n_tiles)."""
     x, filt = _rounded(x, filt, mdtype)
     c, l = x.shape
-    tile = detect_tile(mdtype)
+    tile = TILE_BF16
     n_tiles = -(-l // tile)
     m = _corr_mag_padded(x, filt, n_tiles * tile)
     flat = m.reshape(c, 3, n_tiles, tile)
-    if mdtype == "f32":
-        m = m.reshape(c, 3, n_tiles, _PER, _THREADS)   # position j*256 + thread
-        s = m[..., 0, :]
-        for j in range(1, _PER):
-            s = s + m[..., j, :]                        # per thread, j in order
-        s = s.reshape(c, 3, n_tiles, _THREADS // 32, 32)
-        off = 16
-        while off:
-            s = s[..., :off] + s[..., off:2 * off]      # warp shuffle tree
-            off //= 2
-        tot = s[..., 0, 0]
-        for w in range(1, _THREADS // 32):
-            tot = tot + s[..., w, 0]                    # warps in order
-    else:
-        tot = flat.sum(dim=-1)
+    tot = flat.sum(dim=-1)
     maxv = flat.amax(dim=-1)
     argv = torch.argmax((flat == maxv[..., None]).to(torch.uint8), dim=-1)
     return maxv, argv.to(torch.int32), tot
@@ -272,9 +294,10 @@ def pss_detect(x: torch.Tensor, filt, mdtype: str = "bf16"):
     form; combine with :func:`pss_reduce_combine`.  CPU: plain version;
     CUDA: the kernel (the (C, 3, L) magnitudes are never written)."""
     global DETECT_LAUNCHES, DETECT_BF16_LAUNCHES
+    _check_mdtype(mdtype)
     xc, lead = _split(x, "pss_detect")
     c, l = xc.shape
-    tile = detect_tile(mdtype)
+    tile = TILE_BF16
     n_tiles = -(-l // tile)
     if not x.is_cuda:
         parts = pss_detect_plain(xc, filt, mdtype)

@@ -213,8 +213,13 @@ def _noise(shape, seed, dev):
     return torch.as_tensor(x.astype(np.complex64), device=dev)
 
 
-@pytest.mark.parametrize("n_rb,c,l", [(6, 3, 5000), (100, 2, 40000)])
+@pytest.mark.parametrize("n_rb,c,l", [
+    (6, 3, 5000), (6, 1, 16384 + 777), (15, 2, 33001), (100, 2, 40001)])
 def test_pss_kernels_match_plain(dev, n_rb, c, l):
+    """The f32 routine (three bf16 planes, six passes on the tensor cores)
+    against its plain version (taps in order in f32): within ``F32_TOL`` of
+    each carrier's peak, the root and index of the peak equal; the ragged
+    shapes of the bf16 test."""
     from lteax_torch.phy.config import PhyConfig
     from lteax_torch.kernels import pss
     from lteax_torch.phy.sync import pss_time_filters
@@ -222,16 +227,25 @@ def test_pss_kernels_match_plain(dev, n_rb, c, l):
     x = _noise((c, l), n_rb, dev)
     x[0, 1234:1234 + filt.shape[1]] += 20 * torch.as_tensor(filt[2],
                                                            device=dev)
-    before = (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES)
+    before = (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES,
+              pss.CORR_BF16_LAUNCHES, pss.DETECT_BF16_LAUNCHES)
     got = pss.pss_corr_mag(x, filt, "f32")
     parts = pss.pss_detect(x, filt, "f32")
-    assert (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES) == \
-        (before[0] + 1, before[1] + 1)
-    assert torch.equal(got, pss.pss_corr_mag_plain(x, filt, "f32"))
-    for g, r in zip(parts[:3], pss.pss_detect_plain(x, filt, "f32")):
-        assert torch.equal(g, r)
-    nid2, idx, _, _ = pss.pss_reduce_combine(*parts)
-    assert int(nid2[0]) == 2 and abs(int(idx[0]) - 1234) <= 2
+    assert (pss.CORR_LAUNCHES, pss.DETECT_LAUNCHES,
+            pss.CORR_BF16_LAUNCHES, pss.DETECT_BF16_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
+    ref = pss.pss_corr_mag_plain(x, filt, "f32")
+    peak = ref.amax(dim=(1, 2), keepdim=True)
+    assert float(((got - ref).abs() / peak).max()) <= pss.F32_TOL
+    assert torch.equal(got.flatten(1).argmax(1), ref.flatten(1).argmax(1))
+    rp = pss.pss_detect_plain(x, filt, "f32")
+    assert parts[3] == pss.TILE_BF16
+    assert float((parts[0] - rp[0]).abs().max() / peak.max()) <= pss.F32_TOL
+    assert float(((parts[2] - rp[2]).abs() / rp[2]).max()) <= pss.F32_TOL
+    a = pss.pss_reduce_combine(*parts)
+    b = pss.pss_reduce_combine(*rp, pss.TILE_BF16, l)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(a[0][0]) == 2 and abs(int(a[1][0]) - 1234) <= 2
 
 
 @pytest.mark.parametrize("n_rb,c,l", [

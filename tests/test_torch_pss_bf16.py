@@ -79,7 +79,7 @@ def test_detect_bf16_plain_matches_tpu_kernel(n_rb):
     cfg = PhyConfig(n_rb_dl=n_rb)
     x, filt, offs = _capture(cfg)
     parts = pss.pss_detect(torch.from_numpy(x), filt)
-    assert parts[3] == pss.TILE_BF16 == pss.detect_tile("bf16")
+    assert parts[3] == pss.TILE_BF16
     assert parts[0].shape == (3, 3, -(-x.shape[1] // pss.TILE_BF16))
     nid2, idx, peak, mean = pss.pss_reduce_combine(*parts)
     nid2_r, idx_r, peak_r, mean_r = combine_ref(
@@ -175,8 +175,8 @@ def test_device_operands_are_kept_per_replica_content(mdtype):
     get = lambda f: pss._operand(mdtype, f.tobytes(), nf, "cpu")
     a = get(filt)
     assert get(filt) is a and get(filt.copy()) is a
-    want = lambda f: (torch.view_as_real(torch.from_numpy(f))
-                      if mdtype == "f32" else pss._toeplitz_image(f))
+    want = lambda f: (pss._toeplitz_planes(f) if mdtype == "f32"
+                      else pss._toeplitz_image(f))
     assert torch.equal(a, want(filt))
     filt[1] *= 2
     b = get(filt)

@@ -103,7 +103,7 @@ def test_detect_plain_equals_full_reductions():
     same first-argmax index, bit-equal peak, for any tail length."""
     cfg = PhyConfig(n_rb_dl=6)
     x, filt, _ = _pss_capture(cfg, seed=5)
-    xt = torch.from_numpy(np.concatenate([x, x[:, :pss.TILE]], axis=1))
+    xt = torch.from_numpy(np.concatenate([x, x[:, :1024]], axis=1))
     p = pss.pss_corr_mag(xt, filt)
     nid2, idx, peak, mean = pss.pss_reduce_combine(*pss.pss_detect(xt, filt))
     nid_full = p.amax(-1).argmax(-1)
