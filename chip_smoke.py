@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``lteax_torch/kernels/csrc`` with nvcc
 (sm_90a, one nvcc per source, in parallel), holds each kernel against its
 plain torch version on the card at the main paths' shapes, then drives
-twenty-six paths, each with the launch counters set to 0 just before it
+twenty-seven paths and checks the factored DFT, each path with the launch
+counters set to 0 just before it
 and read just after (in the ranks of the multi-process paths, summed over
 them from what each rank returns):
 
@@ -191,7 +192,23 @@ them from what each rank returns):
     in these runs; the turbo bf16 forms also at the ragged and SI shapes
     and at those the bf16 kernel's layout must survive (``TURBO_BF16``),
     and the bf16 kernel's variants (``BF16_VARIANTS``, lever by lever) are
-    timed in turns with the f32 form at the main shape.
+    timed in turns with the f32 form at the main shape.  ``SHIPPED`` runs
+    the factored OFDM DFT with bf16 operands: the DL headline and the
+    threshold cells also run under ``SHIPPED`` with cuFFT on the same IQ
+    (the DL headline's three profiles timed in turns, each decoding
+    256/256 with the bits sent), and UL at B=64 under ``ul_dft`` "factored"
+    and "matmul" (the signal precoded by each) decodes every block.
+28. The factored DFT (``[dft]``, ``lteax_torch.phy.dft``; cuBLAS SGEMMs,
+    no kernel of its own) at every bandwidth's n_fft (4 subframes each):
+    ``"factored_hi"`` and ``dft_factored`` within 1e-5 of the peak of the
+    CPU's, of cuFFT and of a float64 FFT; the bf16 ``"factored"`` held
+    stage by stage, its first matmul within 1e-6 of the CPU's and the
+    demod within 1e-5 of a float64 model of the rounding over the card's
+    own first stage, the operands its f32 first stage rounds apart from
+    the exact one under 1e-3; ``ul_dft`` "factored" and "matmul" at m_sc
+    12 to 1200 within 1e-5 of the CPU's and of float64.  Then the 14-symbol
+    demod of a B=256, 2048-point batch timed as cuFFT, "factored" and
+    "factored_hi" in turns, each beside its bound.
 
 Any failure raises (exit code != 0).  Every timing line carries the card's
 name and power limit.  The last line is one JSON object naming the
@@ -253,9 +270,11 @@ from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.fec.turbo import turbo_encode
 from lteax_torch.phy.grid import pcfich_flat_idx, pdcch_flat_idx
 from lteax_torch.phy.mod import demodulate_maxlog
+import lteax_torch.phy.dft as dft_mod
+import lteax_torch.phy.ofdm as ofdm_mod
 from lteax_torch.phy.ofdm import samples_to_subframe, subframe_to_samples
 from lteax_torch.kernels import launch_counts, reset_launch_counts
-from lteax_torch.phy.tuning import SHIPPED, DecoderTuning
+from lteax_torch.phy.tuning import OFDM_DFTS, SHIPPED, DecoderTuning
 from lteax_torch.pipeline import (dl_demap_plans, make_batch_decoder,
                                   make_batch_harq_decoder,
                                   make_mimo_batch_decoder,
@@ -413,6 +432,15 @@ SOURCES = {
                       "lteax/kernels/demap.py:68")
        for f in ("bf16", "bf16 (UL shape)", "bf16_out")},
 }
+# [dft]: the bandwidths and UL sizes checked, their batch, the limits (of
+# the peak) and the demod's timing reps
+DFT_N_RB = (6, 15, 25, 50, 75, 100)
+DFT_UL_M_SC = (12, 72, 300, 600, 900, 1200)
+DFT_CHECK_B = 4
+DFT_TOL = 1e-5
+DFT_STAGE_A_TOL = 1e-6     # the bf16 form's first stage against the CPU's
+DFT_FLIP_LIMIT = 1e-3      # its f32 first stage rounded apart from exact
+DFT_REPS = 20
 # [bf16]: the threshold cells of the DL headline; B of the other cells
 BF16_THRESHOLD_DB = (21.5, 20.5)
 BF16_B = 64
@@ -3492,25 +3520,36 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     # the DL headline: the SHIPPED decode is the bf16 forms' main path
     iq, tb = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
     x = torch.from_numpy(iq).to(dev)
-    dec_s = make_batch_decoder(*cell.decoder_args(), tuning=SHIPPED,
-                               device=dev)
-    dec_f = make_batch_decoder(*cell.decoder_args(), tuning=f32, device=dev)
-    sh = decode_forms("DL headline SHIPPED", dec_s, x, tb, BATCH, (k1, k3))
-    fl = decode_forms("DL headline f32", dec_f, x, tb, BATCH,
-                      ("turbo_half_iteration", "demap"))
-    if not torch.equal(sh.pop("bits"), fl.pop("bits")):
-        raise AssertionError("[bf16] SHIPPED and f32 bits differ")
-    pairs = [(time_decode(dec_s, x, 1)[0], time_decode(dec_f, x, 1)[0])
+    # SHIPPED (the factored bf16 OFDM DFT), SHIPPED with cuFFT, f32
+    decs = {p: make_batch_decoder(*cell.decoder_args(), tuning=t, device=dev)
+            for p, t in (("shipped", SHIPPED),
+                         ("shipped_fft", dataclasses.replace(
+                             SHIPPED, ofdm_dft="fft")),
+                         ("f32", f32))}
+    forms = {"shipped": (k1, k3), "shipped_fft": (k1, k3),
+             "f32": ("turbo_half_iteration", "demap")}
+    r = {p: decode_forms(f"DL headline {p}", d, x, tb, BATCH, forms[p])
+         for p, d in decs.items()}
+    bits = [v.pop("bits") for v in r.values()]
+    if not all(torch.equal(bits[0], b) for b in bits[1:]):
+        raise AssertionError("[bf16] SHIPPED, SHIPPED_fft and f32 bits "
+                             "differ")
+    turns = [[time_decode(d, x, 1)[0] for d in decs.values()]
              for _ in range(BF16_REPS)]
-    t_s, t_f = (float(np.median(t)) for t in zip(*pairs))
+    t = dict(zip(decs, (float(np.median(v)) for v in zip(*turns))))
+    front = {p: cuda_time_ms(lambda d=d: d.front(x), 5)
+             for p, d in decs.items()}
     mb = lambda t: BATCH * cell.geom.tbs / t / 1e6
     print(f"[bf16] DL headline B={BATCH}, {SNR_DB} dB, in turns (n="
-          f"{BF16_REPS} each): SHIPPED {t_s * 1e3:.3f} ms = {mb(t_s):.2f} "
-          f"Mbit/s, n_iter {sh['n_iter']}; f32 {t_f * 1e3:.3f} ms = "
-          f"{mb(t_f):.2f} Mbit/s, n_iter {fl['n_iter']}; ratio "
-          f"{t_s / t_f:.3f}; bits equal ({card})")
-    out["dl"] = {"shipped": {**sh, "ms": t_s * 1e3, "mbit_per_s": mb(t_s)},
-                 "f32": {**fl, "ms": t_f * 1e3, "mbit_per_s": mb(t_f)}}
+          f"{BF16_REPS} each): " + "; ".join(
+              f"{p} {t[p] * 1e3:.3f} ms = {mb(t[p]):.2f} Mbit/s, n_iter "
+              f"{r[p]['n_iter']}, front {front[p]:.3f} ms" for p in decs)
+          + f"; SHIPPED / f32 {t['shipped'] / t['f32']:.3f}, SHIPPED / "
+          f"SHIPPED_fft {t['shipped'] / t['shipped_fft']:.3f}; bits equal "
+          f"({card})")
+    out["dl"] = {p: {**r[p], "ms": t[p] * 1e3, "mbit_per_s": mb(t[p]),
+                     "front_ms": front[p]} for p in decs}
+    sh = r["shipped"]
     launches = {k1: sh["launches"][k1], k3: sh["launches"][k3]}
     # the other trellis forms, on 64 of the same subframes (bf16_f32store:
     # the bf16 kernel, the extrinsic carried in f32)
@@ -3532,13 +3571,13 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
         iq, tb = dl_subframes(cell, BATCH, snr, seed=SEED)
         x = torch.from_numpy(iq).to(dev)
         r = {p: decode_forms(f"DL {snr} dB {p}", d, x, tb, None, ())
-             for p, d in (("shipped", dec_s), ("f32", dec_f))}
+             for p, d in decs.items()}
         out["threshold"][snr] = {p: {k: v[k] for k in ("n_ok", "n_iter")}
                                  for p, v in r.items()}
         del x
     print(f"[bf16] threshold cells, CRC ok of {BATCH} (n_iter): " + "; ".join(
-        f"{snr} dB SHIPPED {v['shipped']['n_ok']} ({v['shipped']['n_iter']})"
-        f", f32 {v['f32']['n_ok']} ({v['f32']['n_iter']})"
+        f"{snr} dB " + ", ".join(f"{p} {v[p]['n_ok']} ({v[p]['n_iter']})"
+                                 for p in decs)
         for snr, v in out["threshold"].items()) + f" ({card})")
     # the other decoders at B=64 under SHIPPED, f32 on the same IQ
     iq, tb = ul_subframes(ul_cell, BF16_B, SNR_DB, seed=SEED)
@@ -3583,7 +3622,178 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     print(f"[bf16] B={BF16_B} under SHIPPED (f32), CRC ok: " + ", ".join(
         f"{k} {v['shipped']} ({v['f32']})" for k, v in out["b64"].items())
         + f" ({card})")
+    # the UL transform's other forms: the signal precoded by each
+    out["ul_dft"] = {}
+    for mode in ("factored", "matmul"):
+        iq, tb = ul_subframes(ul_cell, BF16_B, SNR_DB, seed=SEED, dft=mode)
+        rr = decode_forms(f"UL B={BF16_B} SHIPPED ul_dft={mode}",
+                          make_pusch_batch_decoder(
+                              *ul_cell.decoder_args(), device=dev,
+                              tuning=dataclasses.replace(SHIPPED,
+                                                         ul_dft=mode)),
+                          torch.from_numpy(iq).to(dev), tb, BF16_B, (k1, k3))
+        out["ul_dft"][mode] = {"n_ok": rr["n_ok"], "n_iter": rr["n_iter"]}
     out["launches"] = launches
+    return out
+
+
+def _bf16_c128(z: torch.Tensor) -> torch.Tensor:
+    """complex64 planes rounded to bf16 (nearest even), as complex128."""
+    r = lambda x: x.to(torch.bfloat16).to(torch.float64)
+    return torch.complex(r(z.real), r(z.imag))
+
+
+def factored_model_f64(blocks: torch.Tensor, cfg: PhyConfig,
+                       a_f32: torch.Tensor):
+    """The bf16 factored demod in float64 over bf16-rounded operands ->
+    (its exact first stage (..., k2, n1), the sub-carriers (..., n_sc));
+    the second matmul's operand is rounded from ``a_f32``, an f32 first
+    stage."""
+    n = cfg.n_fft
+    n1, n2, w1, w2, tw = dft_mod._consts(n, False)
+    t = lambda w: torch.as_tensor(w, device=blocks.device)
+    v = blocks.reshape(*blocks.shape[:-1], n2, n1)
+    a = (_bf16_c128(t(w2)) @ _bf16_c128(v)) * t(tw).to(torch.complex128)
+    c = (_bf16_c128(a_f32) @ _bf16_c128(t(w1))).reshape(
+        *blocks.shape[:-1], n)
+    return a, c[..., ofdm_mod._factored_bins(cfg, blocks.device)] \
+        / np.sqrt(n)
+
+
+def factored_stage_a(blocks: torch.Tensor, n: int) -> torch.Tensor:
+    """The bf16 factored demod's first stage (the inner DFT and twiddle),
+    from ``phy.dft``'s public pieces, on ``blocks``' device."""
+    n1, n2, _, w2, tw = dft_mod.plan(n, False, True, blocks.device)
+    return dft_mod.cmatmul(
+        w2, blocks.reshape(*blocks.shape[:-1], n2, n1), True) * tw
+
+
+def of_peak(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float64 on ``want``'s device."""
+    w = want.to(torch.complex128)
+    return float((got.to(w.device).to(torch.complex128) - w).abs().max()
+                 / w.abs().max())
+
+
+def event_median_ms(fns: dict, reps: int) -> dict:
+    """Median device time (CUDA events around each call) of each of
+    ``fns``, called in turns ``reps`` times after one warm-up each."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def run_dft(dev, card: str) -> dict:
+    """``[dft]``: the factored OFDM demod (both forms) and the factored and
+    dense UL transforms on the card against the CPU, a float64 model of the
+    bf16 rounding and cuFFT; then the 14-symbol demod of the DL headline's
+    batch timed as cuFFT, "factored" and "factored_hi"."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[dft] TF32 is on")
+    cpu = torch.device("cpu")
+    out = {"demod": {}, "ul": {}}
+    for n_rb in DFT_N_RB:
+        cfg = PhyConfig(n_rb_dl=n_rb)
+        s = _complex_noise((DFT_CHECK_B, cfg.n_samps_subframe), n_rb, dev)
+        s_cpu = s.cpu()
+        got = {f: samples_to_subframe(s, cfg, f) for f in OFDM_DFTS}
+        cpu_hi = samples_to_subframe(s_cpu, cfg, "factored_hi")
+        blocks = s[..., torch.as_tensor(ofdm_mod._symbol_sample_idx(cfg),
+                                        device=dev)]
+        a_card = factored_stage_a(blocks, cfg.n_fft)
+        a_cpu = factored_stage_a(blocks.cpu(), cfg.n_fft)
+        a64, model = factored_model_f64(blocks, cfg, a_card)
+        flips = float(torch.mean((_bf16_c128(a_card)
+                                  != _bf16_c128(a64.to(torch.complex64)))
+                                 .double()))
+        x64 = blocks.to(torch.complex128)
+        r = {"hi_vs_cpu": of_peak(got["factored_hi"], cpu_hi),
+             "hi_vs_cufft": of_peak(got["factored_hi"], got["fft"]),
+             "bf16_stage_a_vs_cpu": of_peak(a_card, a_cpu),
+             "bf16_vs_model": of_peak(got["factored"], model),
+             "bf16_vs_cpu": of_peak(got["factored"], samples_to_subframe(
+                 s_cpu, cfg, "factored")),
+             "bf16_flips": flips,
+             "dft_factored_vs_cpu": of_peak(
+                 dft_mod.dft_factored(blocks), dft_mod.dft_factored(
+                     blocks.cpu())),
+             "dft_factored_vs_f64": of_peak(
+                 dft_mod.dft_factored(blocks), torch.fft.fft(x64))}
+        out["demod"][n_rb] = r
+        bad = {k: v for k, v in r.items()
+               if k not in ("bf16_vs_cpu", "bf16_flips")
+               and v > (DFT_STAGE_A_TOL if "stage_a" in k else DFT_TOL)}
+        if bad or flips > DFT_FLIP_LIMIT:
+            raise AssertionError(f"[dft] {n_rb} PRB: {bad}, bf16 operands "
+                                 f"rounded apart {flips:.2e}")
+    for m_sc in DFT_UL_M_SC:
+        x = _complex_noise((DFT_CHECK_B * 12, m_sc), m_sc, dev)
+        x64 = x.to(torch.complex128)
+        r = {}
+        for mode in ("factored", "matmul"):
+            for inverse in (False, True):
+                want = (torch.fft.ifft(x64) * np.sqrt(m_sc) if inverse
+                        else torch.fft.fft(x64) / np.sqrt(m_sc))
+                g = pusch.ul_dft(x, inverse, mode)
+                key = f"{mode}_{'inverse' if inverse else 'forward'}"
+                r[f"{key}_vs_cpu"] = of_peak(g, pusch.ul_dft(x.cpu(), inverse,
+                                                             mode))
+                r[f"{key}_vs_f64"] = of_peak(g, want)
+        out["ul"][m_sc] = r
+        if max(r.values()) > DFT_TOL:
+            raise AssertionError(f"[dft] UL m_sc {m_sc}: {r}")
+    worst = lambda key: max(v[key] for v in out["demod"].values())
+    print(f"[dft] demod at {len(DFT_N_RB)} bandwidths (n_fft 128..2048), "
+          f"B={DFT_CHECK_B}, of the peak: factored_hi vs CPU "
+          f"{worst('hi_vs_cpu'):.2e}, vs cuFFT {worst('hi_vs_cufft'):.2e}; "
+          f"factored (bf16) vs its float64 model {worst('bf16_vs_model'):.2e}"
+          f", first stage vs CPU {worst('bf16_stage_a_vs_cpu'):.2e}, "
+          f"operands rounded apart {worst('bf16_flips'):.2e} (limit "
+          f"{DFT_FLIP_LIMIT}), vs the CPU's whole demod "
+          f"{worst('bf16_vs_cpu'):.2e}; dft_factored vs CPU "
+          f"{worst('dft_factored_vs_cpu'):.2e}, vs float64 "
+          f"{worst('dft_factored_vs_f64'):.2e} (limits {DFT_TOL}, first "
+          f"stage {DFT_STAGE_A_TOL}) ({card})")
+    print(f"[dft] ul_dft factored / matmul at m_sc {DFT_UL_M_SC}: worst "
+          f"{max(max(v.values()) for v in out['ul'].values()):.2e} of the "
+          f"peak vs CPU and float64 (limit {DFT_TOL}) ({card})")
+    # the DL headline's demod: B x 14 transforms of 2048 points
+    cfg = DlCell().cfg
+    n, n_sc = cfg.n_fft, cfg.n_sc
+    n1, n2 = dft_mod._split(n)
+    s = _complex_noise((BATCH, cfg.n_samps_subframe), SEED, dev)
+    ms = event_median_ms({f: lambda f=f: samples_to_subframe(s, cfg, f)
+                          for f in OFDM_DFTS}, DFT_REPS)
+    n_sym = BATCH * cfg.n_sym_subframe
+    n_bytes = n_sym * (n + n_sc) * 8      # the symbols' samples in, bins out
+    flop = n_sym * (8 * n * (n1 + n2) + 10 * n)   # 8 real matmuls, twiddle,
+    #                                               the complex combines
+    bounds = {"fft": bound(n_bytes, n_sym * 5 * n * np.log2(n),
+                           F32_FLOP_PER_S),
+              "factored": bound(n_bytes, flop, F32_FLOP_PER_S),
+              "factored_hi": bound(n_bytes, flop, F32_FLOP_PER_S)}
+    tc = bound(n_bytes, flop, BF16_TENSOR_FLOP_PER_S)
+    print(f"[dft] demod of B={BATCH} x {cfg.n_sym_subframe} symbols of {n} "
+          f"points (median of {DFT_REPS}, CUDA events, in turns): "
+          + "; ".join(
+              f"{f} {ms[f]:.4f} ms, bound {bounds[f]['bound_ms']:.4f} ms by "
+              f"{bounds[f]['bound_by']} ({ms[f] / bounds[f]['bound_ms']:.2f}x)"
+              for f in OFDM_DFTS)
+          + f"; {n_bytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP; the bf16 "
+          f"products on the tensor cores: bound {tc['bound_ms']:.4f} ms by "
+          f"{tc['bound_by']} ({card})")
+    out["timing"] = {f: {"ms": ms[f], **bounds[f]} for f in OFDM_DFTS}
+    out["timing"]["tensor_core_bound_ms"] = tc["bound_ms"]
     return out
 
 
@@ -3752,6 +3962,7 @@ def main() -> None:
                       scan_out["caps"][SHARD_CHANS])
     bf16 = timed("bf16", run_bf16, cell, ul_cell, dev, card)
     launches.update(bf16["launches"])
+    dft = timed("dft", run_dft, dev, card)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; main {time.perf_counter() - t_start:.1f} in all")
@@ -3828,7 +4039,8 @@ def main() -> None:
             or key.startswith("bf16_")}}
         for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]],
         "bf16_profile": {key: bf16[key] for key in
-                         ("dl", "threshold", "b64")},
+                         ("dl", "threshold", "b64", "ul_dft")},
+        "dft": dft,
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",
                             "bound_by", "max_abs_err")},

@@ -46,6 +46,7 @@ from lteax_torch.phy.grid import (crs_flat_idx, pbch_flat_idx, pcfich_flat_idx,
                                   sss_sym, sync_sc)
 from lteax_torch.phy.mod import demodulate_maxlog
 from lteax_torch.phy.ofdm import samples_to_subframe
+from lteax_torch.phy.tuning import OFDM_DFTS
 from lteax_torch.phy.tables.tbs import tbs_1a
 from lteax_torch.pipeline import _resolve_device
 from lteax_torch.stack import rrc
@@ -118,7 +119,8 @@ def _evm_pct(x: torch.Tensor) -> torch.Tensor:
 
 def scan(x, cfg: PhyConfig, correct_cfo: bool = True,
          cfi_hint: int | None = None, ng: float = 1.0,
-         max_si_subframes: int = 64, device=None) -> ScanResult:
+         max_si_subframes: int = 64, device=None,
+         dft: str = "fft") -> ScanResult:
     """Cell search, MIB and SI of a capture x (L,) complex: a torch tensor
     (the scan runs on its device, or on ``device`` when one is named) or a
     numpy array, which goes to ``device``: by default the current CUDA
@@ -126,7 +128,9 @@ def scan(x, cfg: PhyConfig, correct_cfo: bool = True,
 
     The SI stage looks at the first ``max_si_subframes`` subframes (0:
     none); ``cfi_hint`` skips the PCFICH decode.  ``ng`` is unused, as in
-    the reference: the PHICH resource comes from the MIB."""
+    the reference: the PHICH resource comes from the MIB.  ``dft`` is the
+    OFDM demod's DFT (``phy.ofdm.samples_to_subframe``; the reference's
+    default is "factored")."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x)).to(_resolve_device(device))
     elif device is not None:
@@ -152,7 +156,7 @@ def scan(x, cfg: PhyConfig, correct_cfo: bool = True,
     res.n_id_2 = n_id_2
 
     # 3. SSS — demod the PSS-bearing subframe
-    sf_grid = samples_to_subframe(xt[sf_start:sf_start + nsf], cfg)
+    sf_grid = samples_to_subframe(xt[sf_start:sf_start + nsf], cfg, dft)
     scs = torch.as_tensor(sync_sc(cfg).astype(np.int64), device=dev)
     nid1, half5, _ = sync.sss_detect(sf_grid[sss_sym(cfg), scs],
                                      sf_grid[pss_sym(cfg), scs], n_id_2)
@@ -169,7 +173,7 @@ def scan(x, cfg: PhyConfig, correct_cfo: bool = True,
     if n_sf < 1:
         return res
     sfs = xt[frame_start:frame_start + n_sf * nsf].reshape(n_sf, nsf)
-    grids = samples_to_subframe(sfs, cfg)            # (n_sf, 14, n_sc)
+    grids = samples_to_subframe(sfs, cfg, dft)       # (n_sf, 14, n_sc)
 
     # 5. MIB from the first subframe 0, blind over n_ant
     g0 = grids[0]
@@ -375,10 +379,12 @@ def main(argv=None) -> None:
     p.add_argument("--extended-cp", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    p.add_argument("--ofdm-dft", default="fft", choices=OFDM_DFTS,
+                   help="the OFDM demod's DFT")
     a = p.parse_args(argv)
     cfg = PhyConfig(n_rb_dl=a.n_rb, extended_cp=a.extended_cp)
     res = scan(read_iq(a.path, a.fmt), cfg, correct_cfo=not a.no_cfo,
-               device=a.device)
+               device=a.device, dft=a.ofdm_dft)
     print(res.to_json())
 
 

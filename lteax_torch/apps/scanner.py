@@ -44,6 +44,7 @@ import torch.distributed as dist
 
 from lteax_torch.io.iq import read_iq
 from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.tuning import OFDM_DFTS
 from lteax_torch.stack import bands
 from lteax_torch.utils.checkpoint import ScanCheckpoint
 from lteax_torch.utils.metrics import EVENTS, METRICS
@@ -85,10 +86,11 @@ def _native(ch: Channel, cfg: PhyConfig, device) -> torch.Tensor:
     return x
 
 
-def scan_channel(ch: Channel, cfg: PhyConfig, device="cuda") -> ScanResult:
+def scan_channel(ch: Channel, cfg: PhyConfig, device="cuda",
+                 dft: str = "fft") -> ScanResult:
     x = _native(ch, cfg, device)
     with _stage("scan", torch.device(device)):
-        return scan(x, cfg)
+        return scan(x, cfg, dft=dft)
 
 
 def prescan_channels(chans: list[Channel], cfg: PhyConfig,
@@ -103,10 +105,11 @@ def prescan_channels(chans: list[Channel], cfg: PhyConfig,
 
 def scan_channels(chans: list[Channel], cfg: PhyConfig,
                   checkpoint_path: str | None = None,
-                  prescan: bool = False, device="cuda") -> list[dict]:
+                  prescan: bool = False, device="cuda",
+                  dft: str = "fft") -> list[dict]:
     """Scan every channel; returns JSON-able report dicts.  With
     ``checkpoint_path``, finished channels are persisted and skipped on
-    restart."""
+    restart.  ``dft`` is the OFDM demod's DFT (``file_scan.scan``)."""
     ckpt = ScanCheckpoint(checkpoint_path) if checkpoint_path else None
     pre = prescan_channels(chans, cfg, device) if prescan else None
     reports = []
@@ -127,7 +130,7 @@ def scan_channels(chans: list[Channel], cfg: PhyConfig,
             continue
         EVENTS.emit("scan.start", level="debug", channel=ch.label)
         try:
-            d = json.loads(scan_channel(ch, cfg, device).to_json())
+            d = json.loads(scan_channel(ch, cfg, device, dft).to_json())
         except Exception as e:  # pragma: no cover - robustness path
             d = {"error": f"{type(e).__name__}: {e}"}
             EVENTS.emit("scan.error", level="error", channel=ch.label, **d)
@@ -198,7 +201,7 @@ def run_multihost_worker(a, chans: list[Channel], cfg: PhyConfig) -> int:
             if ci % a.multihost == a.worker_idx]
     ckpt = f"{a.checkpoint}.w{a.worker_idx}" if a.checkpoint else None
     reports = scan_channels(mine, cfg, checkpoint_path=ckpt,
-                            prescan=a.prescan, device=dev)
+                            prescan=a.prescan, device=dev, dft=a.ofdm_dft)
     # count DECODED cells (MIB present): raw PSS peaks fire on noise
     total = _total(sum(1 for d in reports if d.get("mib") is not None))
     for d in [*reports, {"multihost_total_cells": total}]:
@@ -253,6 +256,8 @@ def main(argv=None):
                         "(the channel axis across processes)")
     p.add_argument("--port", type=int, default=36911,
                    help="the multihost group's TCP port on 127.0.0.1")
+    p.add_argument("--ofdm-dft", default="fft", choices=OFDM_DFTS,
+                   help="the OFDM demod's DFT")
     p.add_argument("--worker-idx", type=int, default=None,
                    help=argparse.SUPPRESS)   # internal: the worker's index
     a = p.parse_args(argv)
@@ -268,7 +273,8 @@ def main(argv=None):
     for rep in scan_channels(_parse_channels(a.captures), cfg,
                              checkpoint_path=a.checkpoint,
                              prescan=a.prescan,
-                             device=_resolve_device(a.device)):
+                             device=_resolve_device(a.device),
+                             dft=a.ofdm_dft):
         print(json.dumps(rep))
     if a.eventlog:
         METRICS.dump()

@@ -32,7 +32,7 @@ import time
 import torch
 
 from lteax_torch.bench.timing import (add_numerics_args, card_line,
-                                      numerics, stage_iq)
+                                      numerics, numerics_fields, stage_iq)
 from lteax_torch.pipeline import make_batch_decoder, make_batch_harq_decoder
 from lteax_torch.sim.dl_gen import (DlCell, harq_decoder_args,
                                     harq_transmissions)
@@ -96,8 +96,7 @@ def main(argv=None) -> dict:
            "combined_ms": t_h * 1e3, "single_ms": t_1 * 1e3,
            "crc_ok": ok_h, "single_crc_ok": ok_1, "n_iter": it_h,
            "single_n_iter": it_1, "batch": a.batch,
-           "depth": a.depth, "iq": IQ, "mdtype": a.mdtype,
-           "demap_in": a.demap_in,
+           "depth": a.depth, "iq": IQ, **numerics_fields(a),
            "card": card_line() if on_card else "cpu"}
     print(json.dumps(out))
     return out

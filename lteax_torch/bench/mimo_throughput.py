@@ -28,7 +28,8 @@ import sys
 
 
 from lteax_torch.bench.timing import (IQ_FORMATS, add_numerics_args,
-                                      bench_decode, numerics, stage_iq)
+                                      bench_decode, numerics,
+                                      numerics_fields, stage_iq)
 from lteax_torch.pipeline import make_mimo_batch_decoder
 from lteax_torch.sim.mimo_gen import MimoCell, decoder_rows, mimo_subframes
 
@@ -79,8 +80,8 @@ def main(argv=None) -> dict:
            "value": round(res["mbit_per_s"], 2), "unit": res["unit"],
            "crc_ok": res["crc_ok"], "bits_equal": res["bits_equal"],
            "batch": a.batch,
-           "n_iter": res["n_iter"], "iq": a.iq, "mdtype": a.mdtype,
-           "demap_in": a.demap_in, "card": res["card"],
+           "n_iter": res["n_iter"], "iq": a.iq, **numerics_fields(a),
+           "card": res["card"],
            "trace": res["trace"]}
     print(json.dumps(out))
     return out

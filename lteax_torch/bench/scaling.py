@@ -34,7 +34,8 @@ import time
 import numpy as np
 import torch
 
-from lteax_torch.bench.timing import add_numerics_args, card_line, numerics
+from lteax_torch.bench.timing import (add_numerics_args, card_line, numerics,
+                                      numerics_fields)
 from lteax_torch.shard import pipeline as sp
 from lteax_torch.shard.mesh import device_type, make_mesh, mesh_device, spawn
 from lteax_torch.sim.dl_gen import DlCell, dl_subframes
@@ -123,7 +124,7 @@ def main(argv=None) -> dict:
            "unit": "samples/s" if kind == "cuda" else "samples/s (CPU dry "
                                                        "run)",
            "results": rows, "reps": a.reps, "device": kind,
-           "mdtype": a.mdtype, "demap_in": a.demap_in,
+           **numerics_fields(a),
            "backend": a.backend or ("nccl" if kind == "cuda" else "gloo"),
            "card": card_line() if kind == "cuda" else "cpu"}
     print(json.dumps(out))

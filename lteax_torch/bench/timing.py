@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from lteax_torch.io.iq import from_iq_f32, to_iq_bf16, to_iq_sc8
-from lteax_torch.phy.tuning import MDTYPES, DecoderTuning
+from lteax_torch.phy.tuning import (MDTYPES, OFDM_DFTS, UL_DFTS,
+                                     DecoderTuning)
 from lteax_torch.utils.trace import profile_to, stage
 
 IQ_FORMATS = ("f32", "bf16", "sc8")
@@ -38,20 +39,36 @@ def stage_iq(iq: np.ndarray, fmt: str) -> torch.Tensor:
                      f"(use {'/'.join(IQ_FORMATS)})")
 
 
+NUMERICS = ("mdtype", "demap_in", "ofdm_dft", "ul_dft")
+"""The tuning fields the bench CLIs set (:func:`add_numerics_args`)."""
+
+
 def add_numerics_args(ap) -> None:
-    """``--mdtype`` and ``--demap-in``: the decoder's trellis and demap
-    staging (the counterparts of the reference's ``LTEAX_PALLAS_DTYPE`` and
-    ``LTEAX_DEMAP_IN``), default the exact f32 profile; ``--mdtype bf16
-    --demap-in bf16`` is the reference's shipped numerics (``SHIPPED``)."""
+    """``--mdtype``, ``--demap-in``, ``--ofdm-dft`` and ``--ul-dft``: the
+    decoder's trellis, demap staging, OFDM demod DFT and UL transform (the
+    counterparts of the reference's ``LTEAX_PALLAS_DTYPE``,
+    ``LTEAX_DEMAP_IN``, ``LTEAX_OFDM_DFT`` and ``LTEAX_UL_DFT``), default
+    the exact f32 profile; ``--mdtype bf16 --demap-in bf16 --ofdm-dft
+    factored`` is the reference's shipped numerics (``SHIPPED``)."""
     ap.add_argument("--mdtype", default="f32", choices=MDTYPES,
                     help="turbo trellis metric dtype")
     ap.add_argument("--demap-in", default="f32", choices=("f32", "bf16"),
                     help="demap kernel input staging dtype")
+    ap.add_argument("--ofdm-dft", default="fft", choices=OFDM_DFTS,
+                    help="the OFDM demod's DFT")
+    ap.add_argument("--ul-dft", default="fft", choices=UL_DFTS,
+                    help="the UL transform de-precoding")
+
+
+def numerics_fields(a) -> dict:
+    """The options of :func:`add_numerics_args`, by tuning field (for a
+    bench's JSON line)."""
+    return {f: getattr(a, f) for f in NUMERICS}
 
 
 def numerics(a, **kw) -> DecoderTuning:
     """The tuning of :func:`add_numerics_args`' options (and ``kw``)."""
-    return DecoderTuning(mdtype=a.mdtype, demap_in=a.demap_in, **kw)
+    return DecoderTuning(**numerics_fields(a), **kw)
 
 
 def card_line() -> str:

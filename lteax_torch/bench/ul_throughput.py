@@ -33,7 +33,8 @@ import sys
 
 
 from lteax_torch.bench.timing import (IQ_FORMATS, add_numerics_args,
-                                      bench_decode, numerics, stage_iq)
+                                      bench_decode, numerics,
+                                      numerics_fields, stage_iq)
 from lteax_torch.pipeline import make_pusch_batch_decoder
 from lteax_torch.sim.ul_gen import UlCell, ul_subframes
 
@@ -80,8 +81,8 @@ def main(argv=None) -> dict:
            "vs_baseline": round(value / REAL_TIME_MBIT_S, 3),
            "crc_ok": res["crc_ok"], "bits_equal": res["bits_equal"],
            "n_iter": res["n_iter"],
-           "batch": a.batch, "iq": a.iq, "mdtype": a.mdtype,
-           "demap_in": a.demap_in, "card": res["card"],
+           "batch": a.batch, "iq": a.iq, **numerics_fields(a),
+           "card": res["card"],
            "trace": res["trace"]}
     print(json.dumps(out))
     return out

@@ -8,9 +8,9 @@ Counterpart of ``lteax.phy.channels.pusch`` for the batched UL-SCH decoder
 (``lteax_torch.sim.ul_gen``) and the single-subframe :func:`pusch_decode`
 and :func:`pusch_decode_uci`.  The DM-RS, the interleavers, the UCI layout
 and the denoiser's tap mask are numpy plans, held equal to the originals by
-the tests; the DFTs are ``torch.fft`` (the reference's dense-matmul and
-factored DFT forms exist for the TPU's matrix unit and are not carried
-over).  The single-subframe decodes run the reference's receiver (LS at the
+the tests; the transform precoding is ``torch.fft`` or, as in the
+reference (``ul_dft``), the factored DFT or a dense unitary matrix.  The
+single-subframe decodes run the reference's receiver (LS at the
 DM-RS, linear time interpolation, MMSE, IDFT, ``demodulate_maxlog``) and
 the turbo kernel at the reference's single-subframe settings
 (``pdsch.decode_codeword``), all on the grid's device; only the UCI
@@ -29,12 +29,13 @@ import numpy as np
 import torch
 
 from lteax_torch.host import read
+from lteax_torch.phy import dft as dft_mod
 from lteax_torch.phy import seq
 from lteax_torch.phy.channels.pdsch import (PdschGeometry, decode_codeword,
                                             pdsch_geometry)
 from lteax_torch.phy.channels.pucch import PHI_M12
 from lteax_torch.phy.mod import demodulate_maxlog
-from lteax_torch.phy.tuning import SINGLE_SUBFRAME
+from lteax_torch.phy.tuning import SINGLE_SUBFRAME, UL_DFTS
 
 N_DATA_SYMS = 12           # normal CP: 14 symbols minus 2 DM-RS (3, 10)
 DMRS_SYMS = (3, 10)
@@ -155,9 +156,46 @@ def chest_denoise(h_ls: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return torch.fft.fft(torch.fft.ifft(h_ls, dim=-1) * taps, dim=-1)
 
 
-def ul_dft(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Unitary transform (de)precoding over the last axis."""
+@lru_cache(maxsize=None)
+def _idft_matrices(m_sc: int) -> tuple[np.ndarray, np.ndarray]:
+    """(re, im) of the unitary IDFT matrix."""
+    n = np.arange(m_sc)
+    w = np.exp(2j * np.pi * np.outer(n, n) / m_sc) / np.sqrt(m_sc)
+    return w.real.astype(np.float32), w.imag.astype(np.float32)
+
+
+@lru_cache(maxsize=64)
+def _idft_planes(m_sc: int, device: torch.device):
+    """The transposed planes (re.T, im.T) of :func:`_idft_matrices` on
+    ``device``."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(w.T), device=device)
+                 for w in _idft_matrices(m_sc))
+
+
+def idft_unitary(x: torch.Tensor, m_sc: int) -> torch.Tensor:
+    """Unitary IDFT over the last axis as one dense complex matmul of f32
+    products (the reference's HIGHEST)."""
+    return dft_mod.cmatmul(x.to(torch.complex64),
+                           _idft_planes(m_sc, x.device))
+
+
+def ul_dft(x: torch.Tensor, inverse: bool, mode: str = "fft") -> torch.Tensor:
+    """Unitary transform (de)precoding over the last axis.
+
+    ``mode`` (:data:`UL_DFTS`, the reference's ``DecoderTuning.ul_dft``):
+    "fft" (``torch.fft``), "factored" (the Cooley–Tukey split of
+    ``phy.dft.dft_factored``, f32 products) or "matmul" (the dense unitary
+    matrix of :func:`idft_unitary`; the forward transform as
+    conj(idft(conj x)))."""
     n = x.shape[-1]
+    if mode == "factored":
+        return dft_mod.dft_factored(x, inverse=inverse, unitary=True)
+    if mode == "matmul":
+        if inverse:
+            return idft_unitary(x, n)
+        return torch.conj_physical(idft_unitary(torch.conj_physical(x), n))
+    if mode != "fft":
+        raise ValueError(f"ul_dft mode {mode!r}: one of {UL_DFTS}")
     if inverse:
         return torch.fft.ifft(x, dim=-1) * math.sqrt(n)
     return torch.fft.fft(x, dim=-1) / math.sqrt(n)
@@ -197,7 +235,8 @@ def _rx_plan(m_sc: int, subframe: int, n_cell_id: int, n_dmrs: int,
 
 def _equalize_llrs(grid: torch.Tensor, scheme: str, m_sc: int,
                    subframe: int, n_cell_id: int, noise_var,
-                   denoise: bool, n_dmrs: int = 0) -> torch.Tensor:
+                   denoise: bool, n_dmrs: int = 0,
+                   dft: str = "fft") -> torch.Tensor:
     """The reference's single-subframe receiver: grid (..., 14, m_sc)
     complex -> max-log LLRs (..., 12 * m_sc * Qm) in interleaved
     (time-first) bit order, not yet descrambled.
@@ -206,7 +245,8 @@ def _equalize_llrs(grid: torch.Tensor, scheme: str, m_sc: int,
     ``denoise``), linear time interpolation, MMSE, IDFT, the post-IDFT
     noise as the mean over each symbol's subcarriers.  ``noise_var=None``
     estimates it per subframe from the DM-RS residual.  ``n_dmrs`` is the
-    DM-RS cyclic shift the UE was granted."""
+    DM-RS cyclic shift the UE was granted, ``dft`` the IDFT's form
+    (:func:`ul_dft`)."""
     dev = grid.device
     grid = grid.to(torch.complex64)
     dmrs, taps, w = _rx_plan(m_sc, subframe, n_cell_id, n_dmrs, dev)
@@ -223,7 +263,7 @@ def _equalize_llrs(grid: torch.Tensor, scheme: str, m_sc: int,
     p = h.abs() ** 2
     x_f = y * torch.conj(h) / (p + nv)
     x_f = x_f / torch.clamp_min(p / (p + nv), 1e-12)
-    x_t = ul_dft(x_f, inverse=True)
+    x_t = ul_dft(x_f, inverse=True, mode=dft)
     eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1,
                      keepdim=True).expand_as(p)
     lead = grid.shape[:-2]
@@ -254,7 +294,8 @@ def _descramble(llr: torch.Tensor, rnti: int, subframe: int,
 def pusch_decode(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
                  subframe: int, n_cell_id: int,
                  noise_var: float | None = None, n_dmrs: int = 0,
-                 n_iter: int = SINGLE_SUBFRAME.n_iter, denoise: bool = True):
+                 n_iter: int = SINGLE_SUBFRAME.n_iter, denoise: bool = True,
+                 dft: str = "fft"):
     """(..., 14, m_sc) received SC-FDMA grids -> (tb_bits (..., TBS) int8,
     tb_ok (...,) bool, cb_oks (..., C) bool), on the grid's device with no
     host read.
@@ -268,11 +309,12 @@ def pusch_decode(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
     ``noise_var=None`` (default) estimates the noise per subframe from the
     DM-RS residual (the two pilot symbols' raw LS difference is noise-only
     under a subframe-static channel); a float pins a static prior.
-    ``n_dmrs`` is the DM-RS cyclic shift of the grant."""
+    ``n_dmrs`` is the DM-RS cyclic shift of the grant, ``dft`` the IDFT's
+    form (:func:`ul_dft`)."""
     geom = alloc.geom
     llr = _descramble(_equalize_llrs(grid, alloc.scheme, alloc.m_sc,
                                      subframe, n_cell_id, noise_var,
-                                     denoise, n_dmrs), rnti, subframe,
+                                     denoise, n_dmrs, dft), rnti, subframe,
                       n_cell_id)
     return decode_codeword(llr[..., _deinterleave_idx(geom.g, alloc.qm,
                                                       llr.device)],
@@ -425,7 +467,8 @@ def _uci_ml_decode(llrs: torch.Tensor, n_bits: int) -> tuple[int, ...]:
 def pusch_decode_uci(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
                      subframe: int, n_cell_id: int, uci: PuschUci,
                      noise_var: float = 1e-3, n_dmrs: int = 0,
-                     n_iter: int = SINGLE_SUBFRAME.n_iter):
+                     n_iter: int = SINGLE_SUBFRAME.n_iter,
+                     dft: str = "fft"):
     """Receive one (14, m_sc) grid with UCI demultiplexing.
 
     Returns (tb (TBS,) int8, tb_ok () bool, cb_oks (C,) bool, ack_bits,
@@ -434,13 +477,14 @@ def pusch_decode_uci(grid: torch.Tensor, alloc: PuschAlloc, rnti: int,
     DM-RS (not denoised) and the static ``noise_var`` prior.  Punctured ACK
     positions are excluded from the data LLRs (the turbo code recovers the
     punctured bits).  The turbo decoder runs at ``SINGLE_SUBFRAME`` with
-    ``n_iter`` full iterations; ``n_dmrs`` is the DM-RS cyclic shift."""
+    ``n_iter`` full iterations; ``n_dmrs`` is the DM-RS cyclic shift,
+    ``dft`` the IDFT's form (:func:`ul_dft`)."""
     geom = alloc_geom_uci(alloc, uci)
     q_ri = uci_q_prime(uci.n_ri, alloc, uci.beta_ri)
     q_ack = uci_q_prime(uci.n_ack, alloc, uci.beta_ack)
     llr = _descramble(_equalize_llrs(grid, alloc.scheme, alloc.m_sc,
                                      subframe, n_cell_id, noise_var,
-                                     False, n_dmrs), rnti, subframe,
+                                     False, n_dmrs, dft), rnti, subframe,
                       n_cell_id)
     inv, data_grp, ri_grp, ack_grp = _uci_plan(alloc.m_sc, alloc.qm, q_ri,
                                                q_ack, llr.device)

@@ -1,20 +1,27 @@
 """OFDM modulation/demodulation with cyclic prefix (36.211 §6.12).
 
-Counterpart of the ``dft="fft"`` path of ``lteax.phy.ofdm``: a subframe's
-14 symbols are cut by one static gather and transformed by one batched
-``torch.fft`` (cuFFT on the card).  Normalisation is orthonormal
-(1/sqrt(N) both ways).  The reference's factored matmul DFT was a TPU
-precision trade and is not ported.
+Counterpart of ``lteax.phy.ofdm``: a subframe's 14 symbols are cut by one
+static gather and transformed together, by one batched ``torch.fft``
+(cuFFT on the card; ``dft="fft"``) or by the reference's factored DFT
+(``"factored"``, ``"factored_hi"``): the Cooley–Tukey N1·N2 split of
+``lteax_torch.phy.dft`` as two complex matmuls and a twiddle, the
+sub-carrier bins gathered straight from the second matmul's (k2, k1)
+output.  ``"factored"`` rounds each matmul's operands to bf16 as the TPU's
+single pass does (the reference's shipped default), ``"factored_hi"``
+runs them in f32.  Normalisation is orthonormal (1/sqrt(N) both ways).
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
 
+from lteax_torch.phy import dft as dft_mod
 from lteax_torch.phy.config import PhyConfig
+from lteax_torch.phy.tuning import OFDM_DFTS
 
 
 def _symbol_sample_idx(cfg: PhyConfig) -> np.ndarray:
@@ -23,12 +30,43 @@ def _symbol_sample_idx(cfg: PhyConfig) -> np.ndarray:
     return starts[:, None] + np.arange(cfg.n_fft)[None, :]
 
 
-def samples_to_subframe(samples: torch.Tensor, cfg: PhyConfig) -> torch.Tensor:
+@lru_cache(maxsize=64)
+def _factored_bins(cfg: PhyConfig, device: torch.device) -> torch.Tensor:
+    """The sub-carrier bins' positions in the factored DFT's flattened
+    (k2, k1) output: bin = N2*k1 + k2 sits at k2*N1 + k1."""
+    n1, n2 = dft_mod._split(cfg.n_fft)
+    bins = cfg.sc_to_fft_bin.astype(np.int64)
+    return torch.as_tensor((bins % n2) * n1 + bins // n2, device=device)
+
+
+def _dft_factored_bins(blocks: torch.Tensor, cfg: PhyConfig,
+                       bf16: bool) -> torch.Tensor:
+    """(..., n_fft) blocks -> (..., n_sc) sub-carriers through the factored
+    DFT (``lteax/phy/ofdm.py::_ofdm_dft_factored``)."""
+    n = cfg.n_fft
+    n1, n2, w1, w2, tw = dft_mod.plan(n, False, bf16, blocks.device)
+    lead = blocks.shape[:-1]
+    v = blocks.reshape(*lead, n2, n1)              # v[n2, n1] = x[n1 + N1*n2]
+    a = dft_mod.cmatmul(w2, v, bf16) * tw          # (..., k2, n1), twiddled
+    c = dft_mod.cmatmul(a, w1, bf16)               # (..., k2, k1)
+    return (c.reshape(*lead, n)[..., _factored_bins(cfg, blocks.device)]
+            * float(np.float32(1 / math.sqrt(n))))
+
+
+def samples_to_subframe(samples: torch.Tensor, cfg: PhyConfig,
+                        dft: str = "fft") -> torch.Tensor:
     """Time samples (..., n_samps_subframe) complex64 -> resource grid
-    (..., n_sym, n_sc) complex64.  The subframe boundary is sample 0."""
+    (..., n_sym, n_sc) complex64.  The subframe boundary is sample 0.
+
+    ``dft``: one of :data:`OFDM_DFTS`.  A factored form asked for is never
+    replaced by the FFT."""
+    if dft not in OFDM_DFTS:
+        raise ValueError(f"dft {dft!r}: one of {OFDM_DFTS}")
     dev = samples.device
     idx = torch.as_tensor(_symbol_sample_idx(cfg), device=dev)
     blocks = samples[..., idx]                       # (..., n_sym, n_fft)
+    if dft != "fft":
+        return _dft_factored_bins(blocks, cfg, bf16=dft == "factored")
     freq = torch.fft.fft(blocks, dim=-1) / math.sqrt(cfg.n_fft)
     bins = torch.as_tensor(cfg.sc_to_fft_bin.astype(np.int64), device=dev)
     return freq[..., bins]

@@ -3,14 +3,30 @@
 Only the knobs that change what a decode computes are carried over;
 the TPU layout and scheduling knobs (tile sizes, lane folds, layout glue,
 planar boundaries) have no meaning on the GPU port.  The default profile
-is the exact one: the reference's shipped values with an f32 trellis and
-f32 demap staging (``mdtype="f32"``, ``demap_in="f32"``).  :data:`SHIPPED`
-is the reference's shipped numerics, bf16 trellis and bf16 demap staging.
+is the exact one: the reference's shipped values with an f32 trellis, f32
+demap staging and the FFT in the OFDM demod (``mdtype="f32"``,
+``demap_in="f32"``, ``ofdm_dft="fft"``).  :data:`SHIPPED` is the
+reference's shipped numerics: bf16 trellis, bf16 demap staging and the
+factored OFDM DFT with bf16 operands.
+
+Of the DFT forms, only ``ofdm_dft="factored"`` changes what a decode
+computes.  ``"factored_hi"`` and ``ul_dft``'s ``"factored"`` and
+``"matmul"`` are f32 forms of the exact transform that ``torch.fft``
+computes (within 1e-5 of its peak); the reference kept them as TPU
+scheduling trades (its FFT was slow at sizes that are not powers of two).
+The port carries them so that every value of the reference's
+``DecoderTuning`` has its counterpart; no default, no ``SHIPPED`` and no
+path of the port selects them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+OFDM_DFTS = ("fft", "factored", "factored_hi")
+"""The OFDM demod's DFT forms (``phy.ofdm.samples_to_subframe``)."""
+UL_DFTS = ("fft", "factored", "matmul")
+"""The SC-FDMA transform's forms (``phy.channels.pusch.ul_dft``)."""
 
 
 MDTYPES = ("f32", "bf16", "bf16_f32store")
@@ -53,6 +69,12 @@ class DecoderTuning:
       reference.
     - ``mimo_denoise``: project the CRS estimate at the pilots onto the
       cyclic-prefix delay span (LS chest only).
+    - ``ofdm_dft``: the OFDM demod's DFT in every front that demodulates
+      IQ (DL, HARQ, MIMO): "fft" (cuFFT), "factored" (the reference's
+      Cooley–Tukey matmuls with operands rounded to bf16, its TPU single
+      pass) or "factored_hi" (the same in f32).
+    - ``ul_dft``: the UL front's transform de-precoding: "fft",
+      "factored" (f32 products) or "matmul" (a dense unitary matrix).
     """
 
     win: int = 128
@@ -71,6 +93,8 @@ class DecoderTuning:
     mimo_chest: str = "ls"
     mimo_denoise: bool = False
     mimo_chest_nv: float = 3e-3
+    ofdm_dft: str = "fft"
+    ul_dft: str = "fft"
 
     def __post_init__(self):
         if self.mdtype not in MDTYPES:
@@ -96,6 +120,11 @@ class DecoderTuning:
             raise ValueError("mimo_denoise is a bool")
         if not self.mimo_chest_nv > 0:
             raise ValueError("mimo_chest_nv must be > 0")
+        if self.ofdm_dft not in OFDM_DFTS:
+            raise ValueError(f"ofdm_dft {self.ofdm_dft!r}: one of "
+                             f"{OFDM_DFTS}")
+        if self.ul_dft not in UL_DFTS:
+            raise ValueError(f"ul_dft {self.ul_dft!r}: one of {UL_DFTS}")
 
     def early_crc(self, cb_crc: bool) -> str | None:
         """CRC flavour for the decoder's early stop (None when disabled)."""
@@ -113,10 +142,12 @@ CRC early stop) and no compacted retry.  The SI decode and
 :func:`lteax_torch.phy.channels.pdsch.pdsch_decode_device` run with it."""
 
 
-SHIPPED = DecoderTuning(mdtype="bf16", demap_in="bf16")
+SHIPPED = DecoderTuning(mdtype="bf16", demap_in="bf16", ofdm_dft="factored")
 """The reference's shipped numerics (``lteax.phy.tuning.DecoderTuning()``,
 ``configs/tuning_default.yaml``): a bf16 trellis (ACS, stores, L and the
-extrinsic carries in bf16) and bf16 demap staging, every other numerics
-knob as the port's default.  It leaves out the reference's factored OFDM
-DFT (``ofdm_dft="factored"``), which the port does not carry: compare it
-against the reference with ``ofdm_dft="fft"`` and ``ul_dft="fft"``."""
+extrinsic carries in bf16), bf16 demap staging and the factored OFDM DFT
+with bf16 operands, every other numerics knob as the port's default.  The
+reference computes its factored DFT in f32 on the CPU (XLA:CPU ignores the
+matmul precision), so a comparison with its CPU decode that must hold bit
+for bit runs ``dataclasses.replace(SHIPPED, ofdm_dft="fft")`` against the
+reference at ``ofdm_dft="fft"``."""

@@ -6,7 +6,8 @@ Three decoders share one turbo + CRC tail (:class:`TurboTail`):
   ``lteax.shard.pipeline.make_batch_decoder_pallas`` with the natural stage
   boundary (``_pdsch_stages(..., planar_boundary=False)``):
 
-    front:  IQ -> OFDM demod (FFT) -> CRS LS channel estimate + noise ->
+    front:  IQ -> OFDM demod (``tuning.ofdm_dft``: cuFFT or the factored
+            DFT) -> CRS LS channel estimate + noise ->
             full-grid MMSE equalizer -> demap kernel (planar LLRs,
             descramble sign planes with zeros off the PDSCH) -> rate
             de-match gather (RE extraction folded in) -> (B*C, 3, K+4) LLRs
@@ -33,7 +34,9 @@ Every decoder takes the tuning's numerics (:mod:`lteax_torch.phy.tuning`):
 ``mdtype`` picks the turbo kernel's trellis and the dtype the de-matched
 LLRs travel in (bf16 under a bf16 trellis, the reference's ``ldt``), and
 ``demap_in`` the dtype the demap kernel's inputs are staged in, where the
-reference demaps with its kernel (:func:`llr_dtypes`).
+reference demaps with its kernel (:func:`llr_dtypes`), ``ofdm_dft`` the
+OFDM demod's DFT of the DL, HARQ and MIMO fronts and ``ul_dft`` the UL
+front's transform de-precoding.
 
 A decoder runs on the current CUDA device unless the caller names another
 device; without a CUDA device and without ``device="cpu"`` the factories
@@ -172,18 +175,20 @@ class DlFront:
     def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
                  scheme: str, k: int, sgn: np.ndarray, grid_inv: np.ndarray,
                  device: torch.device,
-                 dtypes: tuple = (torch.float32, torch.float32)):
+                 dtypes: tuple = (torch.float32, torch.float32),
+                 dft: str = "fft"):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, k + 4
         self.sgn = torch.as_tensor(sgn, dtype=torch.float32, device=device)
         self.grid_inv = _plan(grid_inv, device)
         self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
+        self.dft = dft                              # ``tuning.ofdm_dft``
 
     def equalize(self, samples_iq: torch.Tensor):
         """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
         cfg = self.cfg
         samples = _iq_to_complex(samples_iq)
-        grid = samples_to_subframe(samples, cfg)
+        grid = samples_to_subframe(samples, cfg, self.dft)
         h = chest.estimate_channel(grid, cfg, self.n_cell_id, self.subframe)
         nv = chest.estimate_noise_var(grid, cfg, self.n_cell_id,
                                       self.subframe)[:, None]
@@ -212,13 +217,15 @@ class PuschFront:
     and ``ul_inv`` the composed de-match map (:func:`ul_rm_inv_planar`).
     ``noise_var=None`` estimates the noise per subframe from the DM-RS
     residual (the two pilots' raw LS difference is noise only while the
-    channel holds still over a subframe); a float pins a static prior."""
+    channel holds still over a subframe); a float pins a static prior.
+    ``dft`` is the IDFT's form (``tuning.ul_dft``)."""
 
     def __init__(self, scheme: str, k: int, ref0: np.ndarray,
                  ref1: np.ndarray, w: np.ndarray, taps: np.ndarray,
                  sgn: np.ndarray, ul_inv: np.ndarray,
                  noise_var: float | None, device: torch.device,
-                 dtypes: tuple = (torch.float32, torch.float32)):
+                 dtypes: tuple = (torch.float32, torch.float32),
+                 dft: str = "fft"):
         t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
                                           device=device)
         self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
@@ -227,6 +234,7 @@ class PuschFront:
         self.sgn, self.ul_inv = t(sgn, torch.float32), _plan(ul_inv, device)
         self.data_syms = t(pusch.DATA_SYMS, torch.int64)
         self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
+        self.dft = dft
 
     def equalize(self, grid_iq: torch.Tensor):
         """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
@@ -248,7 +256,7 @@ class PuschFront:
         p = h.abs() ** 2
         xf = y * torch.conj(h) / (p + nv)
         xf = xf / torch.clamp_min(p / (p + nv), 1e-12)
-        xt = pusch.ul_dft(xf, inverse=True)
+        xt = pusch.ul_dft(xf, inverse=True, mode=self.dft)
         # post-IDFT noise: the mean over each symbol's subcarriers
         eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1, keepdim=True)
         inv_eff = (1.0 / eff).expand_as(p)
@@ -368,7 +376,8 @@ class BatchDecoder(_Decoder):
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
         return cls(DlFront(cfg, n_cell_id, subframe, scheme, geom.k, sgn,
-                           grid_inv, device, llr_dtypes(tuning, grid_inv)),
+                           grid_inv, device, llr_dtypes(tuning, grid_inv),
+                           tuning.ofdm_dft),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m_dl, m24a,
                              m24b, device), device)
 
@@ -410,7 +419,7 @@ class HarqBatchDecoder(_Decoder):
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
         fronts = [DlFront(cfg, n_cell_id, sf, scheme, geom.k, s, g, device,
-                          llr_dtypes(tuning, g))
+                          llr_dtypes(tuning, g), tuning.ofdm_dft)
                   for sf, s, g in zip(subframes, sgns, grid_invs)]
         return cls(fronts, TurboTail(geom, n_iter, tuning, tuning.retry_m_dl,
                                      m24a, m24b, device), device)
@@ -450,7 +459,7 @@ class PuschBatchDecoder(_Decoder):
         geom = alloc.geom
         return cls(PuschFront(alloc.scheme, geom.k, ref0, ref1, w, taps, sgn,
                               ul_inv, noise_var, device,
-                              llr_dtypes(tuning, ul_inv)),
+                              llr_dtypes(tuning, ul_inv), tuning.ul_dft),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m, m24a,
                              m24b, device), device)
 
@@ -556,15 +565,17 @@ class MimoFront:
 
     ``chest_kind`` is "ls" (with ``denoise``) or "mmse" (the Wiener matrix
     of the static prior ``chest_nv``); ``sgn`` (2, qm, npad) holds the
-    codewords' planar descramble signs and ``rm_inv`` the de-match map
-    (:func:`rm_inv_planar`)."""
+    codewords' planar descramble signs, ``rm_inv`` the de-match map
+    (:func:`rm_inv_planar`) and ``dft`` the OFDM demod's DFT
+    (``tuning.ofdm_dft``)."""
 
     def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
                  scheme: str, geom: PdschGeometry, tm: int, cb_index: int,
                  re_idx: np.ndarray, sgn: np.ndarray, rm_inv: np.ndarray,
                  chest_kind: str, denoise: bool, chest_nv: float,
                  device: torch.device,
-                 dtypes: tuple = (torch.float32, torch.float32)):
+                 dtypes: tuple = (torch.float32, torch.float32),
+                 dft: str = "fft"):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, geom.k + 4
         self.tm, self.cb_index = tm, cb_index
@@ -576,6 +587,7 @@ class MimoFront:
         self.sgn = t(sgn, torch.float32)
         self.rm_inv = _plan(rm_inv, device)
         self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
+        self.dft = dft
 
     def _estimate(self, grids: torch.Tensor, port: int) -> torch.Tensor:
         if self.chest_kind == "mmse":
@@ -592,7 +604,8 @@ class MimoFront:
         if batch_iq.shape[0] != 2:
             raise ValueError(f"2 receive antennas expected, got "
                              f"{batch_iq.shape[0]}")
-        grids = samples_to_subframe(_iq_to_complex(batch_iq), self.cfg)
+        grids = samples_to_subframe(_iq_to_complex(batch_iq), self.cfg,
+                                    self.dft)
         flat = lambda g: g.reshape(*g.shape[:-2], -1)[..., self.re_idx]
         # (rx, B, port, M) -> (B, rx, port, M)
         h = torch.stack([flat(self._estimate(grids, port))
@@ -743,7 +756,8 @@ def _mimo_front(cfg: PhyConfig, n_cell_id: int, cfi: int,
     return MimoFront(cfg, n_cell_id, subframe, scheme, geom, tm, cb_index,
                      re_idx, sgn, rm_inv, chest_kind, tuning.mimo_denoise,
                      tuning.mimo_chest_nv, device,
-                     llr_dtypes(tuning, rm_inv, kernel_front=not sic))
+                     llr_dtypes(tuning, rm_inv, kernel_front=not sic),
+                     tuning.ofdm_dft)
 
 
 def make_mimo_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,

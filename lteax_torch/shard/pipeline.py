@@ -26,7 +26,7 @@ trellis and demap staging included.  The reference's factories default to
 ``DecoderTuning.from_env()``, a bf16 trellis with bf16 demap staging and
 the factored OFDM DFT; the port's default to its exact f32
 ``DecoderTuning()``, and ``tuning=SHIPPED`` (``phy.tuning``) gives the
-reference's shipped numerics, its OFDM DFT aside.
+reference's shipped numerics, its factored OFDM DFT included.
 A decoder runs on the current CUDA device unless the caller passes
 ``device="cpu"`` (on a CPU mesh); the device must be of the mesh's type.
 """

@@ -41,32 +41,37 @@ class UlCell:
 
 
 def pusch_encode_cbs(cbs: np.ndarray, alloc: pusch.PuschAlloc, rnti: int,
-                     subframe: int, n_cell_id: int) -> np.ndarray:
+                     subframe: int, n_cell_id: int,
+                     dft: str = "fft") -> np.ndarray:
     """(..., C, K_payload) codeblock payloads -> (..., 14, m_sc) complex64
-    SC-FDMA frequency-domain grids, DM-RS symbols left zero."""
+    SC-FDMA frequency-domain grids, DM-RS symbols left zero; ``dft`` is
+    the transform precoding's form (``pusch.ul_dft``)."""
     geom = alloc.geom
     e = rate_matched_bits(cbs, geom)
     e = e[..., pusch.channel_interleaver_idx(geom.g, alloc.qm)]
     c = seq.gold_sequence_np(pusch.pusch_c_init(rnti, subframe, n_cell_id),
                              geom.g)
-    return _precode(modulate((e + c) % 2, alloc.scheme), alloc)
+    return _precode(modulate((e + c) % 2, alloc.scheme), alloc, dft)
 
 
-def _precode(sym: np.ndarray, alloc: pusch.PuschAlloc) -> np.ndarray:
+def _precode(sym: np.ndarray, alloc: pusch.PuschAlloc,
+             dft: str) -> np.ndarray:
     """(..., 12 * m_sc) symbols in time-first order -> (..., 14, m_sc)
     grids: consecutive m_sc symbols share one SC-FDMA symbol, each
     transform-precoded; the DM-RS symbols are left zero."""
     data = torch.from_numpy(sym.reshape(*sym.shape[:-1], pusch.N_DATA_SYMS,
                                         alloc.m_sc))
     grid = np.zeros((*sym.shape[:-1], 14, alloc.m_sc), np.complex64)
-    grid[..., pusch.DATA_SYMS, :] = pusch.ul_dft(data, inverse=False).numpy()
+    grid[..., pusch.DATA_SYMS, :] = pusch.ul_dft(data, inverse=False,
+                                                 mode=dft).numpy()
     return grid
 
 
 def pusch_encode_cbs_uci(cbs: np.ndarray, alloc: pusch.PuschAlloc, rnti: int,
                          subframe: int, n_cell_id: int, uci: pusch.PuschUci,
                          ack: tuple[int, ...] = (),
-                         ri: tuple[int, ...] = ()) -> np.ndarray:
+                         ri: tuple[int, ...] = (),
+                         dft: str = "fft") -> np.ndarray:
     """Like :func:`pusch_encode_cbs` but multiplexing HARQ-ACK / RI bits
     (``pusch.uci_layout``): the data fill the interleaver matrix's groups
     outside the RI-reserved ones, the RI word the reserved groups and the
@@ -90,7 +95,7 @@ def pusch_encode_cbs_uci(cbs: np.ndarray, alloc: pusch.PuschAlloc, rnti: int,
     stream = mat.reshape(*lead, -1)[..., read_idx]
     c = seq.gold_sequence_np(pusch.pusch_c_init(rnti, subframe, n_cell_id),
                              stream.shape[-1])
-    return _precode(modulate((stream + c) % 2, alloc.scheme), alloc)
+    return _precode(modulate((stream + c) % 2, alloc.scheme), alloc, dft)
 
 
 def pusch_add_dmrs(grid: np.ndarray, alloc: pusch.PuschAlloc, n_cell_id: int,
@@ -106,20 +111,22 @@ def pusch_add_dmrs(grid: np.ndarray, alloc: pusch.PuschAlloc, n_cell_id: int,
 
 def ul_subframes(cell: UlCell, b: int, snr_db: float = 25.0, seed: int = 0,
                  max_unique: int = 16, uci: pusch.PuschUci | None = None,
-                 ack: tuple[int, ...] = (), ri: tuple[int, ...] = ()):
+                 ack: tuple[int, ...] = (), ri: tuple[int, ...] = (),
+                 dft: str = "fft"):
     """-> (iq (b, 14, m_sc, 2) float32, tb_bits (b, TBS) int32) numpy.
 
     The noise has variance 10^(-snr/10) per resource element (unit-power
     symbols, unitary DFT).  With ``uci`` every subframe also carries the
-    HARQ-ACK bits ``ack`` and RI bits ``ri`` (:func:`pusch_encode_cbs_uci`)."""
+    HARQ-ACK bits ``ack`` and RI bits ``ri`` (:func:`pusch_encode_cbs_uci`).
+    ``dft`` is the transform precoding's form (``pusch.ul_dft``)."""
     alloc, geom = cell.alloc, cell.alloc.geom
     rng = np.random.default_rng(seed)
     b_uniq = min(b, max_unique)
     tb_bits = rng.integers(0, 2, size=(b_uniq, geom.tbs)).astype(np.int32)
     cbs = np.stack([pdsch_prepare_cbs(t, geom) for t in tb_bits])
     args = (alloc, cell.rnti, cell.subframe, cell.n_cell_id)
-    grids = (pusch_encode_cbs(cbs, *args) if uci is None else
-             pusch_encode_cbs_uci(cbs, *args, uci, ack, ri))
+    grids = (pusch_encode_cbs(cbs, *args, dft) if uci is None else
+             pusch_encode_cbs_uci(cbs, *args, uci, ack, ri, dft))
     grids = pusch_add_dmrs(grids, alloc, cell.n_cell_id, cell.subframe)
     tb_bits = np.tile(tb_bits, (-(-b // b_uniq), 1))[:b]
     return tile_with_awgn(grids, b, snr_db, rng), tb_bits

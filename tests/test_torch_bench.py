@@ -8,6 +8,8 @@ import torch
 
 from lteax_torch.bench import (dl_throughput, harq_throughput,
                                mimo_throughput, ul_throughput)
+from lteax_torch.bench.timing import NUMERICS
+from lteax_torch.phy.tuning import SHIPPED
 
 torch.set_num_threads(1)
 
@@ -76,14 +78,27 @@ def test_benches_need_a_card(bench):
                                         (harq_throughput, 1)],
                          ids=["dl", "ul", "mimo", "harq"])
 def test_benches_take_the_shipped_numerics(bench, n_tb):
-    """``--mdtype bf16 --demap-in bf16``: the reference's shipped numerics,
-    named in the line."""
+    """``--mdtype bf16 --demap-in bf16 --ofdm-dft factored``: the
+    reference's shipped numerics (``SHIPPED``), named in the line."""
     out = bench.main(["--batch", "1", "--reps", "1", "--device", "cpu",
                       "--mdtype", "bf16", "--demap-in", "bf16",
+                      "--ofdm-dft", "factored",
                       *(["--depth", "1"] if bench is harq_throughput
                         else [])])
     _dry_run(out, n_tb)
-    assert (out["mdtype"], out["demap_in"]) == ("bf16", "bf16")
+    assert {f: out[f] for f in NUMERICS} == {
+        f: getattr(SHIPPED, f) for f in NUMERICS}
+
+
+@pytest.mark.parametrize("ul_dft", ["factored", "matmul"])
+def test_ul_bench_takes_the_ul_dft(ul_dft):
+    """``--ul-dft``: the UL front's transform de-precoding, named in the
+    line (the bench's signal is precoded by the FFT: the forms compute one
+    transform)."""
+    out = ul_throughput.main(["--batch", "1", "--reps", "1", "--device",
+                              "cpu", "--ul-dft", ul_dft])
+    _dry_run(out, 1)
+    assert out["ul_dft"] == ul_dft
 
 
 # A turbo kernel's SASS as ``cuobjdump -sass`` prints it, cut down: an
@@ -134,3 +149,4 @@ def test_turbo_sass_issue_model():
                                4 * (8 * 3 + 16 * 4 + 18 * 3)]
     # two codeblocks a lane halve the warps
     assert tv.issue_model(loops, 4, 100, 32, 8, 4, 2)["warps"] == 2
+

@@ -21,7 +21,9 @@ mode.
   Under bf16_f32store (f32 extrinsic carry): on the layout path (no early
   stop) and on the natural path with the freeze.
 - One DL, one UL, one TM3 MMSE and one HARQ (rv 0 + rv 2) decode under
-  ``SHIPPED`` against the reference's stages at
+  ``SHIPPED`` with the FFT in the OFDM demod (``SHIPPED_FFT``: the
+  reference computes its shipped factored DFT in f32 on the CPU, so only
+  the FFT fronts agree bit for bit) against the reference's stages at
   ``DecoderTuning(mdtype="bf16", demap_in="bf16", ofdm_dft="fft",
   ul_dft="fft")`` (planar stage boundaries off): TB bits, CRC flags and
   iteration count equal; the de-matched LLRs (bf16; HARQ's summed in bf16
@@ -29,6 +31,11 @@ mode.
   their zeros in the same places (the f32 fronts already differ by FFT
   rounding, 1e-5 of the largest, and bf16 rounds that to the nearer of two
   values).  SIC's front (f32 demap, bf16 LLRs) to the same tolerance.
+- DL, HARQ and TM3 MMSE decodes under ``SHIPPED`` itself (the bf16
+  factored DFT) against the reference's shipped factored front (f32 on the
+  CPU) at 25 dB: CRC flags equal, every block's bits the bits sent, the
+  iteration counts equal (TM3: within one, ROADMAP §3).  The DL and TM3
+  comparisons share the reference's jitted turbo stage with the FFT ones.
 """
 
 import dataclasses
@@ -69,6 +76,7 @@ WIN, ACQ = 128, 16
 REF_SHIPPED = dict(mdtype="bf16", demap_in="bf16", ofdm_dft="fft",
                    ul_dft="fft", ul_planar_boundary=False,
                    mimo_planar_boundary=False, print_iters=True)
+SHIPPED_FFT = dataclasses.replace(SHIPPED, ofdm_dft="fft")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -252,24 +260,54 @@ def _check_decode(port_out, ref_out, it_stats):
 
 
 DL = DlCell(n_rb_dl=15, mcs=28)
+DL_ARGS = (DL.n_cell_id, DL.cfi, DL.prbs, DL.subframe, DL.rnti)
+TM3 = MimoCell(n_rb_dl=6, cfi=2, mcs=28)
 
 
-def test_dl_decode_shipped_matches_reference():
-    geom = DL.geom
-    geom_r = pdsch_ref.pdsch_geometry(geom.tbs, geom.n_re, geom.qm, geom.rv)
-    args = (DL.n_cell_id, DL.cfi, DL.prbs, DL.subframe, DL.rnti)
+def _dl_stages(ofdm_dft: str):
+    """The reference's DL front and turbo stages for ``DL`` at its shipped
+    numerics with ``ofdm_dft`` (which it reads from the environment when
+    the front traces)."""
+    g = DL.geom
+    return _pdsch_stages(RefPhyConfig(n_rb_dl=DL.n_rb_dl), *DL_ARGS,
+                         pdsch_ref.pdsch_geometry(g.tbs, g.n_re, g.qm, g.rv),
+                         DL.scheme, 6,
+                         RefTuning(**dict(REF_SHIPPED, ofdm_dft=ofdm_dft)),
+                         True, planar_boundary=False)
+
+
+def _tm3_stages(ofdm_dft: str):
+    g = TM3.geom
+    return _mimo_stages(
+        RefPhyConfig(n_rb_dl=TM3.n_rb_dl, n_ant=2), TM3.n_cell_id, TM3.cfi,
+        TM3.prbs, TM3.subframe, TM3.rnti,
+        pdsch_ref.pdsch_geometry(g.tbs, g.n_re, g.qm, g.rv), TM3.scheme, 6,
+        RefTuning(**dict(REF_SHIPPED, ofdm_dft=ofdm_dft)), True, tm=TM3.tm,
+        cb_index=TM3.cb_index)
+
+
+@pytest.fixture(scope="module")
+def dl_turbo_ref():
+    """The reference's DL turbo stage, jitted once: its FFT-front and
+    factored-front comparisons share it (it reads no DFT)."""
+    return jax.jit(_dl_stages("fft")[1])
+
+
+@pytest.fixture(scope="module")
+def tm3_turbo_ref():
+    """The reference's TM3 MMSE turbo stage, jitted once and shared."""
+    return jax.jit(_tm3_stages("fft")[1])
+
+
+def test_dl_decode_shipped_matches_reference(dl_turbo_ref):
     iq, tb = dl_subframes(DL, 2, snr_db=21.5, seed=1)
-    t_r = RefTuning(**REF_SHIPPED)
-    front_r, turbo_r = _pdsch_stages(RefPhyConfig(n_rb_dl=DL.n_rb_dl), *args,
-                                     geom_r, DL.scheme, 6, t_r, True,
-                                     planar_boundary=False)
-    d_r = jax.jit(front_r)(jnp.asarray(iq))
-    port = make_batch_decoder(DL.cfg, *args, geom, DL.scheme, n_iter=6,
-                              tuning=SHIPPED, device="cpu")
+    d_r = jax.jit(_dl_stages("fft")[0])(jnp.asarray(iq))
+    port = make_batch_decoder(DL.cfg, *DL_ARGS, DL.geom, DL.scheme, n_iter=6,
+                              tuning=SHIPPED_FFT, device="cpu")
     d = port.front(torch.from_numpy(iq))
     _bf16_close(d, d_r)
     out = port.turbo(d)
-    _check_decode(out, jax.jit(turbo_r)(d_r), port.last_stats.n_iter)
+    _check_decode(out, dl_turbo_ref(d_r), port.last_stats.n_iter)
     assert out[1].all() and np.array_equal(out[0].numpy(), tb)
 
 
@@ -285,28 +323,21 @@ def test_ul_decode_shipped_matches_reference():
                       n_iter=6, tuning=RefTuning(**REF_SHIPPED),
                       interpret=True)
     port = make_pusch_batch_decoder(*cell.decoder_args(), n_iter=6,
-                                    tuning=SHIPPED, device="cpu")
+                                    tuning=SHIPPED_FFT, device="cpu")
     out = port(torch.from_numpy(iq))
     _check_decode(out, ref(jnp.asarray(iq)), port.last_stats.n_iter)
     assert out[1].all() and np.array_equal(out[0].numpy(), tb)
 
 
-def test_tm3_mmse_decode_shipped_matches_reference():
-    cell = MimoCell(n_rb_dl=6, cfi=2, mcs=28)
-    g = cell.geom
-    iq, tb = mimo_subframes(cell, 2, snr_db=25.0, seed=2)
-    f1, f2 = _mimo_stages(
-        RefPhyConfig(n_rb_dl=cell.n_rb_dl, n_ant=2), cell.n_cell_id,
-        cell.cfi, cell.prbs, cell.subframe, cell.rnti,
-        pdsch_ref.pdsch_geometry(g.tbs, g.n_re, g.qm, g.rv), cell.scheme, 6,
-        RefTuning(**REF_SHIPPED), True, tm=cell.tm, cb_index=cell.cb_index)
-    d_r = jax.jit(f1)(jnp.asarray(iq))
-    port = make_mimo_batch_decoder(*cell.decoder_args(), n_iter=6,
-                                   tuning=SHIPPED, device="cpu")
+def test_tm3_mmse_decode_shipped_matches_reference(tm3_turbo_ref):
+    iq, tb = mimo_subframes(TM3, 2, snr_db=25.0, seed=2)
+    d_r = jax.jit(_tm3_stages("fft")[0])(jnp.asarray(iq))
+    port = make_mimo_batch_decoder(*TM3.decoder_args(), n_iter=6,
+                                   tuning=SHIPPED_FFT, device="cpu")
     d = port.front(torch.from_numpy(iq))
     _bf16_close(d, d_r)
     out = port.turbo(d)
-    _check_decode(out, jax.jit(f2)(d_r), port.last_stats.n_iter)
+    _check_decode(out, tm3_turbo_ref(d_r), port.last_stats.n_iter)
     assert out[1].all() and np.array_equal(out[0].numpy(), decoder_rows(tb))
 
 
@@ -324,7 +355,7 @@ def test_harq_decode_shipped_matches_reference():
         cfg_r, c0.n_cell_id, c0.cfi, c0.prbs, sfs, c0.rnti, geoms, c0.scheme,
         n_iter=6, tuning=RefTuning(**REF_SHIPPED), interpret=True)
     port = make_batch_harq_decoder(*harq_decoder_args(cells), n_iter=6,
-                                   tuning=SHIPPED, device="cpu")
+                                   tuning=SHIPPED_FFT, device="cpu")
     d_r = 0
     for sf, g, x in zip(sfs, geoms, iq):
         front_r, _ = _pdsch_stages(cfg_r, c0.n_cell_id, c0.cfi, c0.prbs, sf,
@@ -336,6 +367,85 @@ def test_harq_decode_shipped_matches_reference():
     out = port(torch.from_numpy(iq))
     _check_decode(out, ref(jnp.asarray(iq)), port.last_stats.n_iter)
     assert out[1].all() and np.array_equal(out[0].numpy(), tb)
+
+
+def _check_shipped_factored(port_out, ref_out, port_n_iter: int,
+                            tb: np.ndarray, n_iter_slack: int = 0):
+    """The port under ``SHIPPED`` (bf16 factored DFT) against the reference
+    at its shipped front (f32 factored on the CPU): CRC flags equal, every
+    block carries the bits sent (all pass at 25 dB), the iteration counts
+    equal, or within ``n_iter_slack`` where ROADMAP §3 records the cell."""
+    bits, ok, it = port_out
+    _, ok_r, it_r = ref_out
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_r))
+    assert it == port_n_iter
+    assert abs(int(it_r) - it) <= n_iter_slack
+    assert ok.all() and np.array_equal(bits.numpy(), tb)
+
+
+def test_dl_decode_shipped_matches_reference_factored(dl_turbo_ref,
+                                                      monkeypatch):
+    monkeypatch.setenv("LTEAX_OFDM_DFT", "factored")
+    iq, tb = dl_subframes(DL, 2, snr_db=25.0, seed=7)
+    ref = dl_turbo_ref(jax.jit(_dl_stages("factored")[0])(jnp.asarray(iq)))
+    port = make_batch_decoder(DL.cfg, *DL_ARGS, DL.geom, DL.scheme, n_iter=6,
+                              tuning=SHIPPED, device="cpu")
+    assert port.dl_front.dft == "factored"
+    _check_shipped_factored(port(torch.from_numpy(iq)), ref,
+                            port.last_stats.n_iter, tb)
+
+
+def test_harq_decode_shipped_matches_reference_factored(monkeypatch):
+    from lteax_torch.pipeline import make_batch_harq_decoder
+    from lteax_torch.sim.dl_gen import harq_decoder_args, harq_transmissions
+    monkeypatch.setenv("LTEAX_OFDM_DFT", "factored")
+    small = DlCell(n_rb_dl=6, n_cell_id=150, mcs=9, cfi=2)
+    iq, tb, cells = harq_transmissions(small, (1, 2), (0, 2), 2, 25.0,
+                                       seed=8)
+    c0 = cells[0]
+    geoms = tuple(pdsch_ref.pdsch_geometry(c.geom.tbs, c.geom.n_re,
+                                           c.geom.qm, c.geom.rv)
+                  for c in cells)
+    ref = make_batch_harq_decoder_pallas(
+        RefPhyConfig(n_rb_dl=c0.n_rb_dl), c0.n_cell_id, c0.cfi, c0.prbs,
+        tuple(c.subframe for c in cells), c0.rnti, geoms, c0.scheme,
+        n_iter=6, tuning=RefTuning(**dict(REF_SHIPPED, ofdm_dft="factored")),
+        interpret=True)(jnp.asarray(iq))
+    port = make_batch_harq_decoder(*harq_decoder_args(cells), n_iter=6,
+                                   tuning=SHIPPED, device="cpu")
+    assert {f.dft for f in port.dl_fronts} == {"factored"}
+    _check_shipped_factored(port(torch.from_numpy(iq)), ref,
+                            port.last_stats.n_iter, tb)
+
+
+def test_tm3_mmse_decode_shipped_matches_reference_factored(tm3_turbo_ref,
+                                                            monkeypatch):
+    """A finding (ROADMAP §3): at this cell the port takes 4 iterations
+    under ``SHIPPED`` and under ``"factored_hi"``, the reference 5 at
+    either factored front.  The reference's turbo stage on the port's LLRs
+    takes the port's 4, with its bits, under both forms: the fronts part in
+    their last bits, where this cell sits on a knife edge (the IQ moved by
+    about one f32 ulp moves the reference's count, ROADMAP §3;
+    ``tests/torch_tm3_knife_edge.py``).  So the count is held within one;
+    flags and bits exactly."""
+    monkeypatch.setenv("LTEAX_OFDM_DFT", "factored")
+    iq, tb = mimo_subframes(TM3, 2, snr_db=25.0, seed=9)
+    d_r = jax.jit(_tm3_stages("factored")[0])(jnp.asarray(iq))
+    ref = tm3_turbo_ref(d_r)
+    for dft_form in ("factored", "factored_hi"):
+        port = make_mimo_batch_decoder(
+            *TM3.decoder_args(), n_iter=6, device="cpu",
+            tuning=dataclasses.replace(SHIPPED, ofdm_dft=dft_form))
+        assert port.mimo_front.dft == dft_form
+        d = port.front(torch.from_numpy(iq))
+        out = port.turbo(d)
+        _check_shipped_factored(out, ref, port.last_stats.n_iter,
+                                decoder_rows(tb), n_iter_slack=1)
+        on_port = tm3_turbo_ref(jnp.asarray(
+            d.float().numpy().reshape(d_r.shape), d_r.dtype))
+        np.testing.assert_array_equal(out[0].numpy(), np.asarray(on_port[0]))
+        np.testing.assert_array_equal(out[1].numpy(), np.asarray(on_port[1]))
+        assert out[2] == int(on_port[2])
 
 
 def test_sic_front_shipped_matches_reference():
@@ -353,7 +463,7 @@ def test_sic_front_shipped_matches_reference():
     d0_r, llr1_r = jax.jit(f1)(jnp.asarray(iq))[:2]
     port = make_mimo_batch_decoder(
         *cell.decoder_args(), **cell.precoding, device="cpu",
-        tuning=dataclasses.replace(SHIPPED, mimo_detector="sic"))
+        tuning=dataclasses.replace(SHIPPED_FFT, mimo_detector="sic"))
     f = port.front(torch.from_numpy(iq))
     _bf16_close(f.d0, d0_r)
     _bf16_close(f.llr1[..., :g.n_re].transpose(1, 2).reshape(2, -1), llr1_r)
@@ -361,12 +471,14 @@ def test_sic_front_shipped_matches_reference():
 
 def test_shipped_is_the_reference_default_numerics():
     """``SHIPPED`` carries the reference's ``DecoderTuning()`` in every
-    numerics field the two share (the port's ``n_iter`` is its
-    single-subframe decode's; the factored OFDM DFT is not carried)."""
+    numerics field the two share, the OFDM and UL DFT forms among them
+    (the port's ``n_iter`` is its single-subframe decode's)."""
     ref = RefTuning()
     shared = [f.name for f in dataclasses.fields(DecoderTuning)
               if hasattr(ref, f.name)]
     assert len(shared) == len(dataclasses.fields(DecoderTuning)) - 1
+    assert {"ofdm_dft", "ul_dft"} <= set(shared)
+    assert (SHIPPED.ofdm_dft, SHIPPED.ul_dft) == ("factored", "fft")
     for name in shared:
         assert getattr(SHIPPED, name) == getattr(ref, name), name
     one = np.zeros((1, 8))

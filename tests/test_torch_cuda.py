@@ -598,3 +598,72 @@ def test_reencode_on_card_is_exact(dev):
     bits = np.random.default_rng(1).integers(0, 2, (64, 6144)).astype(np.int8)
     got = turbo_reencode_batch(torch.from_numpy(bits).to(dev), 6144)
     np.testing.assert_array_equal(got.cpu().numpy(), turbo_encode(bits, 6144))
+
+
+# -- the factored DFT (cuBLAS SGEMMs, no kernel of its own) ------------------
+
+def _of_peak(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.cpu().to(torch.complex128) - want.to(torch.complex128))
+                 .abs().max() / want.abs().max())
+
+
+def test_highest_dft_forms_refuse_tf32(dev):
+    """TF32 would round the f32 (HIGHEST) forms' operands to 10 bits: they
+    raise while it is on; the bf16 form (operands already bf16) runs."""
+    from lteax_torch.phy import dft, ofdm
+    from lteax_torch.phy.channels import pusch
+    from lteax_torch.phy.config import PhyConfig
+    cfg = PhyConfig(n_rb_dl=6)
+    s = _noise((1, cfg.n_samps_subframe), 1, dev)
+    x = _noise((2, 300), 2, dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            ofdm.samples_to_subframe(s, cfg, "factored_hi")
+        with pytest.raises(RuntimeError, match="TF32"):
+            dft.dft_factored(x)
+        for mode in ("factored", "matmul"):
+            with pytest.raises(RuntimeError, match="TF32"):
+                pusch.ul_dft(x, True, mode)
+        assert ofdm.samples_to_subframe(s, cfg, "factored").is_cuda
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("n_rb", [6, 100])
+def test_factored_dft_on_card_matches_cpu(dev, n_rb):
+    """The f32 forms within 1e-5 of the peak of the CPU's; the bf16 form
+    stage by stage: its first matmul within 1e-6 of the CPU's, the demod
+    within 1e-5 of the CPU's second stage applied to the card's first
+    (the two f32 first stages may round one bf16 ulp apart)."""
+    from lteax_torch.phy import dft, ofdm
+    from lteax_torch.phy.channels import pusch
+    from lteax_torch.phy.config import PhyConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PhyConfig(n_rb_dl=n_rb)
+    s = _noise((2, cfg.n_samps_subframe), n_rb, "cpu")
+    for form in ("factored_hi", "fft"):
+        assert _of_peak(ofdm.samples_to_subframe(s.to(dev), cfg, form),
+                        ofdm.samples_to_subframe(s, cfg, form)) <= 1e-5
+    for m_sc in (12, 300, 1200):
+        x = _noise((3, m_sc), m_sc, "cpu")
+        for mode in ("factored", "matmul"):
+            for inverse in (False, True):
+                assert _of_peak(pusch.ul_dft(x.to(dev), inverse, mode),
+                                pusch.ul_dft(x, inverse, mode)) <= 1e-5
+    got = ofdm.samples_to_subframe(s.to(dev), cfg, "factored")
+    blocks = s[..., torch.as_tensor(ofdm._symbol_sample_idx(cfg))]
+
+    def stage_a(device):
+        n1, n2, w1, w2, tw = dft.plan(cfg.n_fft, False, True, device)
+        v = blocks.to(device).reshape(*blocks.shape[:-1], n2, n1)
+        return dft.cmatmul(w2, v, True) * tw
+
+    a_card, a_cpu = stage_a(dev), stage_a(torch.device("cpu"))
+    assert _of_peak(a_card, a_cpu) <= 1e-6
+    _, _, w1, _, _ = dft.plan(cfg.n_fft, False, True, torch.device("cpu"))
+    c = dft.cmatmul(a_card.cpu(), w1, True).reshape(*blocks.shape[:-1], -1)
+    want = c[..., ofdm._factored_bins(cfg, torch.device("cpu"))] \
+        * float(np.float32(1 / np.sqrt(cfg.n_fft)))
+    assert _of_peak(got, want) <= 1e-5

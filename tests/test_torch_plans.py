@@ -856,6 +856,34 @@ def test_ul_dft_and_chest_denoise(m_sc):
     np.testing.assert_allclose(back.numpy(), x, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 1536, 2048, 12, 36, 72,
+                               180, 300, 600, 1200, 139])
+def test_dft_split_and_constants(n):
+    """``phy.dft``'s plan code (the factor pair and the two stages' DFT
+    matrices and twiddle) equals ``lteax.phy.dft``'s."""
+    from lteax.phy import dft as dft_ref
+    from lteax_torch.phy import dft
+    assert dft._split(n) == dft_ref._split(n)
+    for inverse in (False, True):
+        got, ref = dft._consts(n, inverse), dft_ref._consts(n, inverse)
+        assert got[:2] == ref[:2]
+        for g, r in zip(got[2:], ref[2:]):
+            assert g.dtype == r.dtype == np.complex64
+            np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("m_sc", [12, 72, 300, 1200])
+def test_idft_matrices(m_sc):
+    """The UL ``"matmul"`` form's unitary IDFT planes equal the
+    reference's."""
+    from lteax.phy.channels import pusch as pusch_ref
+    from lteax_torch.phy.channels import pusch
+    for g, r in zip(pusch._idft_matrices(m_sc),
+                    pusch_ref._idft_matrices(m_sc)):
+        assert g.dtype == r.dtype == np.float32
+        np.testing.assert_array_equal(g, r)
+
+
 @pytest.mark.parametrize("mcs,rvs", [(9, (0, 2)), (9, (0, 1, 2, 3)),
                                      (17, (0, 2))])
 def test_harq_transmissions_match_reference_encoder(mcs, rvs):
