@@ -192,7 +192,15 @@ them from what each rank returns):
     in these runs; the turbo bf16 forms also at the ragged and SI shapes
     and at those the bf16 kernel's layout must survive (``TURBO_BF16``),
     and the bf16 kernel's variants (``BF16_VARIANTS``, lever by lever) are
-    timed in turns with the f32 form at the main shape.  ``SHIPPED`` runs
+    timed in turns with the f32 form at the main shape.  The reference's
+    last turbo knobs: the forms f32 and bf16 ``nofreeze``, bf16
+    ``combine_bf16`` pinned, frozen and free (``TURBO_FORMS``) are held to
+    their plain versions with ``torch.equal`` at the same shapes and timed
+    in turns with their trellis's pinned form, each beside its bound; the
+    DL headline, its threshold cells and UL and TM3 at B=64 decode under
+    ``SHIPPED`` with ``combine_bf16``, ``nofreeze`` and ``planar_int8``
+    (``KNOBS``) on the same IQ (CRC count, n_iter, ms), and 64 DL
+    subframes under each other form.  ``SHIPPED`` runs
     the factored OFDM DFT with bf16 operands: the DL headline and the
     threshold cells also run under ``SHIPPED`` with cuFFT on the same IQ
     (the DL headline's three profiles timed in turns, each decoding
@@ -427,7 +435,9 @@ SOURCES = {
                   "bench/vpu_bf16_probe.py:39"),
     **{f"turbo_half_iteration_{f}": ("lteax_torch/kernels/csrc/turbo.cu",
                                      "lteax/kernels/turbo_mlm.py:536")
-       for f in ("bf16", "bf16_freeze")},
+       for f in ("bf16", "bf16_freeze", "f32_nofreeze", "bf16_nofreeze",
+                 "bf16_combine", "bf16_combine_freeze",
+                 "bf16_combine_nofreeze")},
     **{f"demap_{f}": ("lteax_torch/kernels/csrc/demap.cu",
                       "lteax/kernels/demap.py:68")
        for f in ("bf16", "bf16 (UL shape)", "bf16_out")},
@@ -585,7 +595,8 @@ def turbo_inputs(c: int, n: int, win: int, seed: int, dev):
 
 def turbo_equal_plain(args, win: int, acq: int, *form) -> list[float]:
     """Kernel vs plain on (L, a_nii, b_nii), ``torch.equal``; ``form`` is
-    (mdtype, pinpad), the f32 pinned form by default."""
+    (mdtype, pinpad, nofreeze, combine_bf16) or a head of it, the f32
+    pinned form by default."""
     got = turbo_mod.half_iteration_raw(*args, win, acq, *form)
     ref = turbo_mod.half_iteration_plain(*args, win, acq, *form)
     torch.cuda.synchronize()
@@ -623,46 +634,87 @@ def check_turbo(cell: DlCell, dev) -> dict:
             "library_ms": None, **bound(n_bytes, ops, F32_OPS_PER_S)}
 
 
-# (name, mdtype, pinpad) of the turbo kernel's bf16 forms [bf16] checks
-# ("bf16_f32store" runs the bf16 kernel: its stores hold the same values)
-TURBO_FORMS = (("turbo_half_iteration_bf16", "bf16", True),
-               ("turbo_half_iteration_bf16_freeze", "bf16", False))
+# (name, mdtype, pinpad, nofreeze, combine_bf16) of the turbo kernel's
+# forms beyond the f32 pinned one ("bf16_f32store" runs the bf16 kernel:
+# its stores hold the same values, and its combine is the f32 one)
+TURBO_FORMS = (
+    ("turbo_half_iteration_bf16", "bf16", True, False, False),
+    ("turbo_half_iteration_bf16_freeze", "bf16", False, False, False),
+    ("turbo_half_iteration_f32_nofreeze", "f32", True, True, False),
+    ("turbo_half_iteration_bf16_nofreeze", "bf16", True, True, False),
+    ("turbo_half_iteration_bf16_combine", "bf16", True, False, True),
+    ("turbo_half_iteration_bf16_combine_freeze", "bf16", False, False, True),
+    ("turbo_half_iteration_bf16_combine_nofreeze", "bf16", True, True,
+     True))
+# the combine's operations a trellis position (of K1/K2's 39): its 16 sums
+# and 12 group maxima, which combine_bf16 runs in bf16
+COMBINE_BF16_OPS = 28
 
 
 def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
-    """The bf16 forms of the half-iteration kernel vs plain at the main
-    path's shape (C = 3328, K = 5824, win 128) and at the ragged, SI and
-    bf16-layout shapes, bit for bit, each timed on bf16 u, v (the wrapper's
-    cast left out); then the bf16 kernel's variants (``BF16_VARIANTS``) and
-    the f32 form, timed in turns at the main shape.  Bound: u, v and L move
-    as bf16 (2 bytes), the inits and NII exports as f32; the alpha and beta
-    stores stay in shared memory.  The 60 ACS operations of a position (and
-    an acquisition step's 60) run in bf16 at the packed bf16 rate, the
-    combine's 39 in f32."""
+    """The forms of the half-iteration kernel (``TURBO_FORMS``) vs plain at
+    the main path's shape (C = 3328, K = 5824, win 128) and at the ragged,
+    SI and bf16-layout shapes, bit for bit, each timed at the main shape on
+    u, v in its metric dtype (the wrapper's cast left out), every form
+    after the first in turns with its trellis's pinned form
+    (``same_run_form``: the f32 one, or the first, the bf16 one); then the bf16 kernel's variants
+    (``BF16_VARIANTS``) and the f32 form, timed in turns at the main shape.
+    Bound of a bf16 form: u, v and L move as bf16 (2 bytes), the inits and
+    NII exports as f32; the alpha and beta stores stay in shared memory.
+    The 60 ACS operations of a position (and an acquisition step's 60) run
+    in bf16 at the packed bf16 rate, the combine's 39 in f32, or with
+    combine_bf16 its 28 sums and maxima in bf16 and 11 in f32.  An f32
+    form is counted as :func:`check_turbo`."""
     geom = cell.geom
     c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
     n_w = -(-n // win)
     u, v, a0, b0 = turbo_inputs(c, n, win, SEED + 1, dev)
     ub, vb = u.to(torch.bfloat16), v.to(torch.bfloat16)
-    bf16_ops = c * n * 60 + c * n_w * acq * 60
-    f32_ops = c * n * 39
-    eq_ops = f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S
     out = []
-    for name, mdtype, pinpad in TURBO_FORMS:
+    # each trellis's pinned form, the yardstick of its other forms: the f32
+    # one (check_turbo's) here, the bf16 one the first of TURBO_FORMS
+    sticks = {"f32": ("turbo_half_iteration",
+                      lambda: turbo_mod.half_iteration_raw(u, v, a0, b0, win,
+                                                           acq))}
+    for name, *form in TURBO_FORMS:
         for cr, nr, wr, ar in TURBO_RAGGED + TURBO_SI + TURBO_BF16:
             turbo_equal_plain(turbo_inputs(cr, nr, wr, SEED + nr, dev), wr,
-                              ar, mdtype, pinpad)
-        errs = turbo_equal_plain((ub, vb, a0, b0), win, acq, mdtype, pinpad)
-        ms = cuda_time_ms(lambda: turbo_mod.half_iteration_raw(
-            ub, vb, a0, b0, win, acq, mdtype, pinpad), 20)
+                              ar, *form)
+        args = (ub, vb, a0, b0) if form[0] == "bf16" else (u, v, a0, b0)
+        errs = turbo_equal_plain(args, win, acq, *form)
+        run = (lambda a=args, f=form: turbo_mod.half_iteration_raw(
+            *a, win, acq, *f))
+        if form[0] in sticks:
+            # in turns with its trellis's pinned form: medians of 3 turns of
+            # 20 launches
+            stick, stick_run = sticks[form[0]]
+            t = {"form": [], "stick": []}
+            for r in range(3):
+                for k in (("form", "stick") if r % 2 else ("stick", "form")):
+                    t[k].append(cuda_time_ms(
+                        run if k == "form" else stick_run, 20))
+            ms = float(np.median(t["form"]))
+            turns = {"same_run_ms": float(np.median(t["stick"])),
+                     "same_run_form": stick}
+        else:
+            sticks[form[0]] = (name, run)
+            ms, turns = cuda_time_ms(run, 20), {}
         plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
-            ub, vb, a0, b0, win, acq, mdtype, pinpad), 1)
+            *args, win, acq, *form), 1)
+        if form[0] == "f32":
+            counted = bound(4 * (3 * c * n + 4 * c * n_w * 8),
+                            c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)
+        else:
+            comb = COMBINE_BF16_OPS if form[3] else 0
+            bf16_ops = c * n * (60 + comb) + c * n_w * acq * 60
+            f32_ops = c * n * (39 - comb)
+            counted = {"bf16_ops": bf16_ops, "f32_ops": f32_ops, **bound(
+                2 * 3 * c * n + 4 * 4 * c * n_w * 8,
+                f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S,
+                F32_OPS_PER_S)}
         out.append({"name": name, "shape": [c, n, win, acq],
                     "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None, "bf16_ops": bf16_ops,
-                    "f32_ops": f32_ops,
-                    **bound(2 * 3 * c * n + 4 * 4 * c * n_w * 8, eq_ops,
-                            F32_OPS_PER_S)})
+                    "library_ms": None, **turns, **counted})
     out[0].update(time_turbo_variants((ub, vb, a0, b0), (u, v, a0, b0),
                                       win, acq))
     return out
@@ -3511,23 +3563,63 @@ def decode_forms(name: str, dec, x: torch.Tensor, tb_ref: np.ndarray,
             "bits": bits}
 
 
+# [bf16]: SHIPPED with each of the reference's last turbo knobs, and the
+# turbo kernel form its decode must launch (planar_int8 quantizes the
+# planar LLRs with torch operations: no kernel of its own)
+KNOBS = {"combine_bf16": "turbo_half_iteration_bf16_combine",
+         "nofreeze": "turbo_half_iteration_bf16_nofreeze",
+         "planar_int8": "turbo_half_iteration_bf16"}
+
+
+def knob_decodes(name: str, make, args, x: torch.Tensor, tb: np.ndarray,
+                 card: str) -> dict:
+    """A B=64 decoder under ``SHIPPED`` and under ``SHIPPED`` with each
+    knob, on the same IQ: CRC count (every passing block with the bits
+    sent), n_iter, the form launched, and ms (host clock, median of 5
+    turns)."""
+    dev = x.device
+    decs = {"shipped": make(*args, tuning=SHIPPED, device=dev),
+            **{k: make(*args, tuning=dataclasses.replace(SHIPPED, **{k: True}),
+                       device=dev) for k in KNOBS}}
+    r = {k: decode_forms(f"{name} B={BF16_B} SHIPPED + {k}", d, x, tb, None,
+                         (KNOBS[k],))
+         for k, d in decs.items() if k != "shipped"}
+    turns = [[time_decode(d, x, 1)[0] for d in decs.values()]
+             for _ in range(5)]
+    ms = dict(zip(decs, (float(np.median(v)) * 1e3 for v in zip(*turns))))
+    out = {k: {"n_ok": v["n_ok"], "n_iter": v["n_iter"], "ms": ms[k]}
+           for k, v in r.items()}
+    out["shipped_ms"] = ms["shipped"]
+    print(f"[bf16] {name} B={BF16_B}, in turns (n=5): SHIPPED "
+          f"{ms['shipped']:.3f} ms; " + "; ".join(
+              f"+ {k} {v['n_ok']}/{len(tb)} CRC ok, n_iter {v['n_iter']}, "
+              f"{v['ms']:.3f} ms" for k, v in out.items()
+              if k != "shipped_ms") + f" ({card})")
+    return out
+
+
 def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     """``[bf16]``: the reference's shipped numerics (``SHIPPED``) beside
-    the f32 default on the same IQ."""
+    the f32 default on the same IQ, and ``SHIPPED`` with each of the
+    reference's last turbo knobs (``KNOBS``)."""
     f32 = DecoderTuning()
     k1, k3 = "turbo_half_iteration_bf16", "demap_bf16"
     out = {}
     # the DL headline: the SHIPPED decode is the bf16 forms' main path
     iq, tb = dl_subframes(cell, BATCH, SNR_DB, seed=SEED)
     x = torch.from_numpy(iq).to(dev)
-    # SHIPPED (the factored bf16 OFDM DFT), SHIPPED with cuFFT, f32
+    # SHIPPED (the factored bf16 OFDM DFT), SHIPPED with cuFFT, f32, and
+    # SHIPPED with each knob
     decs = {p: make_batch_decoder(*cell.decoder_args(), tuning=t, device=dev)
             for p, t in (("shipped", SHIPPED),
                          ("shipped_fft", dataclasses.replace(
                              SHIPPED, ofdm_dft="fft")),
-                         ("f32", f32))}
+                         ("f32", f32),
+                         *((k, dataclasses.replace(SHIPPED, **{k: True}))
+                           for k in KNOBS))}
     forms = {"shipped": (k1, k3), "shipped_fft": (k1, k3),
-             "f32": ("turbo_half_iteration", "demap")}
+             "f32": ("turbo_half_iteration", "demap"),
+             **{k: (f, k3) for k, f in KNOBS.items()}}
     r = {p: decode_forms(f"DL headline {p}", d, x, tb, BATCH, forms[p])
          for p, d in decs.items()}
     bits = [v.pop("bits") for v in r.values()]
@@ -3550,7 +3642,9 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     out["dl"] = {p: {**r[p], "ms": t[p] * 1e3, "mbit_per_s": mb(t[p]),
                      "front_ms": front[p]} for p in decs}
     sh = r["shipped"]
-    launches = {k1: sh["launches"][k1], k3: sh["launches"][k3]}
+    launches = {k1: sh["launches"][k1], k3: sh["launches"][k3],
+                **{f: r[k]["launches"][f] for k, f in KNOBS.items()
+                   if f != k1}}
     # the other trellis forms, on 64 of the same subframes (bf16_f32store:
     # the bf16 kernel, the extrinsic carried in f32)
     xs = x[:BF16_B]
@@ -3558,7 +3652,15 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
             ("bf16_f32store",
              dataclasses.replace(SHIPPED, mdtype="bf16_f32store"), k1),
             ("bf16_freeze", dataclasses.replace(SHIPPED, pinpad=False),
-             "turbo_half_iteration_bf16_freeze")):
+             "turbo_half_iteration_bf16_freeze"),
+            ("f32_nofreeze", dataclasses.replace(f32, nofreeze=True),
+             "turbo_half_iteration_f32_nofreeze"),
+            ("bf16_combine_freeze", dataclasses.replace(
+                SHIPPED, combine_bf16=True, pinpad=False),
+             "turbo_half_iteration_bf16_combine_freeze"),
+            ("bf16_combine_nofreeze", dataclasses.replace(
+                SHIPPED, combine_bf16=True, nofreeze=True),
+             "turbo_half_iteration_bf16_combine_nofreeze")):
         r = decode_forms(f"DL B={BF16_B} {name}", make_batch_decoder(
             *cell.decoder_args(), tuning=t, device=dev), xs, tb[:BF16_B],
             BF16_B, (form,))
@@ -3602,6 +3704,7 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
                   decoder_rows(tb), (k1, "demap_bf16_out"), 2 * BF16_B))
     del iq
     out["b64"] = {}
+    out["knobs_b64"] = {}
     for name, make, args, kw, x, tb, forms, want in cases:
         x = x.to(dev)
         kw = dict(kw)
@@ -3615,6 +3718,9 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
             *args, **kw, tuning=tune(f32), device=dev), x, tb, None, ())
         out["b64"][name] = {"shipped": r_s["n_ok"], "f32": r_f["n_ok"],
                             "n_iter": [r_s["n_iter"], r_f["n_iter"]]}
+        if name in ("UL", "TM3 MMSE"):
+            out["knobs_b64"][name] = knob_decodes(name, make, args, x, tb,
+                                                  card)
         if name == "TM4 SIC":
             launches["demap_bf16_out"] = r_s["launches"]["demap_bf16_out"]
         if name == "UL":
@@ -3871,6 +3977,14 @@ def main() -> None:
               for var, ms in k1["variant_ms"].items())
           + f"; the f32 form {k1['f32_same_run_ms']:.4f} ms; bound "
           f"{k1['bound_ms']:.4f} ms by {k1['bound_by']} ({card})")
+    print(f"[kernel] turbo_half_iteration forms, each in turns with its "
+          f"trellis's pinned form, at {k1['shape']}, bit-exact vs plain: "
+          + "; ".join(
+              f"{k['name']} {k['ms']:.4f} ms vs {k['same_run_form']} "
+              f"{k['same_run_ms']:.4f}, "
+              f"{k['ms'] / k['bound_ms']:.2f}x its {k['bound_ms']:.4f} ms "
+              f"bound ({k['bound_by']})" for k in turbo_forms[1:]) +
+          f" ({card})")
     for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]:
         if "by_shape" in k:             # the resampler: a line a shape below
             continue
@@ -4026,6 +4140,7 @@ def main() -> None:
              "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape",
              "f32_ops", "bound_nofma_ms", "library_bf16_ms", "variant_ms",
              "f32_same_run_ms", "bound_fma_ms", "bound_tc_ms",
+             "same_run_ms", "same_run_form",
              "kernel_vs_f64_of_peak",
              "plain_vs_f64_of_peak")
     print(json.dumps({"kernels": [
@@ -4039,7 +4154,7 @@ def main() -> None:
             or key.startswith("bf16_")}}
         for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]],
         "bf16_profile": {key: bf16[key] for key in
-                         ("dl", "threshold", "b64", "ul_dft")},
+                         ("dl", "threshold", "b64", "knobs_b64", "ul_dft")},
         "dft": dft,
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",

@@ -39,17 +39,21 @@ def stage_iq(iq: np.ndarray, fmt: str) -> torch.Tensor:
                      f"(use {'/'.join(IQ_FORMATS)})")
 
 
-NUMERICS = ("mdtype", "demap_in", "ofdm_dft", "ul_dft")
+NUMERICS = ("mdtype", "demap_in", "ofdm_dft", "ul_dft", "nofreeze",
+            "combine_bf16", "planar_int8")
 """The tuning fields the bench CLIs set (:func:`add_numerics_args`)."""
 
 
 def add_numerics_args(ap) -> None:
-    """``--mdtype``, ``--demap-in``, ``--ofdm-dft`` and ``--ul-dft``: the
-    decoder's trellis, demap staging, OFDM demod DFT and UL transform (the
-    counterparts of the reference's ``LTEAX_PALLAS_DTYPE``,
-    ``LTEAX_DEMAP_IN``, ``LTEAX_OFDM_DFT`` and ``LTEAX_UL_DFT``), default
-    the exact f32 profile; ``--mdtype bf16 --demap-in bf16 --ofdm-dft
-    factored`` is the reference's shipped numerics (``SHIPPED``)."""
+    """``--mdtype``, ``--demap-in``, ``--ofdm-dft``, ``--ul-dft``,
+    ``--nofreeze``, ``--combine-bf16`` and ``--planar-int8``: the decoder's
+    trellis, demap staging, OFDM demod DFT, UL transform and the three
+    turbo knobs (the counterparts of the reference's ``LTEAX_PALLAS_DTYPE``,
+    ``LTEAX_DEMAP_IN``, ``LTEAX_OFDM_DFT``, ``LTEAX_UL_DFT``,
+    ``LTEAX_PALLAS_NOFREEZE``, ``LTEAX_COMBINE_BF16`` and
+    ``LTEAX_PLANAR_INT8``), default the exact f32 profile; ``--mdtype bf16
+    --demap-in bf16 --ofdm-dft factored`` is the reference's shipped
+    numerics (``SHIPPED``)."""
     ap.add_argument("--mdtype", default="f32", choices=MDTYPES,
                     help="turbo trellis metric dtype")
     ap.add_argument("--demap-in", default="f32", choices=("f32", "bf16"),
@@ -58,6 +62,13 @@ def add_numerics_args(ap) -> None:
                     help="the OFDM demod's DFT")
     ap.add_argument("--ul-dft", default="fft", choices=UL_DFTS,
                     help="the UL transform de-precoding")
+    ap.add_argument("--nofreeze", action="store_true",
+                    help="no freeze and no pin at the main beta sweep's "
+                    "dead positions")
+    ap.add_argument("--combine-bf16", action="store_true",
+                    help="the bf16 trellis's combine sums and maxima in bf16")
+    ap.add_argument("--planar-int8", action="store_true",
+                    help="the planar demap output quantized to int8")
 
 
 def numerics_fields(a) -> dict:

@@ -114,11 +114,12 @@ def issue_model(loops: dict[str, list[list[int]]], c: int, n: int, win: int,
 
 
 # the kernels' template instances: the f32 form, and the bf16 variants'
-# <kFold, kAsync> (kFreeze follows --pinpad)
+# <kFold, kAsync, kPad, kComb> (kPad, pinned 0 or frozen 1, follows
+# --pinpad; the f32 combine)
 _KERNELS = {"f32": "17turbo_half_kernel",
-            1: "22turbo_half_bf16_kernelILb0ELb0ELb{f}E",
-            2: "22turbo_half_bf16_kernelILb1ELb0ELb{f}E",
-            3: "22turbo_half_bf16_kernelILb1ELb1ELb{f}E"}
+            1: "22turbo_half_bf16_kernelILb0ELb0ELi{f}ELb0EE",
+            2: "22turbo_half_bf16_kernelILb1ELb0ELi{f}ELb0EE",
+            3: "22turbo_half_bf16_kernelILb1ELb1ELi{f}ELb0EE"}
 
 
 def sass_report(shape, pinpad: bool, wpb: int,

@@ -66,7 +66,10 @@
 // dead steps are the first t_pin of the last window's sweep, so its chain
 // starts in the phase of step t_pin and holds it across them.  (bf16's
 // blend m*new + (1-m)*old keeps the old value too, up to the sign of a
-// zero, which no comparison sees.)
+// zero, which no comparison sees.)  No freeze (nofreeze): a dead position
+// is a step like any other, on the slab's zeros (u = v = 0: every gamma
+// is a zero), neither pinned nor skipped.  The pad is a flag, kPadPin,
+// kPadFreeze or kPadFree, that the step's gamma and the skip read.
 //
 // The bf16 trellis (the reference's "bf16" and "bf16_f32store", whose
 // stores hold the same bf16 values) is a kernel of its own,
@@ -117,6 +120,15 @@
 // renormalising step's chain, the memory latency of a loop of 2-byte loads
 // off the staging.  At C = 3328, n = 5827 on an H100 SXM at 700 W: lever 1
 // 0.38 ms, 2 0.36, 3 0.29; the f32 form 0.44.
+// The bf16 combine (kComb, the reference's combine_bf16): the sums of the
+// alpha and beta metrics and the first two maxima of each code run on the
+// bf16x2 pairs as they are, add.rn and max, both codeblocks in one
+// instruction, and the first fold stage's max too, after one shuffle of
+// the pair (the f32 combine sends two); only the group maxima widen to
+// f32, for the gamma merge and the rest of the fold.  A bf16 add rounds
+// once, as torch's bf16 does, so it is the plain version's bit for bit.
+// At C = 3328, n = 5827 on an H100 SXM at 700 W: 0.284 ms against the
+// f32 combine's 0.291, in turns (chip_smoke.py).
 //
 // The 8-state wiring is lteax.phy.fec.turbo._unrolled_wiring written out as
 // the two tables below (the tests parse them back and compare): a row of
@@ -137,6 +149,8 @@ namespace {
 
 constexpr float HALF_PIN = 256.0f;   // both gammas of a pinned dead position
 constexpr int kLanes = 8;            // per chain: 4 alpha lanes, 4 beta lanes
+// the beta main sweep's dead positions: pinned, frozen, or stepped on zeros
+constexpr int kPadPin = 0, kPadFreeze = 1, kPadFree = 2;
 
 // gamma codes: 0=+(u+v)/2, 1=+(u-v)/2, 2=-(u-v)/2, 3=-(u+v)/2
 constexpr int kFwdHost[8][4] = TRELLIS_FWD;
@@ -257,8 +271,8 @@ __device__ __forceinline__ int slab_index(int rel, int win, int acq) {
   return rel + acq + (rel + win) / win;
 }
 
-// The f32 trellis.  freeze: the beta main sweep keeps the old beta at dead
-// positions instead of pinning them.
+// The f32 trellis.  pad: what the beta main sweep does at dead positions
+// (kPadPin, kPadFreeze, kPadFree).
 __global__ void turbo_half_kernel(const float* __restrict__ u,
                                   const float* __restrict__ v,
                                   const float* __restrict__ a_init,
@@ -267,7 +281,7 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
                                   float* __restrict__ a_nii,
                                   float* __restrict__ b_nii,
                                   int n, int n_w, int win, int acq, int wpb,
-                                  int blocks_per_row, int freeze) {
+                                  int blocks_per_row, int pad) {
   extern __shared__ float smem[];
   const int half = win / 2;
   const int dir_stride = half * 8 + 8;         // one direction's store + pad
@@ -335,9 +349,10 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
 
   // The beta sweep's dead positions (beyond n) are its steps t < t_pin.
   // Pinned, they are steps under the pin's gammas; frozen, no steps: the
-  // chain then holds the phase of step t_pin across them.
+  // chain then holds the phase of step t_pin across them; free, steps on
+  // the slab's zeros.
   const int t_pin = d ? win - (n - base) : 0;
-  const int skip = freeze ? max(t_pin, 0) : 0;
+  const int skip = pad == kPadFreeze ? max(t_pin, 0) : 0;
 
   // 1. acquisition runs over the live positions only (a dead one is a
   // no-op): alpha of window 0 has none; beta skips the positions beyond n.
@@ -401,7 +416,7 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   const float2* uwin = uv + wl * win + acq + wl + 1;
   const int xs = d ? -1 : 1;
   const float2* xp = uwin + (d ? win - 1 : 0);
-  const bool pinned = !freeze;
+  const bool pinned = pad == kPadPin;
   float g = step_gamma(ph0, xp[0], pinned && 0 < t_pin);
   float2 xn = xp[xs];
   xp += 2 * xs;
@@ -620,11 +635,11 @@ __device__ __forceinline__ int stage_plane(uint16_t* dst, int plane,
 }
 
 // kFold: the renormalisation's broadcast rides beside the exchange (lever
-// 2); kAsync: the slab is staged by cp.async (lever 3); kFreeze: the beta
-// main sweep keeps the old beta at dead positions instead of pinning them.
-// u, v, l_out: bf16 bits.  A block owns windows w0 .. w0+wpb-1 of
-// codeblocks 2i and 2i+1.
-template <bool kFold, bool kAsync, bool kFreeze>
+// 2); kAsync: the slab is staged by cp.async (lever 3); kPad: what the beta
+// main sweep does at dead positions (kPadPin, kPadFreeze, kPadFree); kComb:
+// the bf16 combine.  u, v, l_out: bf16 bits.  A block owns windows w0 ..
+// w0+wpb-1 of codeblocks 2i and 2i+1.
+template <bool kFold, bool kAsync, int kPad, bool kComb>
 __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
                                        const uint16_t* __restrict__ v,
                                        const float* __restrict__ a_init,
@@ -708,7 +723,7 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
 
   auto state = [&](int k, int r) { return d ? k + 4 * r : 2 * k + r; };
   const int t_pin = d ? win - (n - base) : 0;
-  const int skip = kFreeze ? max(t_pin, 0) : 0;
+  const int skip = kPad == kPadFreeze ? max(t_pin, 0) : 0;
   int first = 0;
   if (d == 0) {
     if (w == 0) first = acq;
@@ -795,7 +810,7 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
   const uint2* uwin = uv + wl * win + acq + wl + 1;
   const int xs = d ? -1 : 1;
   const uint2* xp = uwin + (d ? win - 1 : 0);
-  const bool pinned = !kFreeze;
+  const bool pinned = kPad == kPadPin;
   unsigned g = step_gamma(ph0, xp[0], pinned && 0 < t_pin);
   uint2 xn = xp[xs];
   xp += 2 * xs;
@@ -824,7 +839,7 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
   __syncwarp();
 
   // the combine, in f32 a codeblock (h = 0: low halves, 1: high halves),
-  // pipelined as the f32 kernel's
+  // pipelined as the f32 kernel's; with kComb its stage A in bf16 pairs
   auto comb_gamma = [&](uint2 x) {
     return make_float2(
         0.5f * (lo_f(x.x, comb_usign) + lo_f(x.y, comb_vsign)),
@@ -846,20 +861,35 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
       nii0 = r0;
       nii1 = r1;
     }
-    const float x0 = lo_f(r0), x1 = hi_f(r0), y0 = lo_f(r1), y1 = hi_f(r1);
-    const float p0_ = lo_f(o.x), p1_ = hi_f(o.x);
-    const float q0_ = lo_f(o.y), q1_ = hi_f(o.y);
-    const float pm0 = fmaxf(x0 + p0_, y0 + q0_);
-    const float qm0 = fmaxf(x0 + q0_, y0 + p0_);
-    const float pm1 = fmaxf(x1 + p1_, y1 + q1_);
-    const float qm1 = fmaxf(x1 + q1_, y1 + p1_);
-    const float send0 = p.sends_q ? qm0 : pm0, keep0 = p.sends_q ? pm0 : qm0;
-    const float send1 = p.sends_q ? qm1 : pm1, keep1 = p.sends_q ? pm1 : qm1;
-    const unsigned got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
     const bool rn = t < win && renorms(odd, t);
-    const unsigned s0 = renorm_early(rn, t);
-    const float got_a0 = __shfl_xor_sync(all, send0, 3);
-    const float got_a1 = __shfl_xor_sync(all, send1, 3);
+    unsigned got_s, s0;
+    float grp0, grp1;        // stage A's group maxima of both codeblocks
+    if constexpr (kComb) {
+      const unsigned pm = max2(add2(r0, o.x), add2(r1, o.y));
+      const unsigned qm = max2(add2(r0, o.y), add2(r1, o.x));
+      got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+      s0 = renorm_early(rn, t);
+      const unsigned got_a = __shfl_xor_sync(all, p.sends_q ? qm : pm, 3);
+      const unsigned m = max2(p.sends_q ? pm : qm, got_a);
+      grp0 = lo_f(m);
+      grp1 = hi_f(m);
+    } else {
+      const float x0 = lo_f(r0), x1 = hi_f(r0), y0 = lo_f(r1), y1 = hi_f(r1);
+      const float p0_ = lo_f(o.x), p1_ = hi_f(o.x);
+      const float q0_ = lo_f(o.y), q1_ = hi_f(o.y);
+      const float pm0 = fmaxf(x0 + p0_, y0 + q0_);
+      const float qm0 = fmaxf(x0 + q0_, y0 + p0_);
+      const float pm1 = fmaxf(x1 + p1_, y1 + q1_);
+      const float qm1 = fmaxf(x1 + q1_, y1 + p1_);
+      const float send0 = p.sends_q ? qm0 : pm0, keep0 = p.sends_q ? pm0 : qm0;
+      const float send1 = p.sends_q ? qm1 : pm1, keep1 = p.sends_q ? pm1 : qm1;
+      got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+      s0 = renorm_early(rn, t);
+      const float got_a0 = __shfl_xor_sync(all, send0, 3);
+      const float got_a1 = __shfl_xor_sync(all, send1, 3);
+      grp0 = fmaxf(keep0, got_a0);
+      grp1 = fmaxf(keep1, got_a1);
+    }
     const float got_b0 = __shfl_xor_sync(all, in_b0, 1);
     const float got_b1 = __shfl_xor_sync(all, in_b1, 1);
     const float got_c0 = __shfl_xor_sync(all, in_c0, 3);
@@ -869,8 +899,8 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
     if (q == 0 && t >= half + 2) *lp = pack2(in_c0 - got_c0, in_c1 - got_c1);
     in_c0 = fmaxf(in_b0, got_b0);
     in_c1 = fmaxf(in_b1, got_b1);
-    in_b0 = fmaxf(keep0, got_a0) + ga.x;
-    in_b1 = fmaxf(keep1, got_a1) + ga.y;
+    in_b0 = grp0 + ga.x;
+    in_b1 = grp1 + ga.y;
     if (t >= skip) exchange(p, got_s);
     renorm_late(rn, s0);
     ga = ga_next;
@@ -938,7 +968,7 @@ static int prepare(Kernel kernel, size_t smem) {
 static int launch_f32(const void* u, const void* v, const float* a_init,
                       const float* b_init, void* l_out, float* a_nii,
                       float* b_nii, int c, int n, int n_w, int win, int acq,
-                      int wpb, int freeze, cudaStream_t stream) {
+                      int wpb, int pad, cudaStream_t stream) {
   const size_t smem = turbo_smem_bytes(win, acq, wpb);
   if (int e = prepare(turbo_half_kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
@@ -947,18 +977,17 @@ static int launch_f32(const void* u, const void* v, const float* a_init,
   turbo_half_kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(v), a_init,
       b_init, static_cast<float*>(l_out), a_nii, b_nii, n, n_w, win, acq,
-      wpb, blocks_per_row, freeze);
+      wpb, blocks_per_row, pad);
   return (int)cudaGetLastError();
 }
 
-template <bool kFold, bool kAsync>
+template <bool kFold, bool kAsync, int kPad, bool kComb>
 static int launch_bf16(const void* u, const void* v, const float* a_init,
                        const float* b_init, void* l_out, float* a_nii,
                        float* b_nii, int c, int n, int n_w, int win, int acq,
-                       int wpb, int freeze, cudaStream_t stream) {
+                       int wpb, cudaStream_t stream) {
   const size_t smem = turbo_smem_bytes(win, acq, wpb);
-  auto kernel = freeze ? turbo_half_bf16_kernel<kFold, kAsync, true>
-                       : turbo_half_bf16_kernel<kFold, kAsync, false>;
+  auto kernel = turbo_half_bf16_kernel<kFold, kAsync, kPad, kComb>;
   if (int e = prepare(kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)((c + 1) / 2) * blocks_per_row;
@@ -968,6 +997,18 @@ static int launch_bf16(const void* u, const void* v, const float* a_init,
       a_init, b_init, static_cast<uint16_t*>(l_out), a_nii, b_nii, c, n, n_w,
       win, acq, wpb, blocks_per_row);
   return (int)cudaGetLastError();
+}
+
+using Launch = int (*)(const void*, const void*, const float*, const float*,
+                      void*, float*, float*, int, int, int, int, int, int,
+                      cudaStream_t);
+
+// the decoders' bf16 kernel (all three levers) in each form
+template <bool kComb>
+static Launch bf16_form(int pad) {
+  return pad == kPadPin      ? &launch_bf16<true, true, kPadPin, kComb>
+         : pad == kPadFreeze ? &launch_bf16<true, true, kPadFreeze, kComb>
+                             : &launch_bf16<true, true, kPadFree, kComb>;
 }
 
 static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
@@ -980,28 +1021,34 @@ static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
 // a_init, b_init: (c, n_w, 8) f32 (already pinned); l_out: (c, n) in the
 // metric type; a_nii, b_nii: (c, n_w, 8) f32 raw exports; wpb: windows per
 // block (8 * wpb threads; in bf16 each window of two codeblocks); bf16: 1
-// runs the bf16 trellis; freeze: 1 keeps the old beta at dead positions
-// instead of pinning them.  Returns cudaGetLastError.
+// runs the bf16 trellis; pad: the beta main sweep's dead positions pinned
+// (0), frozen (1: the old beta kept) or stepped on zeros (2: nofreeze);
+// combine_bf16: 1 runs the bf16 trellis's combine in bf16 (bf16 = 1 only).
+// Returns cudaGetLastError.
 extern "C" int lteax_turbo_half(const void* u, const void* v,
                                 const float* a_init, const float* b_init,
                                 void* l_out, float* a_nii, float* b_nii,
                                 int c, int n, int n_w, int win, int acq,
-                                int wpb, int bf16, int freeze,
+                                int wpb, int bf16, int pad, int combine_bf16,
                                 cudaStream_t stream) {
-  if (!valid_args(n, n_w, win, acq, wpb)) return (int)cudaErrorInvalidValue;
+  if (!valid_args(n, n_w, win, acq, wpb) || pad < kPadPin ||
+      pad > kPadFree || (combine_bf16 && !bf16))
+    return (int)cudaErrorInvalidValue;
   if (c <= 0) return 0;
   if (bf16)
-    return launch_bf16<true, true>(u, v, a_init, b_init, l_out, a_nii, b_nii,
-                                   c, n, n_w, win, acq, wpb, freeze, stream);
+    return (combine_bf16 ? bf16_form<true>(pad) : bf16_form<false>(pad))(
+        u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win, acq, wpb,
+        stream);
   return launch_f32(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
-                    win, acq, wpb, freeze, stream);
+                    win, acq, wpb, pad, stream);
 }
 
 // The bf16 kernel's variants, for timing them against one another: after
 // lever 1 (native bf16x2 arithmetic, two codeblocks a lane), 2 (+ the
 // renormalisation's broadcast beside the exchange) or 3 (+ the slab staged
 // by cp.async: the kernel lteax_turbo_half launches); arguments as
-// lteax_turbo_half's with bf16 = 1.
+// lteax_turbo_half's with bf16 = 1 and combine_bf16 = 0, freeze 0 or 1 as
+// its pad.
 extern "C" int lteax_turbo_half_bf16_variant(
     const void* u, const void* v, const float* a_init, const float* b_init,
     void* l_out, float* a_nii, float* b_nii, int c, int n, int n_w, int win,
@@ -1009,9 +1056,15 @@ extern "C" int lteax_turbo_half_bf16_variant(
   if (!valid_args(n, n_w, win, acq, wpb) || variant < 1 || variant > 3)
     return (int)cudaErrorInvalidValue;
   if (c <= 0) return 0;
-  auto launch = variant == 1   ? &launch_bf16<false, false>
-                : variant == 2 ? &launch_bf16<true, false>
-                               : &launch_bf16<true, true>;
+  Launch launch;
+  if (variant == 1)
+    launch = freeze ? &launch_bf16<false, false, kPadFreeze, false>
+                    : &launch_bf16<false, false, kPadPin, false>;
+  else if (variant == 2)
+    launch = freeze ? &launch_bf16<true, false, kPadFreeze, false>
+                    : &launch_bf16<true, false, kPadPin, false>;
+  else
+    launch = bf16_form<false>(freeze ? kPadFreeze : kPadPin);
   return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
-                acq, wpb, freeze, stream);
+                acq, wpb, stream);
 }

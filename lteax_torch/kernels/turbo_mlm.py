@@ -8,7 +8,9 @@ lanes carry each window's chain, the alpha/beta stores stay in shared
 memory; see the note in the source), in the reference's forms: an f32 or
 bf16 trellis (``mdtype`` "f32", or "bf16" and "bf16_f32store", whose
 stores hold the same bf16 values; the bf16 kernel carries two codeblocks
-a lane in bf16x2 registers) and pinned or frozen padding (``pinpad``).
+a lane in bf16x2 registers), pinned, frozen or free padding (``pinpad``,
+``nofreeze``) and, in bf16, the combine's sums and maxes in f32 or in
+bf16 (``combine_bf16``).
 :func:`half_iteration_plain` is the same arithmetic in plain torch,
 vectorised the way the Pallas body is: a Python loop over trellis steps on
 (C, n_w) tensors.  :func:`half_iteration_raw`
@@ -51,9 +53,12 @@ LAUNCHES = 0
 """Launches of the f32 pinned-padding form since the last reset
 (plain-version calls do not count)."""
 
-FORM_LAUNCHES = {"bf16": 0, "bf16_freeze": 0, "f32_freeze": 0}
-"""Launches of every other form, by trellis (``bf16``: the kernel of both
-bf16 mdtypes) and ``_freeze`` without pinned padding, as :data:`LAUNCHES`."""
+FORM_LAUNCHES = {f: 0 for f in (
+    "f32_freeze", "f32_nofreeze", "bf16", "bf16_freeze", "bf16_nofreeze",
+    "bf16_combine", "bf16_combine_freeze", "bf16_combine_nofreeze")}
+"""Launches of every other form, as :data:`LAUNCHES`: by trellis (``bf16``:
+the kernel of both bf16 mdtypes), ``_combine`` with the bf16 combine, and
+``_freeze`` / ``_nofreeze`` for frozen / free padding (:func:`_form`)."""
 
 _TRELLIS = {"f32": "f32", "bf16": "bf16", "bf16_f32store": "bf16"}
 """The kernel's trellis of each ``mdtype``."""
@@ -97,8 +102,22 @@ def renorm_period(win: int) -> int:
     return 4 if (win // 2) % 4 == 0 else 2
 
 
+def resolve_form(mdtype: str, pinpad: bool, nofreeze: bool = False,
+                 combine_bf16: bool = False) -> tuple[bool, bool, bool]:
+    """(pinpad, nofreeze, combine_bf16) as the reference's kernel takes
+    them: ``nofreeze`` turns the pin off (``turbo_mlm.py:583``), and the
+    bf16 combine needs bf16 stores (``combine_bf16 and is_bf16``; under
+    "bf16_f32store" one operand of each sum is an f32 store, which makes
+    the sum f32)."""
+    _metric_dtypes(mdtype)
+    nofreeze = bool(nofreeze)
+    return (bool(pinpad) and not nofreeze, nofreeze,
+            bool(combine_bf16) and mdtype == "bf16")
+
+
 def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
-                         mdtype: str = "f32", pinpad: bool = True):
+                         mdtype: str = "f32", pinpad: bool = True,
+                         nofreeze: bool = False, combine_bf16: bool = False):
     """Plain torch version of the kernel.
 
     u, v (C, n); a_init, b_init (C, n_w, 8) f32 (pinned by the caller).
@@ -111,8 +130,14 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     main sweeps renormalised every :func:`renorm_period` steps, the combine
     summed in f32 from the bf16 metrics, l rounded to bf16.  ``pinpad``
     False keeps the old beta at dead positions of the main sweep (a select
-    in f32, ``m*new + (1-m)*old`` in bf16), as the acquisition always does.
+    in f32, ``m*new + (1-m)*old`` in bf16), as the acquisition always does;
+    ``nofreeze`` steps it there as anywhere (u = v = 0: no pin, no freeze).
+    ``combine_bf16`` (mdtype "bf16" only, :func:`resolve_form`): the
+    combine's sums and group maxima in bf16, then widened to f32 for the
+    gamma merge.
     """
+    pinpad, nofreeze, comb16 = resolve_form(mdtype, pinpad, nofreeze,
+                                            combine_bf16)
     fwd, bwd, out0, out1 = _unrolled_wiring()
     dt, _ = _metric_dtypes(mdtype)
     bf16 = dt == torch.bfloat16
@@ -155,6 +180,8 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     def beta_step(b, j):
         if pinpad:
             return acs_bwd(b, um[..., j] + lm[:, j], vm[..., j])
+        if nofreeze:
+            return acs_bwd(b, um[..., j], vm[..., j])
         return freeze(acs_bwd(b, um[..., j], vm[..., j]), b, lv_main[:, j])
 
     def renorm(a, b, t):
@@ -165,13 +192,15 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
 
     def combine(a_s, b_s, uu, vv):
         g = _gammas(uu.to(f32), vv.to(f32))
-        a_s = [x.to(f32) for x in a_s]
-        b_s = [x.to(f32) for x in b_s]
+        if not comb16:
+            a_s = [x.to(f32) for x in a_s]
+            b_s = [x.to(f32) for x in b_s]
         m = [None] * 4
         for s in range(8):
             for ns, gc in (out0[s], out1[s]):
                 t = a_s[s] + b_s[ns]
                 m[gc] = t if m[gc] is None else torch.maximum(m[gc], t)
+        m = [x.to(f32) for x in m]
         l0 = torch.maximum(m[0] + g[0], m[1] + g[1])
         l1 = torch.maximum(m[2] + g[2], m[3] + g[3])
         return (l0 - l1).to(dt)
@@ -207,14 +236,27 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     return l.reshape(c, n_w * win)[:, :n], a_nii, b_nii
 
 
-def _form(mdtype: str, pinpad: bool) -> str:
-    """The kernel form's name: its trellis, "_freeze" without pinned
-    padding."""
-    return _TRELLIS[mdtype] + ("" if pinpad else "_freeze")
+PADS = {"pin": 0, "freeze": 1, "nofreeze": 2}
+"""The beta main sweep's dead positions, as the kernel's ``pad`` flag."""
+
+
+def _pad(pinpad: bool, nofreeze: bool) -> str:
+    return "nofreeze" if nofreeze else "pin" if pinpad else "freeze"
+
+
+def _form(mdtype: str, pinpad: bool, nofreeze: bool = False,
+          combine_bf16: bool = False) -> str:
+    """The kernel form's name (of resolved flags, :func:`resolve_form`): its
+    trellis, "_combine" with the bf16 combine, "_freeze" / "_nofreeze"
+    without pinned padding."""
+    pad = _pad(pinpad, nofreeze)
+    return (_TRELLIS[mdtype] + ("_combine" if combine_bf16 else "")
+            + ("" if pad == "pin" else "_" + pad))
 
 
 def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int,
-                       mdtype: str = "f32", pinpad: bool = True):
+                       mdtype: str = "f32", pinpad: bool = True,
+                       nofreeze: bool = False, combine_bf16: bool = False):
     """(l, a_nii, b_nii) of one half-iteration; CPU tensors take the plain
     version, CUDA tensors launch the kernel.  l is in the metric dtype."""
     c, n = u.shape
@@ -223,19 +265,20 @@ def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int,
         raise ValueError(f"boundary inits must be {(c, n_w, 8)}")
     if win % 2 or not 0 < acq <= win // 2:
         raise ValueError("need an even win and 0 < acq <= win/2")
-    _metric_dtypes(mdtype)
+    form = resolve_form(mdtype, pinpad, nofreeze, combine_bf16)
     if not u.is_cuda:
         return half_iteration_plain(u, v, a_init, b_init, win, acq, mdtype,
-                                    pinpad)
+                                    *form)
     # at most WINDOWS_PER_BLOCK windows a block, in whole warps
     wpb = -(-min(WINDOWS_PER_BLOCK, n_w) // 4) * 4
     return half_iteration_kernel(u, v, a_init, b_init, win, acq, wpb, mdtype,
-                                 pinpad)
+                                 *form)
 
 
 def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
                           wpb: int, mdtype: str = "f32",
-                          pinpad: bool = True):
+                          pinpad: bool = True, nofreeze: bool = False,
+                          combine_bf16: bool = False):
     """Launch the kernel on CUDA tensors with ``wpb`` windows per block: a
     multiple of 4 (8 lanes a window, whole warps a block; windows beyond
     the row run on zeros and write nothing).  It needs no scratch: the
@@ -243,12 +286,16 @@ def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
     dtype (a bf16 form reads bf16 u, v and writes bf16 l); the inits and
     the NII exports stay f32."""
     global LAUNCHES
+    pinpad, nofreeze, combine_bf16 = resolve_form(mdtype, pinpad, nofreeze,
+                                                  combine_bf16)
     out = _launch("lteax_turbo_half", u, v, a_init, b_init, win, acq, wpb,
-                  mdtype, int(_TRELLIS[mdtype] == "bf16"), int(not pinpad))
-    if mdtype == "f32" and pinpad:
+                  mdtype, int(_TRELLIS[mdtype] == "bf16"),
+                  PADS[_pad(pinpad, nofreeze)], int(combine_bf16))
+    form = _form(mdtype, pinpad, nofreeze, combine_bf16)
+    if form == "f32":
         LAUNCHES += 1
     else:
-        FORM_LAUNCHES[_form(mdtype, pinpad)] += 1
+        FORM_LAUNCHES[form] += 1
     return out
 
 
@@ -315,11 +362,13 @@ def _nii_post(a_nii, b_nii):
 
 
 def half_iteration(u, v, a_init, b_init, win: int, acq: int,
-                   mdtype: str = "f32", pinpad: bool = True):
+                   mdtype: str = "f32", pinpad: bool = True,
+                   nofreeze: bool = False, combine_bf16: bool = False):
     """u, v (C, n); a_init/b_init (C, n_w, 8) -> (L (C, n), a_next, b_next)
     with the reference's NII convention (``half_iteration_pallas``)."""
     l, a_nii, b_nii = half_iteration_raw(u, v, a_init, b_init, win, acq,
-                                         mdtype, pinpad)
+                                         mdtype, pinpad, nofreeze,
+                                         combine_bf16)
     return (l, *_nii_post(a_nii, b_nii))
 
 
@@ -368,12 +417,20 @@ def _tables(k: int, early_crc: str | None, device: torch.device):
     return out
 
 
+def layout_path(c: int, early_crc: str | None, retry_m: int) -> bool:
+    """Whether the reference decodes a batch of ``c`` codeblocks on its
+    layout path (``turbo_mlm.py:1300``, its default ``layout_glue``): no
+    early stop, or a compacted retry smaller than the batch."""
+    return early_crc is None or 0 < retry_m < c
+
+
 def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
                        win: int = 128, acq: int = 16,
                        ext_scale: float = 0.75,
                        early_crc: str | None = None, retry_m: int = 0,
                        retry_levels: int = 2, mdtype: str = "f32",
-                       pinpad: bool = True):
+                       pinpad: bool = True, nofreeze: bool = False,
+                       combine_bf16: bool = False):
     """Batched turbo decode.  llr_d (C, 3, K+4) -> (bits (C, K) int8,
     :class:`TurboStats`).
 
@@ -393,7 +450,14 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     ext_scale * (l - u); on its natural path the extrinsic subtracts twice,
     ext_scale * (l - ls - le), and LLRs keep their dtype.  The f32 form
     runs the natural order on every path, as it always has (in f32 the two
-    orders differ in the last ulp only)."""
+    orders differ in the last ulp only).
+
+    ``nofreeze`` drops the freeze and the pin of every half-iteration's
+    main beta sweep (:func:`half_iteration_plain`).  ``combine_bf16`` takes
+    the bf16 combine (:func:`resolve_form`) where the reference does: in
+    the full-batch iterations of its layout path, not in its compacted
+    retry (``run_earlystop_l`` passes no ``combine_bf16``), its full-batch
+    early-stop loop or its natural path."""
     stats = TurboStats()
     dev = llr_d.device
     c = llr_d.shape[0]
@@ -402,7 +466,8 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     tab = _tables(k, early_crc, dev)
     pi, inv = tab["pi"], tab["inv"]
     _, dt_e = _metric_dtypes(mdtype)
-    presum = mdtype != "f32" and (early_crc is None or 0 < retry_m < c)
+    layout = layout_path(c, early_crc, retry_m)
+    presum = mdtype != "f32" and layout
     if mdtype == "f32" or presum:
         llr_d = llr_d.to(dt_e)
 
@@ -417,12 +482,13 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         v2 = torch.cat([d2[:, :k], par_t2], dim=1)
         return (ls, ls[:, pi], v1, v2, sys_t1, sys_t2)
 
-    def half(u, v, a, b):
-        return half_iteration(u, v, *_pin_boundaries(a, b), win, acq,
-                              mdtype, pinpad)
-
-    def make_halves(data):
+    def make_halves(data, comb: bool = False):
         ls_, lsi_, v1_, v2_, st1_, st2_ = data
+
+        def half(u, v, a, b):
+            return half_iteration(u, v, *_pin_boundaries(a, b), win, acq,
+                                  mdtype, pinpad, nofreeze, comb)
+
         if presum:
             # the reference's layout path: u = static + extrinsic, and the
             # extrinsic comes back as ext_scale * (l - u)
@@ -471,7 +537,7 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
             zero, zero, zero, zero)
 
     def one_iteration(le21, a1, b1, a2, b2):
-        dec1, dec2, ext12 = make_halves(data_full)
+        dec1, dec2, ext12 = make_halves(data_full, combine_bf16 and layout)
         l1, a1n, b1n = dec1(le21, a1, b1)
         # l2 stays in DEC2's interleaved domain (CRC rows are permuted)
         l2, le21n, a2n, b2n = dec2(ext12(l1, le21), a2, b2)

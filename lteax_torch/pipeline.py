@@ -36,7 +36,12 @@ LLRs travel in (bf16 under a bf16 trellis, the reference's ``ldt``), and
 ``demap_in`` the dtype the demap kernel's inputs are staged in, where the
 reference demaps with its kernel (:func:`llr_dtypes`), ``ofdm_dft`` the
 OFDM demod's DFT of the DL, HARQ and MIMO fronts and ``ul_dft`` the UL
-front's transform de-precoding.
+front's transform de-precoding.  ``planar_int8`` quantizes the planar
+demap output to int8 before the de-match gather and dequantizes after it
+(:func:`quantize_planar`) where the reference does: the DL, UL and MMSE
+MIMO fronts with an injective rate match (and, in UL and MIMO, a pad
+column after the planes, the reference's planar-boundary guard), on its
+turbo layout path (:func:`lteax_torch.kernels.turbo_mlm.layout_path`).
 
 A decoder runs on the current CUDA device unless the caller names another
 device; without a CUDA device and without ``device="cpu"`` the factories
@@ -54,7 +59,8 @@ import numpy as np
 import torch
 
 from lteax_torch.kernels.demap import demap_planar, planar_sgn_np
-from lteax_torch.kernels.turbo_mlm import TurboStats, turbo_decode_batch
+from lteax_torch.kernels.turbo_mlm import (TurboStats, layout_path,
+                                           turbo_decode_batch)
 from lteax_torch.phy import chest, mimo, seq
 from lteax_torch.phy.channels import pusch
 from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_cycles,
@@ -147,15 +153,41 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _gather_dematch(llr: torch.Tensor, inv: torch.Tensor,
-                    d_len: int) -> torch.Tensor:
+def quantize_planar(llr: torch.Tensor):
+    """Planar LLRs -> (int8 LLRs, f32 scale): one scale for the whole
+    batch, ``qs = max(max|llr|, 1e-20) / 127``, and ``clip(round(llr / qs),
+    -127, 127)`` (round half to even), in f32, as the reference's
+    ``planar_int8`` (``turbo_mlm.py:1337-1349``)."""
+    # max |llr| from one min / max pass (exact in any float dtype); the
+    # divide, round and clip in place on one f32 copy
+    lo, hi = torch.aminmax(llr)
+    qs = torch.clamp_min(torch.maximum(-lo, hi).to(torch.float32),
+                         1e-20) / 127.0
+    p = llr.to(torch.float32)
+    if p.data_ptr() == llr.data_ptr():
+        p = p.clone()
+    return p.div_(qs).round_().clamp_(-127, 127).to(torch.int8), qs
+
+
+def _gather_dematch(llr: torch.Tensor, inv: torch.Tensor, d_len: int,
+                    int8_carry: torch.dtype | None = None) -> torch.Tensor:
     """Planar LLRs (B, m, npad) -> (B*C, 3, d_len) through a de-match map
     (n_cycles, C*3*d_len) whose untransmitted positions point one past the
     planes, at a zero: one gather a cycle, summed in the order the repeats
-    were sent (one gather when the rate match is injective)."""
+    were sent (one gather when the rate match is injective).
+    ``int8_carry``: the planes go through :func:`quantize_planar` first, and
+    the gathered int8 LLRs come back as ``q * qs`` in that dtype, the
+    scale rounded to it first (an injective map only)."""
+    if int8_carry is not None:
+        if inv.shape[0] != 1:
+            raise ValueError("planar_int8 needs an injective rate match")
+        llr, qs = quantize_planar(llr)
     flat = llr.reshape(llr.shape[0], -1)
     ext = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=-1)
-    return sum_gathers(ext, inv).reshape(-1, 3, d_len)
+    d = sum_gathers(ext, inv)
+    if int8_carry is not None:
+        d = d.to(int8_carry) * qs.to(int8_carry)
+    return d.reshape(-1, 3, d_len)
 
 
 def _plan(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -199,12 +231,18 @@ class DlFront:
         x = x / torch.clamp_min(p / (p + nv), 1e-12)
         return x.real.contiguous(), x.imag.contiguous(), (p / nv).contiguous()
 
-    def __call__(self, samples_iq: torch.Tensor) -> torch.Tensor:
+    def planes(self, samples_iq: torch.Tensor) -> torch.Tensor:
+        """IQ -> the demap kernel's planar LLRs (B, qm, npad)."""
         xr, xi, inv_nv = (x.to(self.in_dtype)
                           for x in self.equalize(samples_iq))
-        llr = demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
-                           self.llr_dtype)
-        return _gather_dematch(llr, self.grid_inv, self.d_len)
+        return demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
+                            self.llr_dtype)
+
+    def __call__(self, samples_iq: torch.Tensor,
+                 int8_carry: torch.dtype | None = None) -> torch.Tensor:
+        """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
+        return _gather_dematch(self.planes(samples_iq), self.grid_inv,
+                               self.d_len, int8_carry)
 
 
 class PuschFront:
@@ -229,6 +267,7 @@ class PuschFront:
         t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
                                           device=device)
         self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
+        self.m_sc = np.asarray(ref0).shape[-1]
         self.ref0, self.ref1 = t(ref0, torch.complex64), t(ref1, torch.complex64)
         self.w, self.taps = t(w, torch.float32), t(taps, torch.float32)
         self.sgn, self.ul_inv = t(sgn, torch.float32), _plan(ul_inv, device)
@@ -264,12 +303,18 @@ class PuschFront:
                 xt.imag.reshape(bsz, -1).contiguous(),
                 inv_eff.reshape(bsz, -1).contiguous())
 
-    def __call__(self, grid_iq: torch.Tensor) -> torch.Tensor:
+    def planes(self, grid_iq: torch.Tensor) -> torch.Tensor:
+        """Grids -> the demap kernel's planar LLRs (B, qm, npad)."""
         xr, xi, inv_eff = (x.to(self.in_dtype)
                            for x in self.equalize(grid_iq))
-        llr = demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
-                           self.llr_dtype)
-        return _gather_dematch(llr, self.ul_inv, self.d_len)
+        return demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
+                            self.llr_dtype)
+
+    def __call__(self, grid_iq: torch.Tensor,
+                 int8_carry: torch.dtype | None = None) -> torch.Tensor:
+        """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
+        return _gather_dematch(self.planes(grid_iq), self.ul_inv,
+                               self.d_len, int8_carry)
 
 
 class TurboTail:
@@ -302,7 +347,8 @@ class TurboTail:
             llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
             ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
             retry_m=self.retry_m, retry_levels=t.retry_levels,
-            mdtype=t.mdtype, pinpad=t.pinpad)
+            mdtype=t.mdtype, pinpad=t.pinpad, nofreeze=t.nofreeze,
+            combine_bf16=t.combine_bf16)
         self.last_stats = stats
         bits = cb_bits.reshape(-1, info.c, geom.k)
         if info.cb_crc:
@@ -318,6 +364,17 @@ class TurboTail:
     def __call__(self, llr_d: torch.Tensor):
         return self.decode(llr_d)[1:]
 
+    def int8_carry(self, n_rows: int) -> torch.dtype | None:
+        """Where ``planar_int8`` is set and the reference decodes ``n_rows``
+        planar rows' codeblocks on its layout path: the dtype its dequantized
+        LLRs carry (the extrinsic's, bf16 under "bf16", else f32); else
+        None."""
+        t, info = self.tuning, self.geom.info
+        if not (t.planar_int8 and layout_path(
+                n_rows * info.c, t.early_crc(info.cb_crc), self.retry_m)):
+            return None
+        return torch.bfloat16 if t.mdtype == "bf16" else torch.float32
+
 
 def _crc_plans(geom: PdschGeometry):
     """(CRC24A matrix, CRC24B matrix or None) of a geometry's tail."""
@@ -330,8 +387,15 @@ class _Decoder:
     """A front and the shared tail on one device; subclasses give
     ``front``.  Build one with its ``make_*`` factory or ``from_plans``."""
 
+    planar_int8 = False
+    """Whether the front's de-match reads planes the reference quantizes
+    under ``tuning.planar_int8`` (its planar stage boundary)."""
+
     def __init__(self, tail: TurboTail, device: torch.device):
         self.tail, self.device = tail, device
+
+    def _int8_carry(self, n_rows: int) -> torch.dtype | None:
+        return self.tail.int8_carry(n_rows) if self.planar_int8 else None
 
     @property
     def n_iter(self) -> int:
@@ -363,6 +427,9 @@ class BatchDecoder(_Decoder):
                  device: torch.device):
         super().__init__(tail, device)
         self.dl_front = dl_front
+        # the reference's DL front is planar where its demap kernel runs:
+        # an injective rate match
+        self.planar_int8 = dl_front.grid_inv.shape[0] == 1
 
     @classmethod
     def from_plans(cls, cfg: PhyConfig, n_cell_id: int, subframe: int,
@@ -385,7 +452,8 @@ class BatchDecoder(_Decoder):
         return self.dl_front.equalize(samples_iq)
 
     def front(self, samples_iq: torch.Tensor) -> torch.Tensor:
-        return self.dl_front(samples_iq)
+        return self.dl_front(samples_iq,
+                             self._int8_carry(samples_iq.shape[0]))
 
 
 class HarqBatchDecoder(_Decoder):
@@ -443,6 +511,10 @@ class PuschBatchDecoder(_Decoder):
                  device: torch.device):
         super().__init__(tail, device)
         self.ul_front = ul_front
+        # the reference's UL planar boundary: an injective rate match and a
+        # pad column after the planes (npad > 12 * m_sc)
+        self.planar_int8 = (ul_front.ul_inv.shape[0] == 1 and
+                            ul_front.sgn.shape[1] > 12 * ul_front.m_sc)
 
     @classmethod
     def from_plans(cls, alloc: pusch.PuschAlloc, ref0: np.ndarray,
@@ -464,7 +536,7 @@ class PuschBatchDecoder(_Decoder):
                              m24b, device), device)
 
     def front(self, grid_iq: torch.Tensor) -> torch.Tensor:
-        return self.ul_front(grid_iq)
+        return self.ul_front(grid_iq, self._int8_carry(grid_iq.shape[0]))
 
 
 def make_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
@@ -625,17 +697,25 @@ class MimoFront:
         return demap_planar(st(x.real), st(x.imag), st(1.0 / eff),
                             self.sgn[q], self.scheme, self.llr_dtype)
 
-    def dematch(self, llr: torch.Tensor) -> torch.Tensor:
-        """Planar LLRs (B', qm, npad) -> (B'*C, 3, K+4)."""
-        return _gather_dematch(llr, self.rm_inv, self.d_len)
+    def dematch(self, llr: torch.Tensor,
+                int8_carry: torch.dtype | None = None) -> torch.Tensor:
+        """Planar LLRs (B', qm, npad) -> (B'*C, 3, K+4)
+        (``int8_carry``: :func:`_gather_dematch`)."""
+        return _gather_dematch(llr, self.rm_inv, self.d_len, int8_carry)
 
-    def __call__(self, batch_iq: torch.Tensor) -> torch.Tensor:
-        """-> (2B*C, 3, K+4) de-matched LLRs, b-major in (subframe,
-        codeword)."""
+    def planes(self, batch_iq: torch.Tensor) -> torch.Tensor:
+        """-> both codewords' planar LLRs (2B, qm, npad), b-major in
+        (subframe, codeword)."""
         _, _, _, x, eff = self.equalize(batch_iq)
-        llr = torch.stack([self.demap(x[:, q], eff[:, q], q)
-                           for q in range(2)], dim=1)
-        return self.dematch(llr.flatten(0, 1))
+        return torch.stack([self.demap(x[:, q], eff[:, q], q)
+                            for q in range(2)], dim=1).flatten(0, 1)
+
+    def __call__(self, batch_iq: torch.Tensor,
+                 int8_carry: torch.dtype | None = None) -> torch.Tensor:
+        """-> (2B*C, 3, K+4) de-matched LLRs, b-major in (subframe,
+        codeword); ``int8_carry`` quantizes both codewords' planes with
+        one scale."""
+        return self.dematch(self.planes(batch_iq), int8_carry)
 
 
 class MimoBatchDecoder(_Decoder):
@@ -648,9 +728,16 @@ class MimoBatchDecoder(_Decoder):
                  device: torch.device):
         super().__init__(tail, device)
         self.mimo_front = mimo_front
+        # the reference's MIMO planar boundary: an injective rate match and
+        # a pad column after the planes (npad > G / qm)
+        self.planar_int8 = (mimo_front.rm_inv.shape[0] == 1 and
+                            mimo_front.sgn.shape[-1] > tail.geom.g //
+                            tail.geom.qm)
 
     def front(self, batch_iq: torch.Tensor) -> torch.Tensor:
-        return self.mimo_front(batch_iq)
+        # a row a (subframe, codeword)
+        return self.mimo_front(batch_iq,
+                               self._int8_carry(2 * batch_iq.shape[1]))
 
 
 @dataclasses.dataclass

@@ -90,6 +90,20 @@ def test_benches_take_the_shipped_numerics(bench, n_tb):
         f: getattr(SHIPPED, f) for f in NUMERICS}
 
 
+@pytest.mark.parametrize("bench", [dl_throughput, ul_throughput],
+                         ids=["dl", "ul"])
+def test_benches_take_the_turbo_knobs(bench):
+    """``--nofreeze --combine-bf16 --planar-int8`` on the shipped numerics:
+    the reference's ``LTEAX_PALLAS_NOFREEZE``, ``LTEAX_COMBINE_BF16`` and
+    ``LTEAX_PLANAR_INT8``, named in the line."""
+    out = bench.main(["--batch", "1", "--reps", "1", "--device", "cpu",
+                      "--mdtype", "bf16", "--demap-in", "bf16",
+                      "--nofreeze", "--combine-bf16", "--planar-int8"])
+    _dry_run(out, 1)
+    assert (out["nofreeze"], out["combine_bf16"], out["planar_int8"]) == \
+        (True, True, True)
+
+
 @pytest.mark.parametrize("ul_dft", ["factored", "matmul"])
 def test_ul_bench_takes_the_ul_dft(ul_dft):
     """``--ul-dft``: the UL front's transform de-precoding, named in the

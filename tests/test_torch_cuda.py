@@ -99,6 +99,41 @@ def test_turbo_kernel_forms_match_plain(dev, mdtype, pinpad, c, k, win, acq):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("mdtype,pinpad,nofreeze,combine_bf16", [
+    ("f32", True, True, False), ("bf16", True, True, False),
+    ("bf16_f32store", False, True, False), ("bf16", True, False, True),
+    ("bf16", False, False, True), ("bf16", True, True, True),
+    ("bf16_f32store", True, False, True)])
+@pytest.mark.parametrize("c,k,win,acq", [
+    (37, 40, 128, 16), (37, 1152, 128, 16), (37, 5824, 128, 16),
+    (37, 1024, 36, 16), (38, 1152, 128, 16), (1, 224, 32, 16),
+    (38, 1027, 128, 16), (37, 1026, 128, 16), (37, 1152, 128, 15)])
+def test_turbo_kernel_knob_forms_match_plain(dev, mdtype, pinpad, nofreeze,
+                                             combine_bf16, c, k, win, acq):
+    """The reference's nofreeze (a dead position of the main beta sweep
+    stepped on zeros) and combine_bf16 (the combine's sums and group
+    maxima in bf16; the f32 combine under bf16_f32store) bit for bit, at
+    the shapes of the forms above, each launch counted under its form."""
+    n = k + 3
+    n_w = -(-n // win)
+    rng = np.random.default_rng(k + win + 1)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u = t(rng.standard_normal((c, n)) * 6)
+    v = t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, n_w, 8))),
+                                t(rng.standard_normal((c, n_w, 8))))
+    form_flags = (mdtype, pinpad, nofreeze, combine_bf16)
+    form = tm._form(mdtype, *tm.resolve_form(*form_flags))
+    before = tm.LAUNCHES, dict(tm.FORM_LAUNCHES)
+    got = tm.half_iteration_raw(u, v, a0, b0, win, acq, *form_flags)
+    after = dict(before[1])
+    after[form] += 1
+    assert (tm.LAUNCHES, tm.FORM_LAUNCHES) == (before[0], after)
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, *form_flags)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("variant", sorted(tm.BF16_VARIANTS))
 @pytest.mark.parametrize("pinpad", [True, False])
 @pytest.mark.parametrize("c,k,win,acq", [(37, 1152, 128, 16),
