@@ -205,7 +205,16 @@ them from what each rank returns):
     threshold cells also run under ``SHIPPED`` with cuFFT on the same IQ
     (the DL headline's three profiles timed in turns, each decoding
     256/256 with the bits sent), and UL at B=64 under ``ul_dft`` "factored"
-    and "matmul" (the signal precoded by each) decodes every block.
+    and "matmul" (the signal precoded by each) decodes every block.  The
+    reference's last tuning values (``VALUES``, each through
+    ``DecoderTuning.from_dict``): 64 DL headline subframes decode under
+    ``fused: false`` (each mdtype; the unfused kernel, one thread a chain),
+    ``acq: 96``, ``layout_glue: false``, ``blane_unroll`` 1 and 2 and
+    ``pallas_demap: false`` (no demap kernel launched), timed in turns
+    with ``SHIPPED``; their kernel forms (the unfused kernel in f32, bf16
+    and bf16_f32store, also at acq > win/2; the bf16 kernel's
+    renormalisation at unroll 1 and 2) are held to their plain versions
+    beforehand, as the knobs' forms are.
 28. The factored DFT (``[dft]``, ``lteax_torch.phy.dft``; cuBLAS SGEMMs,
     no kernel of its own) at every bandwidth's n_fft (4 subframes each):
     ``"factored_hi"`` and ``dft_factored`` within 1e-5 of the peak of the
@@ -367,6 +376,10 @@ TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
 # windows whose dead steps number 122 and 123 (t_pin of either parity)
 TURBO_BF16 = ((3329, 5827, 128, 16), (37, 1027, 36, 16), (38, 1030, 128, 16),
               (37, 1029, 128, 16))
+# ... and the unfused kernel's own range: acq > win/2, up to win, and a win
+# that is no multiple of 4
+TURBO_UNFUSED = ((37, 1155, 128, 96), (3, 5827, 128, 128),
+                 (37, 1027, 34, 34))
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 # [loopback]: config #1 (configs/config1_loopback_1p4.yaml) and its 100-PRB
@@ -437,7 +450,11 @@ SOURCES = {
                                      "lteax/kernels/turbo_mlm.py:536")
        for f in ("bf16", "bf16_freeze", "f32_nofreeze", "bf16_nofreeze",
                  "bf16_combine", "bf16_combine_freeze",
-                 "bf16_combine_nofreeze")},
+                 "bf16_combine_nofreeze", "bf16_u1", "bf16_u2")},
+    # the unfused body (_make_kernel, :77) of K2, half_iteration_pallas
+    **{f"turbo_half_iteration_{f}_unfused": (
+        "lteax_torch/kernels/csrc/turbo.cu", "lteax/kernels/turbo_mlm.py:736")
+       for f in ("f32", "bf16", "bf16_f32store")},
     **{f"demap_{f}": ("lteax_torch/kernels/csrc/demap.cu",
                       "lteax/kernels/demap.py:68")
        for f in ("bf16", "bf16 (UL shape)", "bf16_out")},
@@ -593,16 +610,17 @@ def turbo_inputs(c: int, n: int, win: int, seed: int, dev):
     return (u, v, *turbo_mod._pin_boundaries(a0, b0))
 
 
-def turbo_equal_plain(args, win: int, acq: int, *form) -> list[float]:
+def turbo_equal_plain(args, win: int, acq: int, *form, **kw) -> list[float]:
     """Kernel vs plain on (L, a_nii, b_nii), ``torch.equal``; ``form`` is
     (mdtype, pinpad, nofreeze, combine_bf16) or a head of it, the f32
-    pinned form by default."""
-    got = turbo_mod.half_iteration_raw(*args, win, acq, *form)
-    ref = turbo_mod.half_iteration_plain(*args, win, acq, *form)
+    pinned form by default, ``kw`` the keyword flags (``fused``,
+    ``unroll``)."""
+    got = turbo_mod.half_iteration_raw(*args, win, acq, *form, **kw)
+    ref = turbo_mod.half_iteration_plain(*args, win, acq, *form, **kw)
     torch.cuda.synchronize()
     errs = [max_abs_err(g, r) for g, r in zip(got, ref)]
     if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-        raise AssertionError(f"turbo kernel {form} != plain (L, a_nii, "
+        raise AssertionError(f"turbo kernel {form} {kw} != plain (L, a_nii, "
                              f"b_nii) at {tuple(args[0].shape)}, win {win}, "
                              f"acq {acq}: max |err| {errs}")
     return errs
@@ -634,21 +652,46 @@ def check_turbo(cell: DlCell, dev) -> dict:
             "library_ms": None, **bound(n_bytes, ops, F32_OPS_PER_S)}
 
 
-# (name, mdtype, pinpad, nofreeze, combine_bf16) of the turbo kernel's
-# forms beyond the f32 pinned one ("bf16_f32store" runs the bf16 kernel:
-# its stores hold the same values, and its combine is the f32 one)
+# (name, mdtype, pinpad, nofreeze, combine_bf16, keyword flags) of the
+# turbo kernel's forms beyond the f32 pinned one ("bf16_f32store" runs the
+# fused bf16 kernel: its stores hold the same values, and its combine is
+# the f32 one; the unfused kernel's bf16_f32store form combines in f32,
+# its bf16 form in bf16); the unfused forms freeze whatever the flags say
 TURBO_FORMS = (
-    ("turbo_half_iteration_bf16", "bf16", True, False, False),
-    ("turbo_half_iteration_bf16_freeze", "bf16", False, False, False),
-    ("turbo_half_iteration_f32_nofreeze", "f32", True, True, False),
-    ("turbo_half_iteration_bf16_nofreeze", "bf16", True, True, False),
-    ("turbo_half_iteration_bf16_combine", "bf16", True, False, True),
-    ("turbo_half_iteration_bf16_combine_freeze", "bf16", False, False, True),
+    ("turbo_half_iteration_bf16", "bf16", True, False, False, {}),
+    ("turbo_half_iteration_bf16_freeze", "bf16", False, False, False, {}),
+    ("turbo_half_iteration_f32_nofreeze", "f32", True, True, False, {}),
+    ("turbo_half_iteration_bf16_nofreeze", "bf16", True, True, False, {}),
+    ("turbo_half_iteration_bf16_combine", "bf16", True, False, True, {}),
+    ("turbo_half_iteration_bf16_combine_freeze", "bf16", False, False, True,
+     {}),
     ("turbo_half_iteration_bf16_combine_nofreeze", "bf16", True, True,
-     True))
+     True, {}),
+    ("turbo_half_iteration_bf16_u1", "bf16", True, False, False,
+     {"unroll": 1}),
+    ("turbo_half_iteration_bf16_u2", "bf16", True, False, False,
+     {"unroll": 2}),
+    ("turbo_half_iteration_f32_unfused", "f32", False, False, False,
+     {"fused": False}),
+    ("turbo_half_iteration_bf16_unfused", "bf16", False, False, False,
+     {"fused": False}),
+    ("turbo_half_iteration_bf16_f32store_unfused", "bf16_f32store", False,
+     False, False, {"fused": False}))
 # the combine's operations a trellis position (of K1/K2's 39): its 16 sums
 # and 12 group maxima, which combine_bf16 runs in bf16
 COMBINE_BF16_OPS = 28
+# the unfused combine's operations a position: 32 sums, 14 maxima and
+# L's difference, over all 8 states of each bit (no grouping by code)
+UNFUSED_COMBINE_OPS = 47
+
+
+def ptxas_registers(kernel: str) -> list[str]:
+    """What ``ptxas -v`` said of the built functions whose (mangled) name
+    holds ``kernel``: their "Used N registers ..." lines."""
+    log = library().ptxas_log.splitlines()
+    return [ln.split(":", 1)[-1].strip() for i, ln in enumerate(log)
+            if "Used" in ln and any(kernel in prev and "Compiling" in prev
+                                    for prev in log[max(0, i - 3):i])]
 
 
 def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
@@ -657,14 +700,19 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
     SI and bf16-layout shapes, bit for bit, each timed at the main shape on
     u, v in its metric dtype (the wrapper's cast left out), every form
     after the first in turns with its trellis's pinned form
-    (``same_run_form``: the f32 one, or the first, the bf16 one); then the bf16 kernel's variants
-    (``BF16_VARIANTS``) and the f32 form, timed in turns at the main shape.
+    (``same_run_form``: the f32 one, or the first, the bf16 one); then the
+    bf16 kernel's variants (``BF16_VARIANTS``) and the f32 form, timed in
+    turns at the main shape.  The unfused forms are also held at
+    ``TURBO_UNFUSED`` (acq > win/2, a win that is no multiple of 4).
     Bound of a bf16 form: u, v and L move as bf16 (2 bytes), the inits and
-    NII exports as f32; the alpha and beta stores stay in shared memory.
+    NII exports as f32; the alpha and beta stores stay in shared memory
+    (``store_bytes``: the unfused kernel's whole-window alpha stores).
     The 60 ACS operations of a position (and an acquisition step's 60) run
     in bf16 at the packed bf16 rate, the combine's 39 in f32, or with
-    combine_bf16 its 28 sums and maxima in bf16 and 11 in f32.  An f32
-    form is counted as :func:`check_turbo`."""
+    combine_bf16 its 28 sums and maxima in bf16 and 11 in f32; the unfused
+    combine's 47 (:data:`UNFUSED_COMBINE_OPS`) in bf16 under "bf16", in f32
+    under "bf16_f32store".  An f32 form is counted as
+    :func:`check_turbo`."""
     geom = cell.geom
     c, n, win, acq = geom.info.c * BATCH, geom.k + 3, 128, 16
     n_w = -(-n // win)
@@ -676,18 +724,21 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
     sticks = {"f32": ("turbo_half_iteration",
                       lambda: turbo_mod.half_iteration_raw(u, v, a0, b0, win,
                                                            acq))}
-    for name, *form in TURBO_FORMS:
-        for cr, nr, wr, ar in TURBO_RAGGED + TURBO_SI + TURBO_BF16:
+    for name, *form, kw in TURBO_FORMS:
+        unfused = kw.get("fused", True) is False
+        for cr, nr, wr, ar in (TURBO_RAGGED + TURBO_SI + TURBO_BF16
+                               + (TURBO_UNFUSED if unfused else ())):
             turbo_equal_plain(turbo_inputs(cr, nr, wr, SEED + nr, dev), wr,
-                              ar, *form)
-        args = (ub, vb, a0, b0) if form[0] == "bf16" else (u, v, a0, b0)
-        errs = turbo_equal_plain(args, win, acq, *form)
-        run = (lambda a=args, f=form: turbo_mod.half_iteration_raw(
-            *a, win, acq, *f))
-        if form[0] in sticks:
+                              ar, *form, **kw)
+        trellis = turbo_mod._TRELLIS[form[0]]
+        args = (ub, vb, a0, b0) if trellis == "bf16" else (u, v, a0, b0)
+        errs = turbo_equal_plain(args, win, acq, *form, **kw)
+        run = (lambda a=args, f=form, k=kw: turbo_mod.half_iteration_raw(
+            *a, win, acq, *f, **k))
+        if trellis in sticks:
             # in turns with its trellis's pinned form: medians of 3 turns of
             # 20 launches
-            stick, stick_run = sticks[form[0]]
+            stick, stick_run = sticks[trellis]
             t = {"form": [], "stick": []}
             for r in range(3):
                 for k in (("form", "stick") if r % 2 else ("stick", "form")):
@@ -697,21 +748,34 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
             turns = {"same_run_ms": float(np.median(t["stick"])),
                      "same_run_form": stick}
         else:
-            sticks[form[0]] = (name, run)
+            sticks[trellis] = (name, run)
             ms, turns = cuda_time_ms(run, 20), {}
         plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
-            *args, win, acq, *form), 1)
-        if form[0] == "f32":
+            *args, win, acq, *form, **kw), 1)
+        comb_ops = UNFUSED_COMBINE_OPS if unfused else 39
+        if trellis == "f32":
             counted = bound(4 * (3 * c * n + 4 * c * n_w * 8),
-                            c * n * 99 + c * n_w * acq * 60, F32_OPS_PER_S)
+                            c * n * (60 + comb_ops) + c * n_w * acq * 60,
+                            F32_OPS_PER_S)
         else:
-            comb = COMBINE_BF16_OPS if form[3] else 0
+            # the combine in bf16: combine_bf16's sums and group maxima, or
+            # the whole unfused "bf16" combine
+            comb = (COMBINE_BF16_OPS if form[3] else
+                    comb_ops if unfused and form[0] == "bf16" else 0)
             bf16_ops = c * n * (60 + comb) + c * n_w * acq * 60
-            f32_ops = c * n * (39 - comb)
+            f32_ops = c * n * (comb_ops - comb)
             counted = {"bf16_ops": bf16_ops, "f32_ops": f32_ops, **bound(
                 2 * 3 * c * n + 4 * 4 * c * n_w * 8,
                 f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S,
                 F32_OPS_PER_S)}
+        if unfused:
+            # what the kernel keeps in shared memory: the whole window's
+            # alpha stores (the reference also keeps beta's), never in HBM
+            counted["store_bytes"] = c * n_w * win * 8 * (
+                4 if trellis == "f32" else 2)
+            counted["ptxas"] = ptxas_registers(
+                "turbo_half_unfused_kernelILi"
+                + {"f32": "0", "bf16": "1", "bf16_f32store": "2"}[form[0]])
         out.append({"name": name, "shape": [c, n, win, acq],
                     "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, **turns, **counted})
@@ -3018,11 +3082,11 @@ def turbo_shapes_seen(log: dict):
     (C, n, win, acq) while the block runs (the launches still count)."""
     launch = turbo_mod.half_iteration_kernel
 
-    def recorded(u, v, a_init, b_init, win, acq, wpb, *form):
+    def recorded(u, v, a_init, b_init, win, acq, wpb, *form, **kw):
         key = (u.shape[0], u.shape[1], win, acq)
         if key not in log:
             log[key] = tuple(x.clone() for x in (u, v, a_init, b_init))
-        return launch(u, v, a_init, b_init, win, acq, wpb, *form)
+        return launch(u, v, a_init, b_init, win, acq, wpb, *form, **kw)
 
     turbo_mod.half_iteration_kernel = recorded
     try:
@@ -3598,6 +3662,70 @@ def knob_decodes(name: str, make, args, x: torch.Tensor, tb: np.ndarray,
     return out
 
 
+# [bf16]: the reference's last tuning values, each read by
+# DecoderTuning.from_dict (SHIPPED elsewhere), and the turbo kernel form
+# its DL decode must launch; "pallas_demap" must launch no demap kernel
+VALUES = {
+    "fused_false": ({"fused": False}, "turbo_half_iteration_bf16_unfused"),
+    "fused_false_f32": ({"fused": False, "mdtype": "f32", "demap_in": "f32"},
+                        "turbo_half_iteration_f32_unfused"),
+    "fused_false_bf16_f32store": (
+        {"fused": False, "mdtype": "bf16_f32store"},
+        "turbo_half_iteration_bf16_f32store_unfused"),
+    "acq_96": ({"acq": 96}, "turbo_half_iteration_bf16_unfused"),
+    "layout_glue_false": ({"layout_glue": False},
+                          "turbo_half_iteration_bf16"),
+    "blane_unroll_1": ({"blane_unroll": 1}, "turbo_half_iteration_bf16_u1"),
+    "blane_unroll_2": ({"blane_unroll": 2}, "turbo_half_iteration_bf16_u2"),
+    "pallas_demap_false": ({"pallas_demap": False},
+                           "turbo_half_iteration_bf16")}
+
+
+def value_decodes(cell: DlCell, x: torch.Tensor, tb: np.ndarray,
+                  card: str) -> tuple[dict, dict]:
+    """The DL decoder of ``x`` (B=64 headline subframes) under each of
+    :data:`VALUES`, one decode each with the counts set to 0 just before
+    it, then all timed in turns with ``SHIPPED`` (host clock, median of 5
+    turns).  Returns ({value: n_ok, n_iter, ms}, {form: launches})."""
+    dev = x.device
+    decs = {"shipped": make_batch_decoder(*cell.decoder_args(),
+                                          tuning=SHIPPED, device=dev),
+            **{k: make_batch_decoder(
+                *cell.decoder_args(), tuning=DecoderTuning.from_dict(d),
+                device=dev) for k, (d, _) in VALUES.items()}}
+    out, launches = {}, {}
+    for k, (_, form) in VALUES.items():
+        r = decode_forms(f"DL B={len(tb)} from_dict({VALUES[k][0]})",
+                         decs[k], x, tb, None, (form,))
+        demaps = {f: c for f, c in r["launches"].items()
+                  if f.startswith("demap")}
+        if k == "pallas_demap_false" and demaps:
+            raise AssertionError(f"[bf16] pallas_demap false launched the "
+                                 f"demap kernel: {demaps}")
+        if k.startswith("fused_false") and any(
+                f.startswith("turbo") and not f.endswith("_unfused")
+                for f in r["launches"]):
+            raise AssertionError(f"[bf16] {k} launched a fused form: "
+                                 f"{r['launches']}")
+        launches[form] = max(launches.get(form, 0), r["launches"][form])
+        out[k] = {"n_ok": r["n_ok"], "n_iter": r["n_iter"],
+                  "retries": decs[k].last_stats.retries,
+                  "launches": {f: c for f, c in r["launches"].items()
+                               if f.startswith(("turbo", "demap"))}}
+    turns = [[time_decode(d, x, 1)[0] for d in decs.values()]
+             for _ in range(5)]
+    ms = dict(zip(decs, (float(np.median(v)) * 1e3 for v in zip(*turns))))
+    for k in out:
+        out[k]["ms"] = ms[k]
+    out["shipped_ms"] = ms["shipped"]
+    print(f"[bf16] DL B={len(tb)} under the reference's last values, in "
+          f"turns (n=5): SHIPPED {ms['shipped']:.3f} ms; " + "; ".join(
+              f"{k} {v['n_ok']}/{len(tb)} CRC ok, n_iter {v['n_iter']}, "
+              f"{v['ms']:.3f} ms" for k, v in out.items()
+              if k != "shipped_ms") + f" ({card})")
+    return out, launches
+
+
 def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     """``[bf16]``: the reference's shipped numerics (``SHIPPED``) beside
     the f32 default on the same IQ, and ``SHIPPED`` with each of the
@@ -3666,6 +3794,9 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
             BF16_B, (form,))
         if form != k1:
             launches[form] = r["launches"][form]
+    out["values"], value_launches = value_decodes(cell, xs, tb[:BF16_B],
+                                                  card)
+    launches.update({f: c for f, c in value_launches.items() if f != k1})
     del x, xs
     # the threshold cells, both profiles on one IQ each
     out["threshold"] = {}
@@ -4140,7 +4271,7 @@ def main() -> None:
              "peaks_moved_vs_f32", "cold_ms", "library_tf32_ms", "by_shape",
              "f32_ops", "bound_nofma_ms", "library_bf16_ms", "variant_ms",
              "f32_same_run_ms", "bound_fma_ms", "bound_tc_ms",
-             "same_run_ms", "same_run_form",
+             "same_run_ms", "same_run_form", "store_bytes", "ptxas",
              "kernel_vs_f64_of_peak",
              "plain_vs_f64_of_peak")
     print(json.dumps({"kernels": [
@@ -4154,7 +4285,8 @@ def main() -> None:
             or key.startswith("bf16_")}}
         for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]],
         "bf16_profile": {key: bf16[key] for key in
-                         ("dl", "threshold", "b64", "knobs_b64", "ul_dft")},
+                         ("dl", "threshold", "b64", "knobs_b64", "ul_dft",
+                          "values")},
         "dft": dft,
         "demap_ul_shape": {key: demap_ul[key] for key in
                            ("shape", "ms", "plain_ms", "bound_ms",

@@ -40,8 +40,7 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
-    "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 12, _P],
     "lteax_turbo_half_bf16_variant": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],

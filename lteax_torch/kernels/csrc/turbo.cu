@@ -130,6 +130,36 @@
 // At C = 3328, n = 5827 on an H100 SXM at 700 W: 0.284 ms against the
 // f32 combine's 0.291, in turns (chip_smoke.py).
 //
+// The layout kernel's renormalisation at the reference's blane_unroll
+// (kSched): _make_kernel_blane renormalises after step t of a window where
+// t mod U is U - 1 or 3 mod 4, U its resolved unroll; at U = 1 and 2 (and
+// U = 3 at win 36 ...) that is off the fused cadence, so the kSched
+// instances count t mod U (U a kernel argument) and may renormalise after
+// even steps too; there the state-0 broadcast and the subtraction run at
+// every step, without a branch (a shuffle behind a run-time branch ends a
+// basic block), subtracting +0 where the step does not renormalise.  The
+// decoders' instances (kSched false) keep their literal odd steps and their
+// code.  (Giving those instances their period as an argument, to run U = 2
+// with their code, slowed them by up to 8%: not done.)
+//
+// The unfused kernel (the reference's _make_kernel, fused=False) is a kernel
+// of its own, turbo_half_unfused_kernel: one thread a chain (codeblock,
+// window), its 8 alpha and 8 beta metrics in registers.  Its acquisition
+// freezes as above (acq up to win: it reads the neighbouring windows); its
+// alpha sweep keeps all win pre-step alphas in shared memory; its beta
+// sweep runs after it (the chains are independent, so the values are the
+// interleaved sweeps' ones), frozen at dead positions, and at each position
+// combines the live pre-step beta with the stored alpha and the step's
+// gammas over all 8 states of a bit, (alpha + gamma) + beta with no grouping
+// by gamma code, L = l0 - l1 in the combine's type: f32; bf16 under "bf16"
+// (bf16 stores, every sum rounded); f32 under "bf16_f32store" (its f32
+// stores promote the sums), L rounded to bf16 once.  Under a bf16 trellis
+// both sweeps renormalise every 4 steps counted over the whole window (2
+// when win is not a multiple of 4).  The NII exports are the stored alpha at
+// win - acq and the pre-step beta at acq - 1.  A block holds T chains, the
+// stores (t, state, chain), so that the T chains of a step hit T banks:
+// win * 8 * 4 bytes a chain in f32, half that in bf16.
+//
 // The 8-state wiring is lteax.phy.fec.turbo._unrolled_wiring written out as
 // the two tables below (the tests parse them back and compare): a row of
 // FWD is (p0, p1, g0, g1) of a'[s'] = max(a[p0] + g[g0], a[p1] + g[g1]), a
@@ -139,6 +169,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 
 #define TRELLIS_FWD {{0, 1, 0, 3}, {2, 3, 2, 1}, {4, 5, 1, 2}, {6, 7, 3, 0}, \
                      {0, 1, 3, 0}, {2, 3, 1, 2}, {4, 5, 2, 1}, {6, 7, 0, 3}}
@@ -637,9 +669,11 @@ __device__ __forceinline__ int stage_plane(uint16_t* dst, int plane,
 // kFold: the renormalisation's broadcast rides beside the exchange (lever
 // 2); kAsync: the slab is staged by cp.async (lever 3); kPad: what the beta
 // main sweep does at dead positions (kPadPin, kPadFreeze, kPadFree); kComb:
-// the bf16 combine.  u, v, l_out: bf16 bits.  A block owns windows w0 ..
-// w0+wpb-1 of codeblocks 2i and 2i+1.
-template <bool kFold, bool kAsync, int kPad, bool kComb>
+// the bf16 combine; kSched: the renormalisation after the steps of the
+// layout kernel's unroll `sched` (else every `period` steps).  u, v, l_out:
+// bf16 bits.  A block owns windows w0 .. w0+wpb-1 of codeblocks 2i and
+// 2i+1.
+template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched>
 __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
                                        const uint16_t* __restrict__ v,
                                        const float* __restrict__ a_init,
@@ -648,7 +682,8 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
                                        float* __restrict__ a_nii,
                                        float* __restrict__ b_nii, int c,
                                        int n, int n_w, int win, int acq,
-                                       int wpb, int blocks_per_row) {
+                                       int wpb, int blocks_per_row,
+                                       int sched) {
   extern __shared__ uint2 smem2[];
   const int half = win / 2;
   const int period = half % 4 == 0 ? 4 : 2;    // renormalisation
@@ -769,21 +804,44 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
     return pin ? p.pin : mul2(fma2(x.y, p.vmul, x.x), p.half);
   };
   // The main sweeps' renormalisation after step t, every `period` steps
-  // (2 or 4, so only after odd steps: `odd` is a literal at every call):
+  // (2 or 4, so only after odd steps: `odd` is a literal at every call;
+  // with kSched after the steps of unroll `sched`, even ones too):
   // x -= x[0], state 0 being r0 of the direction's lane 0 (q = 0: the
   // first of its 4 lanes).  After the step that is lane 0's own lo (its
   // held r0 in a frozen step), so with kFold its broadcast is asked for
   // beside the exchange (`early`), else after it (`late`).
+  // (kSched: every step t = 0, 1, ... asks once, in order, so t mod sched
+  // is a counter, no division)
+  int sched_r = 0;
   auto renorms = [&](bool odd, int t) {
-    return odd && ((t + 1) & (period - 1)) == 0;
+    if constexpr (kSched) {
+      const int r = sched_r;
+      sched_r = r + 1 == sched ? 0 : r + 1;
+      return (r & 3) == 3 || r == sched - 1;
+    } else {
+      return odd && ((t + 1) & (period - 1)) == 0;
+    }
   };
   auto renorm_early = [&](bool rn, int t) {
     unsigned s0 = 0u;
-    if (kFold && rn) s0 = __shfl_sync(all, t >= skip ? lo : r0, 0, 4);
+    if constexpr (kSched) {
+      // every step broadcasts: a shuffle behind a run-time branch would
+      // end a basic block at every step (see the f32 kernel's note)
+      if (kFold) s0 = __shfl_sync(all, t >= skip ? lo : r0, 0, 4);
+    } else {
+      if (kFold && rn) s0 = __shfl_sync(all, t >= skip ? lo : r0, 0, 4);
+    }
     return s0;
   };
   auto renorm_late = [&](bool rn, unsigned s0) {
-    if (rn) {
+    if constexpr (kSched) {
+      // every step subtracts, without a branch: state 0 where the step
+      // renormalises, +0 elsewhere (x - 0 is x, exactly)
+      if (!kFold) s0 = __shfl_sync(all, r0, 0, 4);
+      const unsigned z = rn ? s0 : 0u;
+      r0 = sub2(r0, z);
+      r1 = sub2(r1, z);
+    } else if (rn) {
       if (!kFold) s0 = __shfl_sync(all, r0, 0, 4);
       r0 = sub2(r0, s0);
       r1 = sub2(r1, s0);
@@ -943,6 +1001,199 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
   }
 }
 
+// ---- the unfused kernel: one thread a chain, whole-window stores ---------
+
+// f32 rounded to bf16, to nearest even, kept in an f32
+__device__ __forceinline__ float round_bf16(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return __uint_as_float((unsigned)h << 16);
+}
+
+// the trellis tables for device code: a row of FWD or BWD by index, always
+// evaluated where a constant is needed (a template argument)
+__host__ __device__ constexpr int fwd_at(int row, int i) {
+  constexpr int t[8][4] = TRELLIS_FWD;
+  return t[row][i];
+}
+__host__ __device__ constexpr int bwd_at(int row, int i) {
+  constexpr int t[8][4] = TRELLIS_BWD;
+  return t[row][i];
+}
+template <int V>
+struct Const {
+  static constexpr int v = V;
+};
+
+constexpr int kUnfF32 = 0, kUnfBf16 = 1, kUnfBf16F32 = 2;
+
+// One metric operation: in f32, or under a bf16 trellis the f32 operation
+// rounded to bf16 (one correctly rounded bf16 operation, as above).
+template <bool kBf16>
+__device__ __forceinline__ float mop(float x) {
+  if constexpr (kBf16) return round_bf16(x);
+  else return x;
+}
+
+// the four gammas +(u+v)/2, +(u-v)/2, -(u-v)/2, -(u+v)/2
+template <bool kBf16>
+__device__ __forceinline__ void gammas4(float u, float v, float (&g)[4]) {
+  const float pp = mop<kBf16>(0.5f * mop<kBf16>(u + v));
+  const float pm = mop<kBf16>(0.5f * mop<kBf16>(u - v));
+  g[0] = pp;
+  g[1] = pm;
+  g[2] = -pm;
+  g[3] = -pp;
+}
+
+// one ACS step of all 8 states along FWD (alpha) or BWD (beta)
+template <bool kBf16, bool kFwd, int... S>
+__device__ __forceinline__ void acs8(float (&m)[8], const float (&g)[4],
+                                     std::integer_sequence<int, S...>) {
+  float x[8];
+#define LTEAX_AT(s, i) (kFwd ? fwd_at(s, i) : bwd_at(s, i))
+  ((x[S] = fmaxf(mop<kBf16>(m[Const<LTEAX_AT(S, 0)>::v] +
+                            g[Const<LTEAX_AT(S, 2)>::v]),
+                 mop<kBf16>(m[Const<LTEAX_AT(S, 1)>::v] +
+                            g[Const<LTEAX_AT(S, 3)>::v]))),
+   ...);
+#undef LTEAX_AT
+  ((m[S] = x[S]), ...);
+}
+
+// The combine of one position over FWD's 16 branches p -> s' (code c):
+// (alpha[p] + g[c]) + beta[s'], the bit-0 branches (c < 2) into l0, the
+// bit-1 ones into l1, each sum in the combine's type (kBf16Sum: bf16).
+template <bool kBf16Sum, int... S>
+__device__ __forceinline__ float combine16(const float (&al)[8],
+                                           const float (&g)[4],
+                                           const float (&be)[8],
+                                           std::integer_sequence<int, S...>) {
+  float l0 = __int_as_float(0xff800000), l1 = l0;   // -inf
+  auto branch = [&](float t, bool bit1) {
+    if (bit1) l1 = fmaxf(l1, t);
+    else l0 = fmaxf(l0, t);
+  };
+  ((branch(mop<kBf16Sum>(mop<kBf16Sum>(al[Const<fwd_at(S, 0)>::v] +
+                                       g[Const<fwd_at(S, 2)>::v]) + be[S]),
+           Const<fwd_at(S, 2)>::v >= 2),
+    branch(mop<kBf16Sum>(mop<kBf16Sum>(al[Const<fwd_at(S, 1)>::v] +
+                                       g[Const<fwd_at(S, 3)>::v]) + be[S]),
+           Const<fwd_at(S, 3)>::v >= 2)),
+   ...);
+  return mop<kBf16Sum>(l0 - l1);
+}
+
+// kMode: kUnfF32 (f32 trellis and combine), kUnfBf16 (bf16 trellis, bf16
+// stores and combine) or kUnfBf16F32 (bf16 trellis, f32 combine).  u, v,
+// l_out: f32, or bf16 bits under a bf16 trellis.  Thread i of block b runs
+// chain b * blockDim.x + i of the (c * n_w) chains.
+template <int kMode>
+__global__ void turbo_half_unfused_kernel(const void* __restrict__ u,
+                                          const void* __restrict__ v,
+                                          const float* __restrict__ a_init,
+                                          const float* __restrict__ b_init,
+                                          void* __restrict__ l_out,
+                                          float* __restrict__ a_nii,
+                                          float* __restrict__ b_nii, int n,
+                                          int n_w, int win, int acq,
+                                          long long chains) {
+  constexpr bool kBf16 = kMode != kUnfF32;
+  using Store = std::conditional_t<kBf16, uint16_t, float>;
+  extern __shared__ float smem_unfused[];
+  const long long chain = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (chain >= chains) return;
+  const int nt = blockDim.x;
+  Store* st = reinterpret_cast<Store*>(smem_unfused) + threadIdx.x;
+  const long long row = chain / n_w * (long long)n;
+  const int base = (int)(chain % n_w) * win;
+  const auto seq8 = std::make_integer_sequence<int, 8>{};
+
+  auto in = [&](const void* x, int pos) {       // 0 outside [0, n)
+    if (pos < 0 || pos >= n) return 0.0f;
+    if constexpr (kBf16)
+      return __uint_as_float(
+          (unsigned)static_cast<const uint16_t*>(x)[row + pos] << 16);
+    else
+      return static_cast<const float*>(x)[row + pos];
+  };
+  auto put = [&](float x) -> Store {            // a store's bits
+    if constexpr (kBf16) return (uint16_t)(__float_as_uint(x) >> 16);
+    else return x;
+  };
+  auto get = [&](Store x) -> float {
+    if constexpr (kBf16) return __uint_as_float((unsigned)x << 16);
+    else return x;
+  };
+
+  float a[8], b[8], g[4];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {                  // the inits in the metric type
+    a[s] = mop<kBf16>(a_init[chain * 8 + s]);
+    b[s] = mop<kBf16>(b_init[chain * 8 + s]);
+  }
+  // acquisition: alpha over the previous window's tail, beta over the next
+  // window's head, each frozen outside [0, n)
+  for (int t = 0; t < acq; ++t) {
+    const int pa = base - acq + t;
+    if (pa >= 0 && pa < n) {
+      gammas4<kBf16>(in(u, pa), in(v, pa), g);
+      acs8<kBf16, true>(a, g, seq8);
+    }
+    const int pb = base + win + acq - 1 - t;
+    if (pb < n) {
+      gammas4<kBf16>(in(u, pb), in(v, pb), g);
+      acs8<kBf16, false>(b, g, seq8);
+    }
+  }
+  const int period = win % 4 == 0 ? 4 : 2;
+
+  // the alpha sweep, unmasked, storing each pre-step alpha at (t, s)
+  for (int t = 0; t < win; ++t) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) st[(t * 8 + s) * nt] = put(a[s]);
+    gammas4<kBf16>(in(u, base + t), in(v, base + t), g);
+    acs8<kBf16, true>(a, g, seq8);
+    if (kBf16 && (t + 1) % period == 0) {
+      const float s0 = a[0];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) a[s] = mop<kBf16>(a[s] - s0);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    a_nii[chain * 8 + s] = get(st[((win - acq) * 8 + s) * nt]);
+
+  // the beta sweep, frozen at dead positions; the combine of position j
+  // reads the pre-step beta (beta at j + 1) and the stored alpha at j
+  for (int t = 0; t < win; ++t) {
+    const int j = win - 1 - t;
+    const int pos = base + j;
+    if (j == acq - 1) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) b_nii[chain * 8 + s] = b[s];
+    }
+    gammas4<kBf16>(in(u, pos), in(v, pos), g);
+    if (pos < n) {
+      float al[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) al[s] = get(st[(j * 8 + s) * nt]);
+      const float l = combine16<kMode == kUnfBf16>(al, g, b, seq8);
+      if constexpr (kBf16)
+        static_cast<uint16_t*>(l_out)[row + pos] =
+            (uint16_t)(__float_as_uint(mop<true>(l)) >> 16);
+      else
+        static_cast<float*>(l_out)[row + pos] = l;
+      acs8<kBf16, false>(b, g, seq8);
+    }
+    if (kBf16 && (t + 1) % period == 0) {
+      const float s0 = b[0];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) b[s] = mop<kBf16>(b[s] - s0);
+    }
+  }
+}
+
 }  // namespace
 
 // Shared memory of a block of wpb windows, bytes: the slab, 8 bytes a
@@ -981,13 +1232,13 @@ static int launch_f32(const void* u, const void* v, const float* a_init,
   return (int)cudaGetLastError();
 }
 
-template <bool kFold, bool kAsync, int kPad, bool kComb>
+template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched>
 static int launch_bf16(const void* u, const void* v, const float* a_init,
                        const float* b_init, void* l_out, float* a_nii,
                        float* b_nii, int c, int n, int n_w, int win, int acq,
-                       int wpb, cudaStream_t stream) {
+                       int wpb, int sched, cudaStream_t stream) {
   const size_t smem = turbo_smem_bytes(win, acq, wpb);
-  auto kernel = turbo_half_bf16_kernel<kFold, kAsync, kPad, kComb>;
+  auto kernel = turbo_half_bf16_kernel<kFold, kAsync, kPad, kComb, kSched>;
   if (int e = prepare(kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)((c + 1) / 2) * blocks_per_row;
@@ -995,20 +1246,42 @@ static int launch_bf16(const void* u, const void* v, const float* a_init,
   kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
       static_cast<const uint16_t*>(u), static_cast<const uint16_t*>(v),
       a_init, b_init, static_cast<uint16_t*>(l_out), a_nii, b_nii, c, n, n_w,
-      win, acq, wpb, blocks_per_row);
+      win, acq, wpb, blocks_per_row, sched);
   return (int)cudaGetLastError();
 }
 
 using Launch = int (*)(const void*, const void*, const float*, const float*,
                       void*, float*, float*, int, int, int, int, int, int,
-                      cudaStream_t);
+                      int, cudaStream_t);
 
 // the decoders' bf16 kernel (all three levers) in each form
-template <bool kComb>
+template <bool kComb, bool kSched>
 static Launch bf16_form(int pad) {
-  return pad == kPadPin      ? &launch_bf16<true, true, kPadPin, kComb>
-         : pad == kPadFreeze ? &launch_bf16<true, true, kPadFreeze, kComb>
-                             : &launch_bf16<true, true, kPadFree, kComb>;
+  return pad == kPadPin ? &launch_bf16<true, true, kPadPin, kComb, kSched>
+         : pad == kPadFreeze
+             ? &launch_bf16<true, true, kPadFreeze, kComb, kSched>
+             : &launch_bf16<true, true, kPadFree, kComb, kSched>;
+}
+
+// The unfused kernel: T chains a block, T the largest power of two <= 32
+// whose stores fit in 64 KB (three blocks an SM), at least 1.
+template <int kMode>
+static int launch_unfused(const void* u, const void* v, const float* a_init,
+                          const float* b_init, void* l_out, float* a_nii,
+                          float* b_nii, int c, int n, int n_w, int win,
+                          int acq, cudaStream_t stream) {
+  const size_t chain_bytes = (size_t)win * 8 * (kMode == kUnfF32 ? 4 : 2);
+  int threads = 32;
+  while (threads > 1 && threads * chain_bytes > 64 * 1024) threads /= 2;
+  const size_t smem = threads * chain_bytes;
+  auto kernel = turbo_half_unfused_kernel<kMode>;
+  if (int e = prepare(kernel, smem)) return e;
+  const long long chains = (long long)c * n_w;
+  const long long blocks = (chains + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      u, v, a_init, b_init, l_out, a_nii, b_nii, n, n_w, win, acq, chains);
+  return (int)cudaGetLastError();
 }
 
 static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
@@ -1023,22 +1296,47 @@ static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
 // block (8 * wpb threads; in bf16 each window of two codeblocks); bf16: 1
 // runs the bf16 trellis; pad: the beta main sweep's dead positions pinned
 // (0), frozen (1: the old beta kept) or stepped on zeros (2: nofreeze);
-// combine_bf16: 1 runs the bf16 trellis's combine in bf16 (bf16 = 1 only).
-// Returns cudaGetLastError.
+// combine_bf16: 1 runs the bf16 trellis's combine in bf16 (bf16 = 1 only);
+// unroll: 0, or the layout kernel's resolved unroll U whose steps the bf16
+// trellis renormalises after (bf16 = 1, U >= 1 dividing win/2: the kSched
+// instances).
+// fused = 0 runs the unfused kernel: pad 1 (frozen) only, no bf16 combine,
+// no unroll, any even win, 0 < acq <= win, wpb unused; f32store = 1 (bf16
+// = 1 only) gives it the f32 combine of "bf16_f32store".  Any other
+// combination is rejected.  Returns cudaGetLastError.
 extern "C" int lteax_turbo_half(const void* u, const void* v,
                                 const float* a_init, const float* b_init,
                                 void* l_out, float* a_nii, float* b_nii,
                                 int c, int n, int n_w, int win, int acq,
                                 int wpb, int bf16, int pad, int combine_bf16,
+                                int fused, int unroll, int f32store,
                                 cudaStream_t stream) {
+  if (!fused) {
+    if (win <= 0 || win % 2 || acq <= 0 || acq > win || n_w * win < n ||
+        (n_w - 1) * win >= n || pad != kPadFreeze || combine_bf16 || unroll ||
+        (f32store && !bf16))
+      return (int)cudaErrorInvalidValue;
+    if (c <= 0) return 0;
+    const auto launch = !bf16     ? &launch_unfused<kUnfF32>
+                        : f32store ? &launch_unfused<kUnfBf16F32>
+                                   : &launch_unfused<kUnfBf16>;
+    return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
+                  acq, stream);
+  }
   if (!valid_args(n, n_w, win, acq, wpb) || pad < kPadPin ||
-      pad > kPadFree || (combine_bf16 && !bf16))
+      pad > kPadFree || (combine_bf16 && !bf16) || f32store || unroll < 0 ||
+      (unroll && (!bf16 || (win / 2) % unroll)))
     return (int)cudaErrorInvalidValue;
   if (c <= 0) return 0;
-  if (bf16)
-    return (combine_bf16 ? bf16_form<true>(pad) : bf16_form<false>(pad))(
-        u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win, acq, wpb,
-        stream);
+  if (bf16) {
+    const Launch launch =
+        unroll ? (combine_bf16 ? bf16_form<true, true>(pad)
+                               : bf16_form<false, true>(pad))
+               : (combine_bf16 ? bf16_form<true, false>(pad)
+                               : bf16_form<false, false>(pad));
+    return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
+                  acq, wpb, unroll, stream);
+  }
   return launch_f32(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
                     win, acq, wpb, pad, stream);
 }
@@ -1058,13 +1356,13 @@ extern "C" int lteax_turbo_half_bf16_variant(
   if (c <= 0) return 0;
   Launch launch;
   if (variant == 1)
-    launch = freeze ? &launch_bf16<false, false, kPadFreeze, false>
-                    : &launch_bf16<false, false, kPadPin, false>;
+    launch = freeze ? &launch_bf16<false, false, kPadFreeze, false, false>
+                    : &launch_bf16<false, false, kPadPin, false, false>;
   else if (variant == 2)
-    launch = freeze ? &launch_bf16<true, false, kPadFreeze, false>
-                    : &launch_bf16<true, false, kPadPin, false>;
+    launch = freeze ? &launch_bf16<true, false, kPadFreeze, false, false>
+                    : &launch_bf16<true, false, kPadPin, false, false>;
   else
-    launch = bf16_form<false>(freeze ? kPadFreeze : kPadPin);
+    launch = bf16_form<false, false>(freeze ? kPadFreeze : kPadPin);
   return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
-                acq, wpb, stream);
+                acq, wpb, 0, stream);
 }

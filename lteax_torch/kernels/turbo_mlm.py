@@ -10,7 +10,12 @@ bf16 trellis (``mdtype`` "f32", or "bf16" and "bf16_f32store", whose
 stores hold the same bf16 values; the bf16 kernel carries two codeblocks
 a lane in bf16x2 registers), pinned, frozen or free padding (``pinpad``,
 ``nofreeze``) and, in bf16, the combine's sums and maxes in f32 or in
-bf16 (``combine_bf16``).
+bf16 (``combine_bf16``), and the layout kernel's bf16 renormalisation at the
+reference's ``blane_unroll`` (:func:`renorm_steps`).  The reference's
+unfused natural kernel (``_make_kernel``, ``fused=False``: whole-window
+alpha and beta stores, then one combine pass) is a CUDA kernel of its own,
+one thread a chain (``turbo_half_unfused_kernel``), in f32, bf16 and
+bf16_f32store, whose combines differ.
 :func:`half_iteration_plain` is the same arithmetic in plain torch,
 vectorised the way the Pallas body is: a Python loop over trellis steps on
 (C, n_w) tensors.  :func:`half_iteration_raw`
@@ -35,7 +40,7 @@ import torch
 from lteax_torch.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
 from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok
 from lteax_torch.phy.fec.turbo import _unrolled_wiring
-from lteax_torch.phy.tuning import MDTYPES
+from lteax_torch.phy.tuning import MDTYPES, blane_renorm_unroll
 
 NEG = -1e9
 PIN = 512.0
@@ -53,12 +58,19 @@ LAUNCHES = 0
 """Launches of the f32 pinned-padding form since the last reset
 (plain-version calls do not count)."""
 
+_FUSED_FORMS = (
+    "bf16", "bf16_freeze", "bf16_nofreeze", "bf16_combine",
+    "bf16_combine_freeze", "bf16_combine_nofreeze")
 FORM_LAUNCHES = {f: 0 for f in (
-    "f32_freeze", "f32_nofreeze", "bf16", "bf16_freeze", "bf16_nofreeze",
-    "bf16_combine", "bf16_combine_freeze", "bf16_combine_nofreeze")}
+    "f32_freeze", "f32_nofreeze", *_FUSED_FORMS,
+    *(f"{f}_u{u}" for u in (1, 2) for f in _FUSED_FORMS),
+    "f32_unfused", "bf16_unfused", "bf16_f32store_unfused")}
 """Launches of every other form, as :data:`LAUNCHES`: by trellis (``bf16``:
-the kernel of both bf16 mdtypes), ``_combine`` with the bf16 combine, and
-``_freeze`` / ``_nofreeze`` for frozen / free padding (:func:`_form`)."""
+the kernel of both bf16 mdtypes), ``_combine`` with the bf16 combine,
+``_freeze`` / ``_nofreeze`` for frozen / free padding, ``_u<U>`` with the
+layout kernel's renormalisation at unroll U (1 and 2 here; another U
+gets its key at its first launch), and the unfused kernel by mdtype
+(:func:`_form`)."""
 
 _TRELLIS = {"f32": "f32", "bf16": "bf16", "bf16_f32store": "bf16"}
 """The kernel's trellis of each ``mdtype``."""
@@ -95,21 +107,60 @@ def _metric_dtypes(mdtype: str):
 
 def renorm_period(win: int) -> int:
     """Trellis steps between two bf16 renormalisations (a -= a[0],
-    b -= b[0]) of the main sweeps: 4, or 2 when win/2 is not a multiple of
-    4.  Both reference kernels renormalise at this cadence whatever their
-    unroll (``_renorm_at``; the fused kernel's loop body); the
-    acquisition never does."""
+    b -= b[0]) of the fused kernels' main sweeps: 4, or 2 when win/2 is not
+    a multiple of 4, counted over the half window (the fused kernel's loop
+    body, ``turbo_mlm.py:304``; the layout kernel's ``_renorm_at`` at its
+    default unrolls).  The layout kernel at ``blane_unroll`` 1 or 2 moves
+    them (:func:`renorm_steps`); the unfused kernel counts over the whole
+    window (:func:`unfused_period`); the acquisition never renormalises."""
     return 4 if (win // 2) % 4 == 0 else 2
 
 
+def unfused_period(win: int) -> int:
+    """The unfused kernel's bf16 renormalisation period: every 4 steps
+    counted over the whole window, or 2 when win is not a multiple of 4
+    (``turbo_mlm.py:147``, ``:160-168``).  At win 36 it is 4 where the
+    fused kernels' is 2."""
+    return 4 if win % 4 == 0 else 2
+
+
+def renorm_unroll(mdtype: str, win: int, unroll: int | None) -> int | None:
+    """The layout kernel's renormalisation unroll where it moves the bf16
+    renormalisation off :func:`renorm_period`'s steps, else None: the
+    reference's ``blane_unroll`` resolved as ``_make_kernel_blane`` does
+    (:func:`lteax_torch.phy.tuning.blane_renorm_unroll`); 1 and 2 at win
+    128, 1 and 3 at win 36.  An f32 trellis never renormalises."""
+    if unroll is None or _metric_dtypes(mdtype)[0] == torch.float32:
+        return None
+    u = blane_renorm_unroll(win, unroll)
+    return None if renorm_steps(win, u) == renorm_steps(win) else u
+
+
+def renorm_steps(win: int, unroll: int | None = None) -> frozenset:
+    """The steps t of a window after which the fused kernels renormalise a
+    bf16 trellis: :func:`renorm_period`'s, or at a resolved layout-kernel
+    unroll U those of ``_renorm_at`` (``turbo_mlm.py:473-476``): t mod U
+    is U - 1 or 3 mod 4 (every step at U = 1, every other at U = 2)."""
+    if unroll is None:
+        p = renorm_period(win)
+        return frozenset(t for t in range(win) if (t + 1) % p == 0)
+    return frozenset(t for t in range(win)
+                     if (t % unroll) % 4 == 3 or t % unroll == unroll - 1)
+
+
 def resolve_form(mdtype: str, pinpad: bool, nofreeze: bool = False,
-                 combine_bf16: bool = False) -> tuple[bool, bool, bool]:
+                 combine_bf16: bool = False,
+                 fused: bool = True) -> tuple[bool, bool, bool]:
     """(pinpad, nofreeze, combine_bf16) as the reference's kernel takes
     them: ``nofreeze`` turns the pin off (``turbo_mlm.py:583``), and the
     bf16 combine needs bf16 stores (``combine_bf16 and is_bf16``; under
     "bf16_f32store" one operand of each sum is an f32 store, which makes
-    the sum f32)."""
+    the sum f32).  The unfused kernel (``fused`` False) freezes: it has
+    neither the pin nor ``nofreeze`` (``turbo_mlm.py:1219-1220``), nor
+    the bf16 combine."""
     _metric_dtypes(mdtype)
+    if not fused:
+        return False, False, False
     nofreeze = bool(nofreeze)
     return (bool(pinpad) and not nofreeze, nofreeze,
             bool(combine_bf16) and mdtype == "bf16")
@@ -117,7 +168,8 @@ def resolve_form(mdtype: str, pinpad: bool, nofreeze: bool = False,
 
 def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
                          mdtype: str = "f32", pinpad: bool = True,
-                         nofreeze: bool = False, combine_bf16: bool = False):
+                         nofreeze: bool = False, combine_bf16: bool = False,
+                         *, fused: bool = True, unroll: int | None = None):
     """Plain torch version of the kernel.
 
     u, v (C, n); a_init, b_init (C, n_w, 8) f32 (pinned by the caller).
@@ -134,8 +186,14 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     ``nofreeze`` steps it there as anywhere (u = v = 0: no pin, no freeze).
     ``combine_bf16`` (mdtype "bf16" only, :func:`resolve_form`): the
     combine's sums and group maxima in bf16, then widened to f32 for the
-    gamma merge.
+    gamma merge.  ``unroll``: the layout kernel's ``blane_unroll``, whose
+    bf16 renormalisation steps :func:`renorm_steps` gives (None:
+    :func:`renorm_period`'s).  ``fused`` False is the unfused kernel
+    (:func:`_half_iteration_unfused_plain`; win/2 < acq <= win allowed).
     """
+    if not fused:
+        return _half_iteration_unfused_plain(u, v, a_init, b_init, win, acq,
+                                             mdtype)
     pinpad, nofreeze, comb16 = resolve_form(mdtype, pinpad, nofreeze,
                                             combine_bf16)
     fwd, bwd, out0, out1 = _unrolled_wiring()
@@ -145,7 +203,7 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     c, n = u.shape
     n_w = -(-n // win)
     half = win // 2
-    period = renorm_period(win)
+    steps = renorm_steps(win, renorm_unroll(mdtype, win, unroll))
     pad = lambda x: torch.nn.functional.pad(x.to(dt), (0, n_w * win - n))
     um = pad(u).reshape(c, n_w, win)
     vm = pad(v).reshape(c, n_w, win)
@@ -185,7 +243,7 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
         return freeze(acs_bwd(b, um[..., j], vm[..., j]), b, lv_main[:, j])
 
     def renorm(a, b, t):
-        if bf16 and (t + 1) % period == 0:
+        if bf16 and t in steps:
             a = [x - a[0] for x in a]
             b = [x - b[0] for x in b]
         return a, b
@@ -236,6 +294,85 @@ def half_iteration_plain(u, v, a_init, b_init, win: int, acq: int,
     return l.reshape(c, n_w * win)[:, :n], a_nii, b_nii
 
 
+def _half_iteration_unfused_plain(u, v, a_init, b_init, win: int, acq: int,
+                                  mdtype: str = "f32"):
+    """Plain torch version of the unfused kernel (the reference's
+    ``_make_kernel`` with ``fused=False``), as :func:`half_iteration_plain`
+    returns.  The acquisition freezes as the fused kernels' does (any
+    0 < acq <= win: it reads the neighbours' windows); then both sweeps
+    run over the whole window, alpha unmasked and beta frozen at dead
+    positions, and keep every pre-step metric: alpha at t, beta at the
+    position after j.  Under a bf16 trellis both renormalise after every
+    :func:`unfused_period` steps.  The NII exports are read from the
+    stores, alpha at win - acq and beta's store acq - 1.  Then one combine
+    over all 8 states of each bit, ``(astore + gamma) + bstore``, with no
+    grouping by gamma code, and L = l0 - l1 in the combine's dtype: f32;
+    bf16 under "bf16" (bf16 stores: each sum rounds); f32 under
+    "bf16_f32store" (its f32 stores promote the sums), L rounded to bf16
+    once."""
+    fwd, bwd, out0, out1 = _unrolled_wiring()
+    dt, _ = _metric_dtypes(mdtype)
+    sdt = torch.float32 if mdtype == "bf16_f32store" else dt
+    bf16 = dt == torch.bfloat16
+    f32 = torch.float32
+    c, n = u.shape
+    n_w = -(-n // win)
+    period = unfused_period(win)
+    pad = lambda x: torch.nn.functional.pad(x.to(dt), (0, n_w * win - n))
+    um = pad(u).reshape(c, n_w, win)
+    vm = pad(v).reshape(c, n_w, win)
+    z = torch.zeros_like(um[:, :1, :acq])
+    ua = torch.cat([z, um[:, :-1, win - acq:]], dim=1)
+    va = torch.cat([z, vm[:, :-1, win - acq:]], dim=1)
+    ub = torch.cat([um[:, 1:, :acq], z], dim=1)
+    vb = torch.cat([vm[:, 1:, :acq], z], dim=1)
+    lv_main, lv_a, lv_b = _live_masks(win, acq, n_w, n, u.device)
+
+    def acs(m, wiring, uu, vv):
+        g = _gammas(uu, vv)
+        return [torch.maximum(m[i0] + g[g0], m[i1] + g[g1])
+                for (i0, i1, g0, g1) in wiring]
+
+    def freeze(new, old, keep):
+        if bf16:
+            k = keep.to(dt)
+            return [k * x + (1.0 - k) * y for x, y in zip(new, old)]
+        return [torch.where(keep, x, y) for x, y in zip(new, old)]
+
+    a = [a_init[..., s].to(dt) for s in range(8)]
+    b = [b_init[..., s].to(dt) for s in range(8)]
+    for t in range(acq):
+        a = freeze(acs(a, fwd, ua[..., t], va[..., t]), a, lv_a[:, t])
+        j = acq - 1 - t
+        b = freeze(acs(b, bwd, ub[..., j], vb[..., j]), b, lv_b[:, j])
+
+    astore, bstore = [None] * win, [None] * win
+    for t in range(win):
+        astore[t] = torch.stack(a, -1).to(sdt)
+        a = acs(a, fwd, um[..., t], vm[..., t])
+        j = win - 1 - t
+        bstore[j] = torch.stack(b, -1).to(sdt)
+        b = freeze(acs(b, bwd, um[..., j], vm[..., j]), b, lv_main[:, j])
+        if bf16 and (t + 1) % period == 0:
+            a = [x - a[0] for x in a]
+            b = [x - b[0] for x in b]
+    a_nii = astore[win - acq].to(f32)
+    b_nii = bstore[acq - 1].to(f32)
+
+    ast = torch.stack(astore, -2)               # (C, n_w, win, 8)
+    bst = torch.stack(bstore, -2)
+    g = _gammas(um, vm)
+    l0 = l1 = None
+    for s in range(8):
+        (ns0, g0), (ns1, g1) = out0[s], out1[s]
+        t0 = ast[..., s] + g[g0] + bst[..., ns0]
+        t1 = ast[..., s] + g[g1] + bst[..., ns1]
+        l0 = t0 if l0 is None else torch.maximum(l0, t0)
+        l1 = t1 if l1 is None else torch.maximum(l1, t1)
+    l = (l0 - l1).to(dt)
+    return l.reshape(c, n_w * win)[:, :n], a_nii, b_nii
+
+
 PADS = {"pin": 0, "freeze": 1, "nofreeze": 2}
 """The beta main sweep's dead positions, as the kernel's ``pad`` flag."""
 
@@ -245,57 +382,83 @@ def _pad(pinpad: bool, nofreeze: bool) -> str:
 
 
 def _form(mdtype: str, pinpad: bool, nofreeze: bool = False,
-          combine_bf16: bool = False) -> str:
-    """The kernel form's name (of resolved flags, :func:`resolve_form`): its
-    trellis, "_combine" with the bf16 combine, "_freeze" / "_nofreeze"
-    without pinned padding."""
+          combine_bf16: bool = False, *, fused: bool = True,
+          unroll: int | None = None) -> str:
+    """The kernel form's name (of resolved flags, :func:`resolve_form` and
+    :func:`renorm_unroll`): its trellis, "_combine" with the bf16 combine,
+    "_freeze" / "_nofreeze" without pinned padding, "_u<U>" with the
+    renormalisation at layout unroll U; the unfused kernel's
+    "<mdtype>_unfused"."""
+    if not fused:
+        return mdtype + "_unfused"
     pad = _pad(pinpad, nofreeze)
     return (_TRELLIS[mdtype] + ("_combine" if combine_bf16 else "")
-            + ("" if pad == "pin" else "_" + pad))
+            + ("" if pad == "pin" else "_" + pad)
+            + ("" if unroll is None else f"_u{unroll}"))
+
+
+def _check_acq(win: int, acq: int, fused: bool) -> None:
+    top = win // 2 if fused else win
+    if win % 2 or not 0 < acq <= top:
+        raise ValueError("need an even win and 0 < acq <= "
+                         + ("win/2" if fused else "win")
+                         + " (the unfused kernel takes acq up to win)")
 
 
 def half_iteration_raw(u, v, a_init, b_init, win: int, acq: int,
                        mdtype: str = "f32", pinpad: bool = True,
-                       nofreeze: bool = False, combine_bf16: bool = False):
+                       nofreeze: bool = False, combine_bf16: bool = False,
+                       *, fused: bool = True, unroll: int | None = None):
     """(l, a_nii, b_nii) of one half-iteration; CPU tensors take the plain
-    version, CUDA tensors launch the kernel.  l is in the metric dtype."""
+    version, CUDA tensors launch the kernel.  l is in the metric dtype.
+    ``fused`` False runs the unfused kernel; ``unroll`` is the layout
+    kernel's ``blane_unroll`` (None: the default renormalisation)."""
     c, n = u.shape
     n_w = -(-n // win)
     if a_init.shape != (c, n_w, 8) or b_init.shape != (c, n_w, 8):
         raise ValueError(f"boundary inits must be {(c, n_w, 8)}")
-    if win % 2 or not 0 < acq <= win // 2:
-        raise ValueError("need an even win and 0 < acq <= win/2")
-    form = resolve_form(mdtype, pinpad, nofreeze, combine_bf16)
+    _check_acq(win, acq, fused)
+    form = resolve_form(mdtype, pinpad, nofreeze, combine_bf16, fused)
     if not u.is_cuda:
         return half_iteration_plain(u, v, a_init, b_init, win, acq, mdtype,
-                                    *form)
+                                    *form, fused=fused, unroll=unroll)
     # at most WINDOWS_PER_BLOCK windows a block, in whole warps
     wpb = -(-min(WINDOWS_PER_BLOCK, n_w) // 4) * 4
     return half_iteration_kernel(u, v, a_init, b_init, win, acq, wpb, mdtype,
-                                 *form)
+                                 *form, fused=fused, unroll=unroll)
 
 
 def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
                           wpb: int, mdtype: str = "f32",
                           pinpad: bool = True, nofreeze: bool = False,
-                          combine_bf16: bool = False):
+                          combine_bf16: bool = False, *, fused: bool = True,
+                          unroll: int | None = None):
     """Launch the kernel on CUDA tensors with ``wpb`` windows per block: a
     multiple of 4 (8 lanes a window, whole warps a block; windows beyond
     the row run on zeros and write nothing).  It needs no scratch: the
     three outputs are all it allocates.  u, v are staged in the metric
     dtype (a bf16 form reads bf16 u, v and writes bf16 l); the inits and
-    the NII exports stay f32."""
+    the NII exports stay f32.  ``fused`` False launches the unfused
+    kernel, one thread a chain (``wpb`` unused; any even win, acq up to
+    win); ``unroll`` as :func:`half_iteration_raw`."""
     global LAUNCHES
+    _check_acq(win, acq, fused)
     pinpad, nofreeze, combine_bf16 = resolve_form(mdtype, pinpad, nofreeze,
-                                                  combine_bf16)
+                                                  combine_bf16, fused)
+    ru = renorm_unroll(mdtype, win, unroll) if fused else None
+    if fused and (win % 4 or wpb <= 0 or wpb % 4):
+        raise ValueError("the kernel needs win and wpb to be multiples of 4")
     out = _launch("lteax_turbo_half", u, v, a_init, b_init, win, acq, wpb,
                   mdtype, int(_TRELLIS[mdtype] == "bf16"),
-                  PADS[_pad(pinpad, nofreeze)], int(combine_bf16))
-    form = _form(mdtype, pinpad, nofreeze, combine_bf16)
+                  PADS[_pad(pinpad, nofreeze)], int(combine_bf16),
+                  int(fused), ru or 0,
+                  int(not fused and mdtype == "bf16_f32store"))
+    form = _form(mdtype, pinpad, nofreeze, combine_bf16, fused=fused,
+                 unroll=ru)
     if form == "f32":
         LAUNCHES += 1
     else:
-        FORM_LAUNCHES[form] += 1
+        FORM_LAUNCHES[form] = FORM_LAUNCHES.get(form, 0) + 1
     return out
 
 
@@ -315,6 +478,8 @@ def half_iteration_bf16_variant(u, v, a_init, b_init, win: int, acq: int,
     ``mdtype="bf16"``, and not counted (no decoder launches it)."""
     if variant not in BF16_VARIANTS:
         raise ValueError(f"variant {variant}: one of {sorted(BF16_VARIANTS)}")
+    if win % 4 or wpb <= 0 or wpb % 4:
+        raise ValueError("the kernel needs win and wpb to be multiples of 4")
     return _launch("lteax_turbo_half_bf16_variant", u, v, a_init, b_init,
                    win, acq, wpb, "bf16", int(not pinpad), variant)
 
@@ -337,8 +502,6 @@ def _launch(entry: str, u, v, a_init, b_init, win: int, acq: int, wpb: int,
     u, v = staged(u), staged(v)
     check_cuda("half_iteration", u, v, dtype=dt)
     check_cuda("half_iteration", a_init, b_init)
-    if win % 4 or wpb <= 0 or wpb % 4:
-        raise ValueError("the kernel needs win and wpb to be multiples of 4")
     c, n = u.shape
     n_w = a_init.shape[1]
     dev = u.device
@@ -363,12 +526,14 @@ def _nii_post(a_nii, b_nii):
 
 def half_iteration(u, v, a_init, b_init, win: int, acq: int,
                    mdtype: str = "f32", pinpad: bool = True,
-                   nofreeze: bool = False, combine_bf16: bool = False):
+                   nofreeze: bool = False, combine_bf16: bool = False,
+                   *, fused: bool = True, unroll: int | None = None):
     """u, v (C, n); a_init/b_init (C, n_w, 8) -> (L (C, n), a_next, b_next)
     with the reference's NII convention (``half_iteration_pallas``)."""
     l, a_nii, b_nii = half_iteration_raw(u, v, a_init, b_init, win, acq,
                                          mdtype, pinpad, nofreeze,
-                                         combine_bf16)
+                                         combine_bf16, fused=fused,
+                                         unroll=unroll)
     return (l, *_nii_post(a_nii, b_nii))
 
 
@@ -417,11 +582,21 @@ def _tables(k: int, early_crc: str | None, device: torch.device):
     return out
 
 
-def layout_path(c: int, early_crc: str | None, retry_m: int) -> bool:
+def kernel_fused(fused: bool, win: int, acq: int) -> bool:
+    """Whether the reference's decode runs its fused kernels: ``fused``,
+    and an acquisition that fits the half window (``turbo_mlm.py:1218``;
+    else the unfused kernel)."""
+    return bool(fused) and acq <= win // 2
+
+
+def layout_path(c: int, early_crc: str | None, retry_m: int, *,
+                layout_glue: bool = True, fused: bool = True) -> bool:
     """Whether the reference decodes a batch of ``c`` codeblocks on its
-    layout path (``turbo_mlm.py:1300``, its default ``layout_glue``): no
-    early stop, or a compacted retry smaller than the batch."""
-    return early_crc is None or 0 < retry_m < c
+    layout path (``turbo_mlm.py:1300``): ``layout_glue``, the fused
+    kernels (:func:`kernel_fused`), and no early stop or a compacted retry
+    smaller than the batch."""
+    return (bool(layout_glue) and bool(fused)
+            and (early_crc is None or 0 < retry_m < c))
 
 
 def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
@@ -430,7 +605,9 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
                        early_crc: str | None = None, retry_m: int = 0,
                        retry_levels: int = 2, mdtype: str = "f32",
                        pinpad: bool = True, nofreeze: bool = False,
-                       combine_bf16: bool = False):
+                       combine_bf16: bool = False, fused: bool = True,
+                       layout_glue: bool = True,
+                       blane_unroll: int | None = None):
     """Batched turbo decode.  llr_d (C, 3, K+4) -> (bits (C, K) int8,
     :class:`TurboStats`).
 
@@ -457,7 +634,17 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     the bf16 combine (:func:`resolve_form`) where the reference does: in
     the full-batch iterations of its layout path, not in its compacted
     retry (``run_earlystop_l`` passes no ``combine_bf16``), its full-batch
-    early-stop loop or its natural path."""
+    early-stop loop or its natural path.  ``blane_unroll`` (the layout
+    kernel's unroll, None: the default) moves the bf16 renormalisation
+    (:func:`renorm_steps`) in the same half-iterations: the compacted
+    retry and the early-stop loop call the reference's layout kernel at
+    its default unroll.
+
+    ``fused`` False, or acq > win/2, runs the unfused kernel
+    (:func:`_half_iteration_unfused_plain`) with frozen padding whatever
+    ``pinpad`` and ``nofreeze`` say, on the natural path; ``layout_glue``
+    False takes the natural path too (``turbo_mlm.py:1218-1220``,
+    ``:1300``)."""
     stats = TurboStats()
     dev = llr_d.device
     c = llr_d.shape[0]
@@ -466,7 +653,9 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     tab = _tables(k, early_crc, dev)
     pi, inv = tab["pi"], tab["inv"]
     _, dt_e = _metric_dtypes(mdtype)
-    layout = layout_path(c, early_crc, retry_m)
+    fused = kernel_fused(fused, win, acq)
+    layout = layout_path(c, early_crc, retry_m, layout_glue=layout_glue,
+                         fused=fused)
     presum = mdtype != "f32" and layout
     if mdtype == "f32" or presum:
         llr_d = llr_d.to(dt_e)
@@ -482,12 +671,17 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         v2 = torch.cat([d2[:, :k], par_t2], dim=1)
         return (ls, ls[:, pi], v1, v2, sys_t1, sys_t2)
 
-    def make_halves(data, comb: bool = False):
+    def make_halves(data, full: bool = False):
+        """DEC1/DEC2 over a (sub)batch; ``full``: the layout path's
+        full-batch iterations, with the bf16 combine and the unroll."""
         ls_, lsi_, v1_, v2_, st1_, st2_ = data
+        comb = combine_bf16 and full
+        unroll = blane_unroll if full else None
 
         def half(u, v, a, b):
             return half_iteration(u, v, *_pin_boundaries(a, b), win, acq,
-                                  mdtype, pinpad, nofreeze, comb)
+                                  mdtype, pinpad, nofreeze, comb,
+                                  fused=fused, unroll=unroll)
 
         if presum:
             # the reference's layout path: u = static + extrinsic, and the
@@ -537,7 +731,7 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
             zero, zero, zero, zero)
 
     def one_iteration(le21, a1, b1, a2, b2):
-        dec1, dec2, ext12 = make_halves(data_full, combine_bf16 and layout)
+        dec1, dec2, ext12 = make_halves(data_full, layout)
         l1, a1n, b1n = dec1(le21, a1, b1)
         # l2 stays in DEC2's interleaved domain (CRC rows are permuted)
         l2, le21n, a2n, b2n = dec2(ext12(l1, le21), a2, b2)

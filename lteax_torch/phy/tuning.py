@@ -1,17 +1,22 @@
 """Numerics-only decoder tuning (counterpart of ``lteax.phy.tuning``).
 
-Only the knobs that change what a decode computes are fields; the TPU
-layout and scheduling knobs (tile sizes, lane folds, layout glue, planar
-boundaries) have no meaning on the GPU port.
-:meth:`DecoderTuning.from_dict` and :meth:`DecoderTuning.from_yaml` read a
-profile in the reference's keys (``configs/tuning_default.yaml``): a key
-that changes no value is accepted, a value whose numerics the port does
-not reproduce raises.  The default profile is the exact one: the
-reference's shipped values with an f32 trellis, f32 demap staging and the
-FFT in the OFDM demod (``mdtype="f32"``, ``demap_in="f32"``,
-``ofdm_dft="fft"``).  :data:`SHIPPED` is the
-reference's shipped numerics: bf16 trellis, bf16 demap staging and the
-factored OFDM DFT with bf16 operands.
+Only the knobs that change what a decode computes are fields, every one
+of them the reference's: the TPU tile and scheduling knobs (``tb``,
+``gb``, ``blane_flat``, ``struct_dematch``, ``print_iters``) have no
+meaning on the GPU port.  ``layout_glue``, ``fused``, ``blane_unroll``,
+``pallas_demap`` and the planar boundaries are fields because each
+changes a decode's numerics in the reference (its natural path's
+extrinsic order, the unfused kernel, the layout kernel's bf16
+renormalisation, the XLA demap, which fronts ``planar_int8``
+quantizes).  :meth:`DecoderTuning.from_dict` and
+:meth:`DecoderTuning.from_yaml` read a profile in the reference's keys
+(``configs/tuning_default.yaml``) and resolve every value as the
+reference's decode does; only an unknown key raises.  The default
+profile is the exact one: the reference's shipped values with an f32
+trellis, f32 demap staging and the FFT in the OFDM demod
+(``mdtype="f32"``, ``demap_in="f32"``, ``ofdm_dft="fft"``).
+:data:`SHIPPED` is the reference's shipped numerics: bf16 trellis, bf16
+demap staging and the factored OFDM DFT with bf16 operands.
 
 Of the DFT forms, only ``ofdm_dft="factored"`` changes what a decode
 computes.  ``"factored_hi"`` and ``ul_dft``'s ``"factored"`` and
@@ -99,6 +104,28 @@ class DecoderTuning:
       where the reference quantizes: a front whose de-match reads the
       planar demap output (DL and UL with an injective rate match, TM3 /
       TM4 MMSE; not HARQ, not SIC) on the reference's layout path.
+    - ``fused``: the fused kernels (the combine at the chains' meeting
+      point).  False, or ``acq`` > win/2, runs the reference's unfused
+      kernel (whole-window stores, then one combine over all states,
+      summed in the metric dtype under "bf16"), with frozen padding
+      (``pinpad`` and ``nofreeze`` off) on the natural path.
+    - ``layout_glue``: the reference's turbo layout path where it takes it
+      (no early stop, or 0 < retry_m < C).  False takes its natural path:
+      under a bf16 trellis the extrinsic subtracts twice, and neither
+      ``combine_bf16``, ``blane_unroll`` nor ``planar_int8`` applies.
+    - ``pallas_demap``: demap with the demap kernel (LLR * 1/eff, planar
+      output).  False is the reference's XLA-order front: equalise,
+      extract the PDSCH REs, ``demodulate_maxlog`` (LLR / eff),
+      descramble, round to bf16 under a bf16 trellis, ``soft_dematch``;
+      the demap kernel is not launched and ``demap_in`` and
+      ``planar_int8`` do nothing (no planes).
+    - ``blane_unroll``: the layout kernel's steps a loop body; under bf16
+      it places the renormalisation (``blane_renorm_unroll``): every step
+      at 1, every other at 2, every 4 at a multiple of 4 (the default
+      16), in the full-batch iterations of the layout path.
+    - ``ul_planar_boundary`` / ``mimo_planar_boundary``: whether
+      ``planar_int8`` quantizes the UL / MMSE MIMO front's planes (the
+      reference's planar stage boundary of that front).
     """
 
     win: int = 128
@@ -122,6 +149,12 @@ class DecoderTuning:
     nofreeze: bool = False
     combine_bf16: bool = False
     planar_int8: bool = False
+    fused: bool = True
+    layout_glue: bool = True
+    pallas_demap: bool = True
+    blane_unroll: int = 16
+    ul_planar_boundary: bool = True
+    mimo_planar_boundary: bool = True
 
     def __post_init__(self):
         if self.mdtype not in MDTYPES:
@@ -129,11 +162,17 @@ class DecoderTuning:
         if self.demap_in not in ("f32", "bf16"):
             raise ValueError(f"demap_in {self.demap_in!r}: \"f32\" or "
                              "\"bf16\"")
-        for f in ("pinpad", "nofreeze", "combine_bf16", "planar_int8"):
+        for f in ("pinpad", "nofreeze", "combine_bf16", "planar_int8",
+                  "fused", "layout_glue", "pallas_demap",
+                  "ul_planar_boundary", "mimo_planar_boundary"):
             if not isinstance(getattr(self, f), bool):
                 raise ValueError(f"{f} is a bool")
-        if self.win % 2 or not 0 < self.acq <= self.win // 2:
-            raise ValueError("need an even win and 0 < acq <= win/2")
+        if self.win % 2 or not 0 < self.acq <= self.win:
+            raise ValueError("need an even win and 0 < acq <= win (above "
+                             "win/2 the unfused kernel runs)")
+        if isinstance(self.blane_unroll, bool) or not isinstance(
+                self.blane_unroll, int) or self.blane_unroll < 1:
+            raise ValueError("blane_unroll is an int >= 1")
         if self.n_iter < 1:
             raise ValueError("n_iter must be >= 1")
         if self.retry_m_mimo < 0:
@@ -169,50 +208,43 @@ class DecoderTuning:
         """A profile in the reference's keys (``lteax.phy.tuning.
         DecoderTuning``'s fields, and the port's ``n_iter``); a key that is
         absent takes the reference's default, so ``from_dict({})`` is
-        :data:`SHIPPED`.  The knobs resolve as the reference's decode does:
-        ``planar_int8`` off its layout path (``layout_glue: false``) reads
-        the planar LLRs unquantized; a ``retry_m_dl`` / ``retry_m_mimo`` of
-        None inherits ``retry_m``.  ``tb``, ``gb``, ``print_iters``,
-        ``struct_dematch``, ``blane_flat``, ``blane_flat_mimo`` and the
-        planar boundaries change no value (``tests/torch_tuning_keys.py``
-        runs the reference both ways), nor does a ``blane_unroll`` that
-        keeps the bf16 renormalisation.  A value whose numerics the port
-        does not reproduce raises a ValueError that names its key:
-        ``pallas_demap: false`` (the XLA demap), ``fused: false`` (the
-        unfused kernel's L rounds apart from the fused one's),
-        ``layout_glue: false`` under a bf16 trellis (the natural path's
-        extrinsic rounds in another order), a ``blane_unroll`` that moves
-        the bf16 renormalisation, and a planar boundary off under
-        ``planar_int8``."""
+        :data:`SHIPPED`.  Every value resolves as the reference's decode
+        resolves it (``turbo_mlm.py:1195-1220``, ``:1300``): ``fused``
+        False or acq > win/2 is the unfused kernel with frozen padding
+        (``pinpad``, ``nofreeze`` off); the layout path needs
+        ``layout_glue`` and the fused kernel, and off it ``planar_int8``
+        reads the planes unquantized; a front whose planar boundary is off
+        is not quantized; a ``retry_m_dl`` / ``retry_m_mimo`` of None
+        inherits ``retry_m``.  A value that changes nothing resolves to the
+        reference's default: ``layout_glue`` under f32 or off the fused
+        kernel, a ``blane_unroll`` that keeps the renormalisation steps
+        (or acts nowhere), a planar boundary without ``planar_int8``.
+        ``tb``, ``gb``, ``print_iters``, ``struct_dematch``,
+        ``blane_flat`` and ``blane_flat_mimo`` change no value
+        (``tests/torch_tuning_keys.py`` runs the reference both ways).
+        Only an unknown key raises."""
         bad = sorted(set(d) - set(REFERENCE_DEFAULTS) - {"n_iter"})
         if bad:
             raise ValueError(f"unknown tuning keys: {bad}")
         r = {**REFERENCE_DEFAULTS, **d}
-        for key, ok in (
-                ("pallas_demap", r["pallas_demap"]),
-                ("fused", r["fused"]),
-                ("blane_unroll", r["mdtype"] == "f32"
-                 or _blane_renorms(r["win"], r["blane_unroll"])
-                 == _blane_renorms(r["win"], 4))):
-            if not ok:
-                raise ValueError(f"{key}: {r[key]!r} changes the decode's "
-                                 "numerics and the port has no counterpart")
-        layout = bool(r["layout_glue"])
-        if not layout and r["mdtype"] != "f32":
-            raise ValueError(f"layout_glue: false takes the reference's "
-                             f"natural path, whose {r['mdtype']} extrinsic "
-                             "rounds in another order; the port's bf16 "
-                             "decode follows the layout path")
-        int8 = bool(r["planar_int8"]) and layout
-        for key in ("ul_planar_boundary", "mimo_planar_boundary"):
-            if int8 and not r[key]:
-                raise ValueError(f"{key}: false with planar_int8 leaves that "
-                                 "front's LLRs unquantized; the port "
-                                 "quantizes every planar front")
         out = {f.name: r[f.name] for f in fields(cls)
                if f.name in REFERENCE_DEFAULTS}
+        fused = bool(r["fused"]) and r["acq"] <= r["win"] // 2
+        bf16 = r["mdtype"] != "f32"
+        layout = bool(r["layout_glue"]) and fused
+        int8 = bool(r["planar_int8"]) and layout
+        default = REFERENCE_DEFAULTS["blane_unroll"]
+        moves = (bf16 and layout and _blane_renorms(r["win"], r[
+            "blane_unroll"]) != _blane_renorms(r["win"], default))
         out.update(
+            fused=fused,
+            pinpad=bool(r["pinpad"]) and fused,
+            nofreeze=bool(r["nofreeze"]) and fused,
+            layout_glue=layout or not (bf16 and fused),
+            blane_unroll=r["blane_unroll"] if moves else default,
             planar_int8=int8,
+            ul_planar_boundary=bool(r["ul_planar_boundary"]) or not int8,
+            mimo_planar_boundary=bool(r["mimo_planar_boundary"]) or not int8,
             retry_m_dl=(r["retry_m"] if r["retry_m_dl"] is None
                         else r["retry_m_dl"]),
             retry_m_mimo=(r["retry_m"] if r["retry_m_mimo"] is None
@@ -269,15 +301,24 @@ the absent ones (``tests/test_torch_tuning_forms.py`` holds the copy equal
 to the original)."""
 
 
-def _blane_renorms(win: int, unroll: int) -> tuple:
-    """The steps of a half window after which the reference's layout kernel
-    renormalises a bf16 trellis at ``blane_unroll`` ``unroll``
-    (``_make_kernel_blane``'s ``_renorm_at``: an unroll that does not divide
-    win/2 falls back to 4 or 2)."""
+def blane_renorm_unroll(win: int, unroll: int) -> int:
+    """The layout kernel's unroll at ``blane_unroll`` ``unroll``, as
+    ``_make_kernel_blane`` resolves it: an unroll that does not divide
+    win/2 falls back to 4, or 2 when 4 does not divide it either."""
     half = win // 2
     if unroll < 1 or half % unroll:
         unroll = 4 if half % 4 == 0 else 2
-    return tuple(t for t in range(half)
+    return unroll
+
+
+def _blane_renorms(win: int, unroll: int) -> tuple:
+    """The steps of a half window after which the reference's layout kernel
+    renormalises a bf16 trellis at ``blane_unroll`` ``unroll``
+    (``_make_kernel_blane``'s ``_renorm_at``: after step t of a loop body
+    of U = :func:`blane_renorm_unroll` steps where t mod U is U - 1 or
+    3 mod 4)."""
+    unroll = blane_renorm_unroll(win, unroll)
+    return tuple(t for t in range(win // 2)
                  if (t % unroll) % 4 == 3 or t % unroll == unroll - 1)
 
 

@@ -40,8 +40,14 @@ front's transform de-precoding.  ``planar_int8`` quantizes the planar
 demap output to int8 before the de-match gather and dequantizes after it
 (:func:`quantize_planar`) where the reference does: the DL, UL and MMSE
 MIMO fronts with an injective rate match (and, in UL and MIMO, a pad
-column after the planes, the reference's planar-boundary guard), on its
-turbo layout path (:func:`lteax_torch.kernels.turbo_mlm.layout_path`).
+column after the planes, the reference's planar-boundary guard, where
+``ul_planar_boundary`` / ``mimo_planar_boundary`` keep that boundary), on
+its turbo layout path (:func:`lteax_torch.kernels.turbo_mlm.layout_path`).
+``pallas_demap`` False demaps the DL, HARQ, UL and MMSE MIMO fronts in the
+reference's XLA order (:class:`XlaDemap`: the demap kernel is not
+launched, and there are no planes to quantize); SIC's front keeps the
+demap kernel either way.  ``fused``, ``layout_glue`` and ``blane_unroll``
+reach the turbo decoder through :class:`TurboTail`.
 
 A decoder runs on the current CUDA device unless the caller names another
 device; without a CUDA device and without ``device="cpu"`` the factories
@@ -59,8 +65,8 @@ import numpy as np
 import torch
 
 from lteax_torch.kernels.demap import demap_planar, planar_sgn_np
-from lteax_torch.kernels.turbo_mlm import (TurboStats, layout_path,
-                                           turbo_decode_batch)
+from lteax_torch.kernels.turbo_mlm import (TurboStats, kernel_fused,
+                                           layout_path, turbo_decode_batch)
 from lteax_torch.phy import chest, mimo, seq
 from lteax_torch.phy.channels import pusch
 from lteax_torch.phy.channels.pdsch import (PdschGeometry, _global_rm_cycles,
@@ -70,7 +76,7 @@ from lteax_torch.phy.fec.crc import check_crc, crc_matrix, exact_f32_matmul
 from lteax_torch.phy.fec.ratematch import sum_gathers
 from lteax_torch.phy.fec.reencode import turbo_reencode_batch
 from lteax_torch.phy.grid import pdsch_flat_idx
-from lteax_torch.phy.mod import modulate_arith
+from lteax_torch.phy.mod import demodulate_maxlog, modulate_arith
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.phy.tuning import DecoderTuning
 
@@ -201,23 +207,79 @@ def _iq_to_complex(iq: torch.Tensor) -> torch.Tensor:
                          iq[..., 1].to(torch.float32))
 
 
+class XlaDemap:
+    """The reference's XLA-order demap, ``DecoderTuning.pallas_demap``
+    False (``lteax/shard/pipeline.py:265-283``, ``:390``, ``:539``): the
+    extracted symbols' max-log LLRs divided by their effective noise
+    (:func:`demodulate_maxlog`, where the demap kernel multiplies by its
+    inverse), times the descramble signs, in f32, then rounded to the LLR
+    dtype (bf16 under a bf16 trellis), and the de-match as sums of cycle
+    gathers (``pdsch.soft_dematch``'s).  The reference runs no Pallas
+    kernel here, so there is none: the demap kernel is not launched.
+
+    ``sgn`` (..., G) holds the descramble signs (one row a codeword under
+    2x2 MIMO), ``inv`` the de-match map ``_global_rm_cycles(geom)``."""
+
+    def __init__(self, scheme: str, sgn: np.ndarray, inv: np.ndarray,
+                 d_len: int, llr_dtype: torch.dtype, device: torch.device):
+        self.scheme, self.d_len, self.llr_dtype = scheme, d_len, llr_dtype
+        self.sgn = torch.as_tensor(np.asarray(sgn), dtype=torch.float32,
+                                   device=device)
+        self.inv = _plan(inv, device)
+
+    def llrs(self, x: torch.Tensor, eff: torch.Tensor,
+             q: int | None = None) -> torch.Tensor:
+        """Symbols (B, M) complex and effective noise (B, M) -> descrambled
+        LLRs (B, G) in the LLR dtype (``q``: codeword q's signs)."""
+        sgn = self.sgn if q is None else self.sgn[q]
+        return (demodulate_maxlog(x, self.scheme, eff) * sgn).to(
+            self.llr_dtype)
+
+    def dematch(self, llr: torch.Tensor) -> torch.Tensor:
+        """Codeword LLRs (B', G) -> (B'*C, 3, K+4)."""
+        ext = torch.nn.functional.pad(llr, (0, 1))      # the zero slot
+        return sum_gathers(ext, self.inv).reshape(-1, 3, self.d_len)
+
+
+def xla_demap(tuning: DecoderTuning, scheme: str, sgn: np.ndarray,
+              geom: PdschGeometry, device: torch.device) -> XlaDemap | None:
+    """The front's :class:`XlaDemap` under ``pallas_demap`` False, else
+    None (the demap kernel)."""
+    if tuning.pallas_demap:
+        return None
+    inv = _global_rm_cycles(geom)
+    return XlaDemap(scheme, sgn, inv, geom.k + 4, llr_dtypes(tuning, inv)[1],
+                    device)
+
+
 class DlFront:
-    """IQ of one PDSCH transmission -> de-matched LLRs (B*C, 3, K+4)."""
+    """IQ of one PDSCH transmission -> de-matched LLRs (B*C, 3, K+4).
+    With ``xla`` (:class:`XlaDemap`) and ``re_idx`` the PDSCH REs are
+    extracted and demapped in the reference's XLA order; the planes do
+    not exist then."""
 
     def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
                  scheme: str, k: int, sgn: np.ndarray, grid_inv: np.ndarray,
                  device: torch.device,
                  dtypes: tuple = (torch.float32, torch.float32),
-                 dft: str = "fft"):
+                 dft: str = "fft", xla: XlaDemap | None = None,
+                 re_idx: np.ndarray | None = None):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
         self.scheme, self.d_len = scheme, k + 4
         self.sgn = torch.as_tensor(sgn, dtype=torch.float32, device=device)
         self.grid_inv = _plan(grid_inv, device)
         self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
         self.dft = dft                              # ``tuning.ofdm_dft``
+        if (xla is None) != (re_idx is None):
+            raise ValueError("the XLA-order demap needs the PDSCH REs")
+        self.xla = xla
+        self.re_idx = (None if re_idx is None else
+                       torch.as_tensor(np.asarray(re_idx), dtype=torch.int64,
+                                       device=device))
 
-    def equalize(self, samples_iq: torch.Tensor):
-        """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
+    def _equalized(self, samples_iq: torch.Tensor):
+        """IQ (B, n_samps, 2) -> the full grid's equalised symbols x, |h|^2
+        (B, n_sym*n_sc) and the noise (B, 1)."""
         cfg = self.cfg
         samples = _iq_to_complex(samples_iq)
         grid = samples_to_subframe(samples, cfg, self.dft)
@@ -229,18 +291,34 @@ class DlFront:
         p = hf.abs() ** 2
         x = grid.reshape(bsz, -1) * torch.conj(hf) / (p + nv)
         x = x / torch.clamp_min(p / (p + nv), 1e-12)
+        return x, p, nv
+
+    def equalize(self, samples_iq: torch.Tensor):
+        """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
+        x, p, nv = self._equalized(samples_iq)
         return x.real.contiguous(), x.imag.contiguous(), (p / nv).contiguous()
 
     def planes(self, samples_iq: torch.Tensor) -> torch.Tensor:
         """IQ -> the demap kernel's planar LLRs (B, qm, npad)."""
+        if self.xla is not None:
+            raise ValueError("the XLA-order demap has no planes")
         xr, xi, inv_nv = (x.to(self.in_dtype)
                           for x in self.equalize(samples_iq))
         return demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
                             self.llr_dtype)
 
+    def xla_llrs(self, samples_iq: torch.Tensor) -> torch.Tensor:
+        """IQ -> the XLA-order demap's descrambled LLRs (B, G): the
+        equalised PDSCH REs and nv / |h|^2 (``chest.equalize_siso``)."""
+        x, p, nv = self._equalized(samples_iq)
+        eff = nv / torch.clamp_min(p, 1e-12)
+        return self.xla.llrs(x[:, self.re_idx], eff[:, self.re_idx])
+
     def __call__(self, samples_iq: torch.Tensor,
                  int8_carry: torch.dtype | None = None) -> torch.Tensor:
         """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
+        if self.xla is not None:
+            return self.xla.dematch(self.xla_llrs(samples_iq))
         return _gather_dematch(self.planes(samples_iq), self.grid_inv,
                                self.d_len, int8_carry)
 
@@ -256,14 +334,16 @@ class PuschFront:
     ``noise_var=None`` estimates the noise per subframe from the DM-RS
     residual (the two pilots' raw LS difference is noise only while the
     channel holds still over a subframe); a float pins a static prior.
-    ``dft`` is the IDFT's form (``tuning.ul_dft``)."""
+    ``dft`` is the IDFT's form (``tuning.ul_dft``); ``xla``
+    (:class:`XlaDemap`) demaps in the reference's XLA order, then
+    de-interleaves and de-matches the codeword."""
 
     def __init__(self, scheme: str, k: int, ref0: np.ndarray,
                  ref1: np.ndarray, w: np.ndarray, taps: np.ndarray,
                  sgn: np.ndarray, ul_inv: np.ndarray,
                  noise_var: float | None, device: torch.device,
                  dtypes: tuple = (torch.float32, torch.float32),
-                 dft: str = "fft"):
+                 dft: str = "fft", xla: XlaDemap | None = None):
         t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
                                           device=device)
         self.scheme, self.d_len, self.noise_var = scheme, k + 4, noise_var
@@ -274,9 +354,11 @@ class PuschFront:
         self.data_syms = t(pusch.DATA_SYMS, torch.int64)
         self.in_dtype, self.llr_dtype = dtypes      # :func:`llr_dtypes`
         self.dft = dft
+        self.xla = xla
 
-    def equalize(self, grid_iq: torch.Tensor):
-        """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
+    def _equalized(self, grid_iq: torch.Tensor):
+        """-> time-domain symbols xt (B, 12, m_sc) and the effective noise
+        of each SC-FDMA symbol (B, 12, 1)."""
         grid = _iq_to_complex(grid_iq)
         bsz = grid.shape[0]
         ls0 = grid[:, pusch.DMRS_SYMS[0]] * self.ref0   # raw LS at the pilots
@@ -298,21 +380,42 @@ class PuschFront:
         xt = pusch.ul_dft(xf, inverse=True, mode=self.dft)
         # post-IDFT noise: the mean over each symbol's subcarriers
         eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1, keepdim=True)
-        inv_eff = (1.0 / eff).expand_as(p)
+        return xt, eff
+
+    def equalize(self, grid_iq: torch.Tensor):
+        """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
+        xt, eff = self._equalized(grid_iq)
+        bsz = xt.shape[0]
+        inv_eff = (1.0 / eff).expand_as(xt)
         return (xt.real.reshape(bsz, -1).contiguous(),
                 xt.imag.reshape(bsz, -1).contiguous(),
                 inv_eff.reshape(bsz, -1).contiguous())
 
     def planes(self, grid_iq: torch.Tensor) -> torch.Tensor:
         """Grids -> the demap kernel's planar LLRs (B, qm, npad)."""
+        if self.xla is not None:
+            raise ValueError("the XLA-order demap has no planes")
         xr, xi, inv_eff = (x.to(self.in_dtype)
                            for x in self.equalize(grid_iq))
         return demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
                             self.llr_dtype)
 
+    def xla_llrs(self, grid_iq: torch.Tensor) -> torch.Tensor:
+        """Grids -> the XLA-order demap's LLRs (B, G), de-interleaved: the
+        data-only channel interleaver is a (12, R, qm) -> (R, 12, qm)
+        transpose (36.212 §5.2.2.8)."""
+        xt, eff = self._equalized(grid_iq)
+        bsz = xt.shape[0]
+        llr = self.xla.llrs(xt.reshape(bsz, -1),
+                            eff.expand_as(xt).reshape(bsz, -1))
+        qm = llr.shape[1] // xt[0].numel()
+        return llr.reshape(bsz, 12, -1, qm).transpose(1, 2).reshape(bsz, -1)
+
     def __call__(self, grid_iq: torch.Tensor,
                  int8_carry: torch.dtype | None = None) -> torch.Tensor:
         """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
+        if self.xla is not None:
+            return self.xla.dematch(self.xla_llrs(grid_iq))
         return _gather_dematch(self.planes(grid_iq), self.ul_inv,
                                self.d_len, int8_carry)
 
@@ -348,7 +451,8 @@ class TurboTail:
             ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
             retry_m=self.retry_m, retry_levels=t.retry_levels,
             mdtype=t.mdtype, pinpad=t.pinpad, nofreeze=t.nofreeze,
-            combine_bf16=t.combine_bf16)
+            combine_bf16=t.combine_bf16, fused=t.fused,
+            layout_glue=t.layout_glue, blane_unroll=t.blane_unroll)
         self.last_stats = stats
         bits = cb_bits.reshape(-1, info.c, geom.k)
         if info.cb_crc:
@@ -371,7 +475,9 @@ class TurboTail:
         None."""
         t, info = self.tuning, self.geom.info
         if not (t.planar_int8 and layout_path(
-                n_rows * info.c, t.early_crc(info.cb_crc), self.retry_m)):
+                n_rows * info.c, t.early_crc(info.cb_crc), self.retry_m,
+                layout_glue=t.layout_glue,
+                fused=kernel_fused(t.fused, t.win, t.acq))):
             return None
         return torch.bfloat16 if t.mdtype == "bf16" else torch.float32
 
@@ -419,6 +525,24 @@ class _Decoder:
         return self.turbo(self.front(x))
 
 
+def _dl_front(cfg: PhyConfig, n_cell_id: int, subframe: int,
+              geom: PdschGeometry, scheme: str, sgn: np.ndarray,
+              grid_inv: np.ndarray, tuning: DecoderTuning,
+              device: torch.device, re_idx: np.ndarray | None) -> DlFront:
+    """A :class:`DlFront` under ``tuning``: the demap kernel, or under
+    ``pallas_demap`` False the XLA-order demap of the REs ``re_idx``, whose
+    descramble signs the sign planes hold at their columns."""
+    xla = None
+    if not tuning.pallas_demap:
+        if re_idx is None:
+            raise ValueError("pallas_demap False needs the PDSCH REs")
+        xla = xla_demap(tuning, scheme, np.asarray(sgn)[
+            :, np.asarray(re_idx)].T.reshape(-1), geom, device)
+    return DlFront(cfg, n_cell_id, subframe, scheme, geom.k, sgn, grid_inv,
+                   device, llr_dtypes(tuning, grid_inv), tuning.ofdm_dft,
+                   xla, None if xla is None else re_idx)
+
+
 class BatchDecoder(_Decoder):
     """DL-SCH batch decoder on one device.  Build with
     :func:`make_batch_decoder`; call on (B, n_samps_subframe, 2) IQ."""
@@ -429,22 +553,23 @@ class BatchDecoder(_Decoder):
         self.dl_front = dl_front
         # the reference's DL front is planar where its demap kernel runs:
         # an injective rate match
-        self.planar_int8 = dl_front.grid_inv.shape[0] == 1
+        self.planar_int8 = (dl_front.grid_inv.shape[0] == 1
+                            and dl_front.xla is None)
 
     @classmethod
     def from_plans(cls, cfg: PhyConfig, n_cell_id: int, subframe: int,
                    geom: PdschGeometry, scheme: str, sgn: np.ndarray,
                    grid_inv: np.ndarray, m24a: np.ndarray,
                    m24b: np.ndarray | None, n_iter: int = 6,
-                   tuning: DecoderTuning | None = None,
-                   device=None) -> "BatchDecoder":
+                   tuning: DecoderTuning | None = None, device=None,
+                   re_idx: np.ndarray | None = None) -> "BatchDecoder":
         """Build from plan arrays given as numpy (:func:`dl_demap_plans`'s
-        sign planes and de-match map, the CRC matrices)."""
+        sign planes and de-match map, the CRC matrices); under
+        ``pallas_demap`` False also the PDSCH REs ``re_idx``."""
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
-        return cls(DlFront(cfg, n_cell_id, subframe, scheme, geom.k, sgn,
-                           grid_inv, device, llr_dtypes(tuning, grid_inv),
-                           tuning.ofdm_dft),
+        return cls(_dl_front(cfg, n_cell_id, subframe, geom, scheme, sgn,
+                             grid_inv, tuning, device, re_idx),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m_dl, m24a,
                              m24b, device), device)
 
@@ -476,19 +601,27 @@ class HarqBatchDecoder(_Decoder):
                    scheme: str, sgns: list[np.ndarray],
                    grid_invs: list[np.ndarray], m24a: np.ndarray,
                    m24b: np.ndarray | None, n_iter: int = 6,
-                   tuning: DecoderTuning | None = None,
-                   device=None) -> "HarqBatchDecoder":
+                   tuning: DecoderTuning | None = None, device=None,
+                   re_idxs: list | None = None,
+                   geoms: tuple | None = None) -> "HarqBatchDecoder":
         """Build from one (sign planes, de-match map) pair per transmission
         and the CRC matrices, all numpy; ``geom`` is the first
-        transmission's."""
+        transmission's.  Under ``pallas_demap`` False also each
+        transmission's PDSCH REs ``re_idxs`` and geometry ``geoms``."""
         if not len(subframes) == len(sgns) == len(grid_invs):
             raise ValueError("one subframe, sign plane set and de-match map "
                              "per transmission")
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
-        fronts = [DlFront(cfg, n_cell_id, sf, scheme, geom.k, s, g, device,
-                          llr_dtypes(tuning, g), tuning.ofdm_dft)
-                  for sf, s, g in zip(subframes, sgns, grid_invs)]
+        n = len(subframes)
+        if not tuning.pallas_demap and (re_idxs is None or geoms is None):
+            raise ValueError("pallas_demap False needs each transmission's "
+                             "PDSCH REs and geometry")
+        fronts = [_dl_front(cfg, n_cell_id, sf, g_i, scheme, s, g, tuning,
+                            device, r)
+                  for sf, s, g, r, g_i in zip(
+                      subframes, sgns, grid_invs, re_idxs or [None] * n,
+                      geoms or [geom] * n)]
         return cls(fronts, TurboTail(geom, n_iter, tuning, tuning.retry_m_dl,
                                      m24a, m24b, device), device)
 
@@ -511,10 +644,13 @@ class PuschBatchDecoder(_Decoder):
                  device: torch.device):
         super().__init__(tail, device)
         self.ul_front = ul_front
-        # the reference's UL planar boundary: an injective rate match and a
-        # pad column after the planes (npad > 12 * m_sc)
+        # the reference's UL planar boundary, where its tuning keeps it: an
+        # injective rate match and a pad column after the planes (npad >
+        # 12 * m_sc), the demap kernel's planes
         self.planar_int8 = (ul_front.ul_inv.shape[0] == 1 and
-                            ul_front.sgn.shape[1] > 12 * ul_front.m_sc)
+                            ul_front.sgn.shape[1] > 12 * ul_front.m_sc
+                            and ul_front.xla is None
+                            and tail.tuning.ul_planar_boundary)
 
     @classmethod
     def from_plans(cls, alloc: pusch.PuschAlloc, ref0: np.ndarray,
@@ -529,9 +665,12 @@ class PuschBatchDecoder(_Decoder):
         device = _resolve_device(device)
         tuning = tuning or DecoderTuning()
         geom = alloc.geom
+        # the codeword's descramble signs, the planes' first G / qm columns
+        xla = xla_demap(tuning, alloc.scheme, np.asarray(sgn)[
+            :, :geom.g // alloc.qm].T.reshape(-1), geom, device)
         return cls(PuschFront(alloc.scheme, geom.k, ref0, ref1, w, taps, sgn,
                               ul_inv, noise_var, device,
-                              llr_dtypes(tuning, ul_inv), tuning.ul_dft),
+                              llr_dtypes(tuning, ul_inv), tuning.ul_dft, xla),
                    TurboTail(geom, n_iter, tuning, tuning.retry_m, m24a,
                              m24b, device), device)
 
@@ -555,7 +694,7 @@ def make_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
         cfg, re_idx, geom, seq.pdsch_c_init(rnti, subframe, n_cell_id))
     return BatchDecoder.from_plans(cfg, n_cell_id, subframe, geom, scheme,
                                    sgn, grid_inv, *_crc_plans(geom), n_iter,
-                                   tuning, device)
+                                   tuning, device, re_idx)
 
 
 def make_batch_harq_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
@@ -578,12 +717,14 @@ def make_batch_harq_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,
             len({g.k for g in geoms}) != 1:
         raise ValueError("HARQ combining needs >= 2 transmissions of one TB "
                          "geometry, with one subframe each")
-    plans = [dl_demap_plans(cfg, pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, sf),
-                            g, seq.pdsch_c_init(rnti, sf, n_cell_id))
-             for sf, g in zip(subframes, geoms)]
+    re_idxs = [pdsch_flat_idx(cfg, n_cell_id, cfi, prbs, sf)
+               for sf in subframes]
+    plans = [dl_demap_plans(cfg, r, g, seq.pdsch_c_init(rnti, sf, n_cell_id))
+             for r, sf, g in zip(re_idxs, subframes, geoms)]
     return HarqBatchDecoder.from_plans(
         cfg, n_cell_id, subframes, geoms[0], scheme, [p[0] for p in plans],
-        [p[1] for p in plans], *_crc_plans(geoms[0]), n_iter, tuning, device)
+        [p[1] for p in plans], *_crc_plans(geoms[0]), n_iter, tuning, device,
+        re_idxs, geoms)
 
 
 def make_pusch_batch_decoder(alloc: pusch.PuschAlloc, rnti: int,
@@ -639,7 +780,8 @@ class MimoFront:
     of the static prior ``chest_nv``); ``sgn`` (2, qm, npad) holds the
     codewords' planar descramble signs, ``rm_inv`` the de-match map
     (:func:`rm_inv_planar`) and ``dft`` the OFDM demod's DFT
-    (``tuning.ofdm_dft``)."""
+    (``tuning.ofdm_dft``).  ``xla`` (:class:`XlaDemap`, MMSE only)
+    demaps both codewords in the reference's XLA order."""
 
     def __init__(self, cfg: PhyConfig, n_cell_id: int, subframe: int,
                  scheme: str, geom: PdschGeometry, tm: int, cb_index: int,
@@ -647,8 +789,9 @@ class MimoFront:
                  chest_kind: str, denoise: bool, chest_nv: float,
                  device: torch.device,
                  dtypes: tuple = (torch.float32, torch.float32),
-                 dft: str = "fft"):
+                 dft: str = "fft", xla: XlaDemap | None = None):
         self.cfg, self.n_cell_id, self.subframe = cfg, n_cell_id, subframe
+        self.xla = xla
         self.scheme, self.d_len = scheme, geom.k + 4
         self.tm, self.cb_index = tm, cb_index
         self.chest_kind, self.denoise, self.chest_nv = (chest_kind, denoise,
@@ -706,8 +849,17 @@ class MimoFront:
     def planes(self, batch_iq: torch.Tensor) -> torch.Tensor:
         """-> both codewords' planar LLRs (2B, qm, npad), b-major in
         (subframe, codeword)."""
+        if self.xla is not None:
+            raise ValueError("the XLA-order demap has no planes")
         _, _, _, x, eff = self.equalize(batch_iq)
         return torch.stack([self.demap(x[:, q], eff[:, q], q)
+                            for q in range(2)], dim=1).flatten(0, 1)
+
+    def xla_llrs(self, batch_iq: torch.Tensor) -> torch.Tensor:
+        """-> both codewords' XLA-order LLRs (2B, G), b-major in
+        (subframe, codeword)."""
+        _, _, _, x, eff = self.equalize(batch_iq)
+        return torch.stack([self.xla.llrs(x[:, q], eff[:, q], q)
                             for q in range(2)], dim=1).flatten(0, 1)
 
     def __call__(self, batch_iq: torch.Tensor,
@@ -715,6 +867,8 @@ class MimoFront:
         """-> (2B*C, 3, K+4) de-matched LLRs, b-major in (subframe,
         codeword); ``int8_carry`` quantizes both codewords' planes with
         one scale."""
+        if self.xla is not None:
+            return self.xla.dematch(self.xla_llrs(batch_iq))
         return self.dematch(self.planes(batch_iq), int8_carry)
 
 
@@ -728,11 +882,13 @@ class MimoBatchDecoder(_Decoder):
                  device: torch.device):
         super().__init__(tail, device)
         self.mimo_front = mimo_front
-        # the reference's MIMO planar boundary: an injective rate match and
-        # a pad column after the planes (npad > G / qm)
+        # the reference's MIMO planar boundary, where its tuning keeps it:
+        # an injective rate match and a pad column after the planes (npad >
+        # G / qm), the demap kernel's planes
         self.planar_int8 = (mimo_front.rm_inv.shape[0] == 1 and
                             mimo_front.sgn.shape[-1] > tail.geom.g //
-                            tail.geom.qm)
+                            tail.geom.qm and mimo_front.xla is None
+                            and tail.tuning.mimo_planar_boundary)
 
     def front(self, batch_iq: torch.Tensor) -> torch.Tensor:
         # a row a (subframe, codeword)
@@ -839,12 +995,16 @@ def _mimo_front(cfg: PhyConfig, n_cell_id: int, cfi: int,
                                                    q), geom.g, geom.qm, npad)
                     for q in range(2)])
     rm_inv = rm_inv_planar(geom, npad)
-    # the reference's SIC front demaps in f32 XLA (no staging)
+    # the reference's SIC front demaps in f32 XLA (no staging); the port's
+    # with the demap kernel, whatever pallas_demap says
+    xla = None if sic else xla_demap(
+        tuning, scheme, sgn[:, :, :geom.g // geom.qm].transpose(0, 2, 1)
+        .reshape(2, -1), geom, device)
     return MimoFront(cfg, n_cell_id, subframe, scheme, geom, tm, cb_index,
                      re_idx, sgn, rm_inv, chest_kind, tuning.mimo_denoise,
                      tuning.mimo_chest_nv, device,
                      llr_dtypes(tuning, rm_inv, kernel_front=not sic),
-                     tuning.ofdm_dft)
+                     tuning.ofdm_dft, xla)
 
 
 def make_mimo_batch_decoder(cfg: PhyConfig, n_cell_id: int, cfi: int,

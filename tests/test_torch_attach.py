@@ -28,12 +28,21 @@ from lteax_torch.apps import attach_sim, rrc_attach_sim
 from lteax_torch.io import pcap
 from lteax_torch.phy.channels import pdsch
 from lteax_torch.phy.mod import demodulate_maxlog
+from torch_compile_cache import compile_once
 
 NOISE = 10 ** (-1.2)          # the simulators' 12 dB
 LOUD = 10 ** 0.3              # -3 dB: every block fails
 # (link, TBS, noise, seed)
 CASES = [("dl", 256, NOISE, 1), ("dl", 1032, NOISE, 2), ("ul", 256, NOISE, 3),
          ("ul", 1032, NOISE, 4), ("dl", 1032, LOUD, 5), ("ul", 1032, LOUD, 6)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_once():
+    """The reference's eager code compiles each program once
+    (``torch_compile_cache``)."""
+    with compile_once():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -134,6 +134,74 @@ def test_turbo_kernel_knob_forms_match_plain(dev, mdtype, pinpad, nofreeze,
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("mdtype", ["f32", "bf16", "bf16_f32store"])
+@pytest.mark.parametrize("c,k,win,acq", [
+    (37, 40, 128, 16), (37, 1152, 128, 16), (38, 5824, 128, 16),
+    (37, 1024, 36, 16),      # win 36: renormalised every 4, over the window
+    (37, 1152, 128, 96),     # acq > win/2: the unfused kernel's own range
+    (37, 1024, 34, 34),      # win not a multiple of 4, acq = win
+    (1, 224, 32, 16), (3, 5824, 128, 128)])
+def test_turbo_unfused_kernel_matches_plain(dev, mdtype, c, k, win, acq):
+    """The unfused kernel (the reference's fused=False) bit for bit in each
+    mdtype, counted under its own form, and its wrapper's refusals."""
+    n = k + 3
+    n_w = -(-n // win)
+    rng = np.random.default_rng(k + win + acq)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u = t(rng.standard_normal((c, n)) * 6)
+    v = t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, n_w, 8))),
+                                t(rng.standard_normal((c, n_w, 8))))
+    form = mdtype + "_unfused"
+    before = tm.LAUNCHES, dict(tm.FORM_LAUNCHES)
+    got = tm.half_iteration_raw(u, v, a0, b0, win, acq, mdtype, True, True,
+                                True, fused=False)
+    after = dict(before[1])
+    after[form] += 1
+    assert (tm.LAUNCHES, tm.FORM_LAUNCHES) == (before[0], after)
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, mdtype,
+                                  fused=False)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError):
+        tm.half_iteration_raw(u, v, a0, b0, win, win + 2, mdtype,
+                              fused=False)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 3, 6])
+@pytest.mark.parametrize("pad,combine_bf16", [
+    ("pin", False), ("freeze", False), ("nofreeze", False), ("pin", True),
+    ("freeze", True)])
+@pytest.mark.parametrize("c,k,win,acq", [
+    (37, 1152, 128, 16), (38, 5824, 128, 16), (37, 1024, 36, 16),
+    (1, 224, 32, 16), (37, 1026, 128, 16)])
+def test_turbo_bf16_renorm_unroll_matches_plain(dev, unroll, pad,
+                                                combine_bf16, c, k, win, acq):
+    """The bf16 kernel with the layout kernel's renormalisation at
+    ``blane_unroll`` 1, 2, 3 and 6, bit for bit, counted under its
+    ``_u<U>`` form where the unroll moves the renormalisation and under the
+    default form where it does not (2 at win 36, 6 at win 128)."""
+    n = k + 3
+    n_w = -(-n // win)
+    rng = np.random.default_rng(k + unroll)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    u = t(rng.standard_normal((c, n)) * 6)
+    v = t(rng.standard_normal((c, n)) * 6)
+    a0, b0 = tm._pin_boundaries(t(rng.standard_normal((c, n_w, 8))),
+                                t(rng.standard_normal((c, n_w, 8))))
+    flags = ("bf16", pad == "pin", pad == "nofreeze", combine_bf16)
+    ru = tm.renorm_unroll("bf16", win, unroll)
+    form = tm._form("bf16", *tm.resolve_form(*flags), unroll=ru)
+    before = tm.FORM_LAUNCHES.get(form, 0)
+    got = tm.half_iteration_raw(u, v, a0, b0, win, acq, *flags,
+                                unroll=unroll)
+    assert tm.FORM_LAUNCHES[form] == before + 1
+    ref = tm.half_iteration_plain(u, v, a0, b0, win, acq, *flags,
+                                  unroll=unroll)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("variant", sorted(tm.BF16_VARIANTS))
 @pytest.mark.parametrize("pinpad", [True, False])
 @pytest.mark.parametrize("c,k,win,acq", [(37, 1152, 128, 16),

@@ -42,6 +42,7 @@ from lteax_torch.stack.mac_sched import CQI_TO_MCS
 from lteax_torch.stack.rrc_dedicated import MeasResultEutra
 from lteax_torch.stack.rrc_proc import EnbRrc, UeRrc
 from lteax_torch.stack.users import Hss, UserManager
+from torch_compile_cache import compile_once
 
 K1 = bytes(range(32))
 K2 = bytes(range(1, 33))
@@ -50,6 +51,14 @@ UL_TOL = 1e-4
 CPU = {"device": "cpu"}
 PKGS = {"ref": (ref_sim, RefGenConfig, ref_pdcch, {}),
         "port": (port_sim, GenConfig, port_pdcch, CPU)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_once():
+    """The reference's eager receivers compile each program once
+    (``torch_compile_cache``)."""
+    with compile_once():
+        yield
 
 
 @pytest.fixture(scope="module")

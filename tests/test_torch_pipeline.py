@@ -69,7 +69,7 @@ def test_decoder_rejects_iq_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [dict(mdtype="f16"), dict(demap_in="int8"),
-                                dict(acq=100), dict(win=127)])
+                                dict(acq=130), dict(win=127)])
 def test_tuning_rejects_unported_numerics(kw):
     with pytest.raises((NotImplementedError, ValueError)):
         DecoderTuning(**kw)
@@ -77,9 +77,10 @@ def test_tuning_rejects_unported_numerics(kw):
 
 @pytest.mark.parametrize("kw", [dict(mdtype="bf16"),
                                 dict(mdtype="bf16_f32store"),
-                                dict(pinpad=False)])
+                                dict(pinpad=False), dict(acq=100)])
 def test_tuning_accepts_reference_numerics(kw):
     """The reference's trellis forms construct (they raised until the bf16
-    trellis and the freeze were ported)."""
+    trellis and the freeze were ported; acq > win/2, the unfused kernel's,
+    until it was)."""
     t = DecoderTuning(**kw)
     assert all(getattr(t, k) == v for k, v in kw.items())

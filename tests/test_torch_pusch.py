@@ -11,6 +11,8 @@ multiple of 128, so its planes have no pad column and the zero slot must be
 the appended column.  The port's UL signal generator gives the reference
 encoder's grids to float tolerance."""
 
+from functools import lru_cache
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,11 +106,19 @@ def test_front_with_static_noise_prior():
                                atol=1e-5 * np.abs(ref).max())
 
 
+@lru_cache(maxsize=None)
+def _ref_decoder(n_prb, qm, tbs, sf, cid, rnti):
+    """The reference's decoder of a geometry (jitted in interpret mode),
+    built once: the retry cases share its compile."""
+    alloc_r = pusch_ref.PuschAlloc(n_prb=n_prb, rb_start=0, mcs_tbs=tbs,
+                                   qm=qm)
+    return make_ref(alloc_r, rnti, sf, cid, n_iter=6,
+                    tuning=_ref_tuning(print_iters=True), interpret=True)
+
+
 def _decode_both(case):
     cell, alloc_r, iq, tb = _cell(case)
-    ref = make_ref(alloc_r, cell.rnti, cell.subframe, cell.n_cell_id,
-                   n_iter=6, tuning=_ref_tuning(print_iters=True),
-                   interpret=True)
+    ref = _ref_decoder(*case[:6])
     port = make_pusch_batch_decoder(
         *cell.decoder_args(), n_iter=6,
         tuning=DecoderTuning(retry_m=RETRY_M), device="cpu")

@@ -37,9 +37,18 @@ from lteax_torch.phy.grid import (crs_flat_idx, pbch_flat_idx, pss_sym,
 from lteax_torch.shard.scanner import batched_prescan
 from lteax_torch.sim import cell_gen
 from lteax_torch.sim.channel import awgn
+from torch_compile_cache import compile_once
 
 CFG, CFG_R = PhyConfig(n_rb_dl=6), RefPhyConfig(n_rb_dl=6)
 INT_FIELDS = ("n_cell_id", "n_id_1", "n_id_2", "frame_start", "n_ant", "sfn")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_once():
+    """The reference's eager code compiles each program once
+    (``torch_compile_cache``)."""
+    with compile_once():
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -16,9 +16,18 @@ from lteax.apps import file_gen
 from torch_si_compare import (N_RB, assert_same_candidates, assert_same_cfi,
                               assert_same_report, assert_same_si_decodes,
                               scan_both, subframe)
+from torch_compile_cache import compile_once
 
 SI_RNTI, P_RNTI = 0xFFFF, 0xFFFE
 TMSI = (0x1234567, 0x0200000042)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compile_once():
+    """The reference's eager code compiles each program once
+    (``torch_compile_cache``)."""
+    with compile_once():
+        yield
 
 
 @pytest.fixture(scope="module")

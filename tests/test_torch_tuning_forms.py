@@ -25,8 +25,9 @@ reference in interpret mode: ``nofreeze``, ``combine_bf16`` and
   planes, bit for bit.
 - The profile: the port's YAML reader against PyYAML on the shipped
   profile, ``from_yaml`` and ``from_dict`` of the reference's
-  ``to_dict()`` equal to ``SHIPPED``, each raising key, the reference's
-  defaults and fields held equal to the port's copy.
+  ``to_dict()`` equal to ``SHIPPED``, every reference value resolved to
+  the port's profile and an unknown key raising, the reference's defaults
+  and fields held equal to the port's copy.
 
 Torch runs on one thread; the reference runs at K <= 640, C <= 6, 6 PRB,
 B <= 2, three iterations (six at the TM3 cell).  Its cost is compiles: a
@@ -227,9 +228,9 @@ def test_decoder_passes_the_knobs_where_the_reference_does(
     seen = []
     real = tm.half_iteration
 
-    def spy(u, *args):
+    def spy(u, *args, **kw):
         seen.append((u.shape[0], *args[-2:]))     # rows, nofreeze, combine
-        return real(u, *args)
+        return real(u, *args, **kw)
 
     monkeypatch.setattr(tm, "half_iteration", spy)
     llr, _ = _decode_llrs()
@@ -445,7 +446,7 @@ def test_reference_defaults_copy():
 
 
 # (reference keys, the port's profile, or None where from_dict raises and
-# names the first key)
+# names the first key: an unknown key only)
 PROFILE_CASES = [
     ({"tb": 8, "gb": 2, "print_iters": True, "blane_flat": False,
       "blane_flat_mimo": False, "struct_dematch": True, "blane_unroll": 8},
@@ -459,26 +460,87 @@ PROFILE_CASES = [
     ({"retry_m": 32, "retry_m_dl": None, "retry_m_mimo": None},
      dataclasses.replace(SHIPPED, retry_m=32, retry_m_dl=32,
                          retry_m_mimo=32)),
-    ({"pallas_demap": False}, None),
-    ({"fused": False}, None),
-    ({"fused": False, "mdtype": "f32"}, None),
-    ({"layout_glue": False}, None),
-    ({"layout_glue": False, "mdtype": "bf16_f32store"}, None),
-    ({"blane_unroll": 2}, None),
-    ({"blane_unroll": 1, "win": 36}, None),
-    ({"planar_int8": True, "ul_planar_boundary": False}, None),
-    ({"planar_int8": True, "mimo_planar_boundary": False}, None),
+    ({"pallas_demap": False},
+     dataclasses.replace(SHIPPED, pallas_demap=False)),
+    # the unfused kernel freezes: no pin
+    ({"fused": False}, dataclasses.replace(SHIPPED, fused=False,
+                                           pinpad=False)),
+    ({"fused": False, "mdtype": "f32"},
+     dataclasses.replace(SHIPPED, mdtype="f32", fused=False, pinpad=False)),
+    ({"layout_glue": False},
+     dataclasses.replace(SHIPPED, layout_glue=False)),
+    ({"layout_glue": False, "mdtype": "bf16_f32store"},
+     dataclasses.replace(SHIPPED, mdtype="bf16_f32store",
+                         layout_glue=False)),
+    ({"blane_unroll": 2}, dataclasses.replace(SHIPPED, blane_unroll=2)),
+    ({"blane_unroll": 1, "win": 36},
+     dataclasses.replace(SHIPPED, win=36, blane_unroll=1)),
+    ({"planar_int8": True, "ul_planar_boundary": False},
+     dataclasses.replace(SHIPPED, planar_int8=True,
+                         ul_planar_boundary=False)),
+    ({"planar_int8": True, "mimo_planar_boundary": False},
+     dataclasses.replace(SHIPPED, planar_int8=True,
+                         mimo_planar_boundary=False)),
     ({"nope": 1}, None),
+    # acq > win/2: the unfused kernel, whatever fused says
+    ({"acq": 96}, dataclasses.replace(SHIPPED, acq=96, fused=False,
+                                      pinpad=False)),
 ]
+# the cases' ids as they were while rows 5-13 raised (the names kept)
+PROFILE_IDS = ([f"keys{i}-want{i}" for i in range(5)]
+               + [f"keys{i}-None" for i in range(5, 15)] + ["keys15-want15"])
 
 
-@pytest.mark.parametrize("keys,want", PROFILE_CASES)
+@pytest.mark.parametrize("keys,want", PROFILE_CASES, ids=PROFILE_IDS)
 def test_from_dict_resolves_or_names_the_key(keys, want):
     if want is not None:
         assert DecoderTuning.from_dict(keys) == want
         return
     with pytest.raises(ValueError, match=list(keys)[0]):
         DecoderTuning.from_dict(keys)
+
+
+# every value the reference's DecoderTuning takes, by key (its fields'
+# documented options, and numbers around its defaults)
+REFERENCE_VALUES = {
+    "win": [128, 64, 36, 32], "acq": [16, 32, 64, 96, 128], "tb": [8, 16],
+    "gb": [None, 1, 2, 4], "mdtype": ["f32", "bf16", "bf16_f32store"],
+    "fused": [True, False], "nofreeze": [True, False],
+    "pinpad": [True, False], "earlystop": [True, False],
+    "ext_scale": [0.75, 1.0], "retry_m": [0, 64, 128],
+    "retry_m_dl": [None, 0, 64], "retry_m_mimo": [None, 0, 192],
+    "retry_levels": [1, 2, 3], "layout_glue": [True, False],
+    "mimo_chest": ["ls", "mmse"], "mimo_denoise": [True, False],
+    "mimo_chest_nv": [3e-3, 1e-2], "mimo_detector": ["mmse", "sic"],
+    "struct_dematch": [True, False], "pallas_demap": [True, False],
+    "print_iters": [True, False], "blane_flat": [True, False],
+    "blane_flat_mimo": [True, False],
+    "blane_unroll": [1, 2, 3, 4, 6, 8, 16, 32],
+    "combine_bf16": [True, False], "demap_in": ["f32", "bf16"],
+    "ul_planar_boundary": [True, False],
+    "mimo_planar_boundary": [True, False],
+    "ofdm_dft": ["fft", "factored", "factored_hi"],
+    "planar_int8": [True, False], "ul_dft": ["fft", "factored", "matmul"]}
+
+
+@pytest.mark.parametrize("key", sorted(REFERENCE_VALUES))
+def test_from_dict_reads_every_reference_value(key):
+    """Each value of each reference key, under each trellis and with and
+    without planar_int8 (and acq at win 36 beside win 128), resolves to a
+    profile (only unknown keys raise), and ``to_dict`` reads back to it."""
+    assert set(REFERENCE_VALUES) == set(tuning_mod.REFERENCE_DEFAULTS)
+    for value in REFERENCE_VALUES[key]:
+        for mdtype in ("f32", "bf16", "bf16_f32store"):
+            for int8 in (False, True):
+                for win in ((128, 36) if key == "acq" and value <= 36
+                            else (128,)):
+                    d = {"mdtype": mdtype, "planar_int8": int8, "win": win,
+                         key: value}
+                    t = DecoderTuning.from_dict(d)
+                    assert DecoderTuning.from_dict(t.to_dict()) == t
+                    fused = d.get("fused", True) and t.acq <= t.win // 2
+                    assert t.fused == fused
+                    assert t.pinpad == (d.get("pinpad", True) and fused)
 
 
 def test_blane_unroll_cadence_matches_reference_kernels():

@@ -1,8 +1,13 @@
 """The port's turbo half-iteration and decoder driver against the Pallas
 reference (interpret mode): the half-iteration exactly (L, a_next,
 b_next), the driver with identical bits and iteration count, including a
-batch where the compacted retry runs on failing blocks."""
+batch where the compacted retry runs on failing blocks.  The reference's
+decode runs jitted, once compiled per configuration (:func:`_ref_decode`):
+eager, its compacted retry traces and compiles anew at every call."""
 
+from functools import lru_cache, partial
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +19,17 @@ from lteax.phy.fec.crc import attach_crc_np
 from lteax.phy.fec.turbo import turbo_encode
 
 import lteax_torch.kernels.turbo_mlm as tm
+
+torch.set_num_threads(1)
+
+
+@lru_cache(maxsize=None)
+def _ref_decode(**kw):
+    """``turbo_decode_batch_pallas`` with the keyword arguments ``kw``
+    (interpret mode, the iteration count returned), jitted: decodes of one
+    configuration and shape share one compile."""
+    return jax.jit(partial(turbo_decode_batch_pallas, return_n_iter=True,
+                           interpret=True, **kw))
 
 
 @pytest.mark.parametrize("k,win,acq", [(40, 32, 8), (1024, 128, 16),
@@ -74,10 +90,10 @@ CASES = {"noisy": [1.9, 1.9, 0.3, 0.3, 0.3, 0.3],
 def test_driver_matches_pallas(case):
     k = 1024
     llr, bits = _llrs(k, 6, CASES[case], seed=11)
-    ref_bits, ref_it = turbo_decode_batch_pallas(
-        jnp.asarray(llr), k, n_iter=6, win=128, acq=16, early_crc="24B",
-        mdtype="f32", fused=True, nofreeze=False, pinpad=True, retry_m=2,
-        retry_levels=2, return_n_iter=True, interpret=True)
+    ref_bits, ref_it = _ref_decode(
+        k=k, n_iter=6, win=128, acq=16, early_crc="24B", mdtype="f32",
+        fused=True, nofreeze=False, pinpad=True, retry_m=2,
+        retry_levels=2)(jnp.asarray(llr))
     got, stats = tm.turbo_decode_batch(torch.from_numpy(llr), k, n_iter=6,
                                        win=128, acq=16, early_crc="24B",
                                        retry_m=2, retry_levels=2)
@@ -101,11 +117,10 @@ def test_driver_without_retry_or_early_stop():
     k = 512
     llr, _ = _llrs(k, 3, [1.9, 0.3, 0.3], seed=4)
     for crc, retry_m in (("24B", 8), (None, 0)):
-        ref_bits, ref_it = turbo_decode_batch_pallas(
-            jnp.asarray(llr), k, n_iter=3, win=128, acq=16, early_crc=crc,
-            mdtype="f32", fused=True, nofreeze=False, pinpad=True,
-            retry_m=retry_m, retry_levels=2, layout=False,
-            return_n_iter=True, interpret=True)
+        ref_bits, ref_it = _ref_decode(
+            k=k, n_iter=3, win=128, acq=16, early_crc=crc, mdtype="f32",
+            fused=True, nofreeze=False, pinpad=True, retry_m=retry_m,
+            retry_levels=2, layout=False)(jnp.asarray(llr))
         got, stats = tm.turbo_decode_batch(torch.from_numpy(llr), k,
                                            n_iter=3, early_crc=crc,
                                            retry_m=retry_m)

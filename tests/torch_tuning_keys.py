@@ -1,9 +1,9 @@
 """Which keys of the reference's ``DecoderTuning`` change what a decode
 computes, found by running the reference both ways in interpret mode on
 the CPU at small shapes.  ``lteax_torch.phy.tuning.DecoderTuning.from_dict``
-accepts the keys that change no value and raises on the values whose
-numerics the port does not reproduce; this script is the evidence for
-each.
+resolves the keys that change no value to the reference's defaults and
+carries the values that change the decode into the port's fields; this
+script is the evidence for each.
 
 Prints one JSON line a comparison: the key, the values compared, what was
 compared (a kernel's outputs, a de-match, a front's LLRs, or a decoder's
