@@ -208,13 +208,13 @@ them from what each rank returns):
     and "matmul" (the signal precoded by each) decodes every block.  The
     reference's last tuning values (``VALUES``, each through
     ``DecoderTuning.from_dict``): 64 DL headline subframes decode under
-    ``fused: false`` (each mdtype; the unfused kernel, one thread a chain),
-    ``acq: 96``, ``layout_glue: false``, ``blane_unroll`` 1 and 2 and
-    ``pallas_demap: false`` (no demap kernel launched), timed in turns
-    with ``SHIPPED``; their kernel forms (the unfused kernel in f32, bf16
-    and bf16_f32store, also at acq > win/2; the bf16 kernel's
-    renormalisation at unroll 1 and 2) are held to their plain versions
-    beforehand, as the knobs' forms are.
+    ``fused: false`` (each mdtype; the kernels' unfused instances on the
+    fused walk), ``acq: 96``, ``layout_glue: false``, ``blane_unroll`` 1
+    and 2 and ``pallas_demap: false`` (no demap kernel launched), timed in
+    turns with ``SHIPPED``; their kernel forms (the unfused instances in
+    f32, bf16 and bf16_f32store, also at acq > win/2, and timed at acq 16,
+    96 and 128; the bf16 kernel's renormalisation at unroll 1 and 2) are
+    held to their plain versions beforehand, as the knobs' forms are.
 28. The factored DFT (``[dft]``, ``lteax_torch.phy.dft``; cuBLAS SGEMMs,
     no kernel of its own) at every bandwidth's n_fft (4 subframes each):
     ``"factored_hi"`` and ``dft_factored`` within 1e-5 of the peak of the
@@ -376,10 +376,15 @@ TURBO_RAGGED = ((37, 43, 128, 16), (37, 1155, 128, 16), (131, 5827, 128, 16),
 # windows whose dead steps number 122 and 123 (t_pin of either parity)
 TURBO_BF16 = ((3329, 5827, 128, 16), (37, 1027, 36, 16), (38, 1030, 128, 16),
               (37, 1029, 128, 16))
-# ... and the unfused kernel's own range: acq > win/2, up to win, and a win
-# that is no multiple of 4
+# ... and the unfused instances' own range (TURBO_BF16 holds them, as every
+# form, at an odd C and at last windows of 122 / 123 dead steps): acq >
+# win/2 (65: the NII exports in the store phase), up to win, a win that is
+# no multiple of 4 (34: an odd half window), win 36 with acq 36
+# (renormalised every 4 over the window, the fused kernels' every 2), n <
+# win with acq = win, acq < 4 (the guard slots before the slab)
 TURBO_UNFUSED = ((37, 1155, 128, 96), (3, 5827, 128, 128),
-                 (37, 1027, 34, 34))
+                 (37, 1027, 34, 34), (37, 1155, 128, 65), (37, 1027, 36, 36),
+                 (37, 103, 128, 128), (37, 1027, 34, 1))
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 # [loopback]: config #1 (configs/config1_loopback_1p4.yaml) and its 100-PRB
@@ -683,6 +688,15 @@ COMBINE_BF16_OPS = 28
 # the unfused combine's operations a position: 32 sums, 14 maxima and
 # L's difference, over all 8 states of each bit (no grouping by code)
 UNFUSED_COMBINE_OPS = 47
+# the unfused forms are also timed at these acquisitions (win 128)
+UNFUSED_ACQS = (96, 128)
+# their kernel instances' mangled names, for ptxas's report (the f32
+# kernel's <kUnfused, win/2 even>; the decoders' bf16 kernel, frozen, with
+# its combine in bf16 or in f32)
+UNFUSED_INSTANCES = {
+    "f32": "17turbo_half_kernelILi1ELb0EE",
+    "bf16": "22turbo_half_bf16_kernelILb1ELb1ELi1ELb0ELb0ELi1ELb0EE",
+    "bf16_f32store": "22turbo_half_bf16_kernelILb1ELb1ELi1ELb0ELb0ELi2ELb0EE"}
 
 
 def ptxas_registers(kernel: str) -> list[str]:
@@ -703,10 +717,13 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
     (``same_run_form``: the f32 one, or the first, the bf16 one); then the
     bf16 kernel's variants (``BF16_VARIANTS``) and the f32 form, timed in
     turns at the main shape.  The unfused forms are also held at
-    ``TURBO_UNFUSED`` (acq > win/2, a win that is no multiple of 4).
+    ``TURBO_UNFUSED`` (acq > win/2, a win that is no multiple of 4, ...)
+    and timed at acq 96 and 128 (``acq_ms``, each beside its bound,
+    ``acq_bound_ms``, from the same count).
     Bound of a bf16 form: u, v and L move as bf16 (2 bytes), the inits and
     NII exports as f32; the alpha and beta stores stay in shared memory
-    (``store_bytes``: the unfused kernel's whole-window alpha stores).
+    (``store_bytes``: the unfused forms' half-window stores of both
+    directions).
     The 60 ACS operations of a position (and an acquisition step's 60) run
     in bf16 at the packed bf16 rate, the combine's 39 in f32, or with
     combine_bf16 its 28 sums and maxima in bf16 and 11 in f32; the unfused
@@ -753,29 +770,38 @@ def check_turbo_forms(cell: DlCell, dev) -> list[dict]:
         plain_ms = cuda_time_ms(lambda: turbo_mod.half_iteration_plain(
             *args, win, acq, *form, **kw), 1)
         comb_ops = UNFUSED_COMBINE_OPS if unfused else 39
-        if trellis == "f32":
-            counted = bound(4 * (3 * c * n + 4 * c * n_w * 8),
-                            c * n * (60 + comb_ops) + c * n_w * acq * 60,
-                            F32_OPS_PER_S)
-        else:
-            # the combine in bf16: combine_bf16's sums and group maxima, or
-            # the whole unfused "bf16" combine
+
+        def counted_at(acq_: int) -> dict:
+            if trellis == "f32":
+                return bound(4 * (3 * c * n + 4 * c * n_w * 8),
+                             c * n * (60 + comb_ops) + c * n_w * acq_ * 60,
+                             F32_OPS_PER_S)
+            # the combine in bf16: combine_bf16's sums and group maxima,
+            # or the whole unfused "bf16" combine
             comb = (COMBINE_BF16_OPS if form[3] else
                     comb_ops if unfused and form[0] == "bf16" else 0)
-            bf16_ops = c * n * (60 + comb) + c * n_w * acq * 60
+            bf16_ops = c * n * (60 + comb) + c * n_w * acq_ * 60
             f32_ops = c * n * (comb_ops - comb)
-            counted = {"bf16_ops": bf16_ops, "f32_ops": f32_ops, **bound(
+            return {"bf16_ops": bf16_ops, "f32_ops": f32_ops, **bound(
                 2 * 3 * c * n + 4 * 4 * c * n_w * 8,
                 f32_ops + bf16_ops * F32_OPS_PER_S / BF16X2_OPS_PER_S,
                 F32_OPS_PER_S)}
+
+        counted = counted_at(acq)
         if unfused:
-            # what the kernel keeps in shared memory: the whole window's
-            # alpha stores (the reference also keeps beta's), never in HBM
+            # what the kernel keeps in shared memory, never in HBM: the
+            # half-window stores of both directions (the reference keeps
+            # whole-window ones)
             counted["store_bytes"] = c * n_w * win * 8 * (
                 4 if trellis == "f32" else 2)
-            counted["ptxas"] = ptxas_registers(
-                "turbo_half_unfused_kernelILi"
-                + {"f32": "0", "bf16": "1", "bf16_f32store": "2"}[form[0]])
+            counted["ptxas"] = ptxas_registers(UNFUSED_INSTANCES[form[0]])
+            # the acquisition's share: the same form at acq 96 and 128
+            counted["acq_ms"], counted["acq_bound_ms"] = {}, {}
+            for acq_ in UNFUSED_ACQS:
+                counted["acq_ms"][acq_] = cuda_time_ms(
+                    lambda a_=acq_: turbo_mod.half_iteration_raw(
+                        *args, win, a_, *form, **kw), 20)
+                counted["acq_bound_ms"][acq_] = counted_at(acq_)["bound_ms"]
         out.append({"name": name, "shape": [c, n, win, acq],
                     "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, **turns, **counted})
@@ -4116,6 +4142,15 @@ def main() -> None:
               f"{k['ms'] / k['bound_ms']:.2f}x its {k['bound_ms']:.4f} ms "
               f"bound ({k['bound_by']})" for k in turbo_forms[1:]) +
           f" ({card})")
+    print(f"[kernel] turbo_half_iteration unfused forms at acq "
+          "16 / " + " / ".join(map(str, UNFUSED_ACQS)) + " (win 128): "
+          + "; ".join(
+              f"{k['name']} " + " / ".join(
+                  f"{ms:.4f}" for ms in (k["ms"], *k["acq_ms"].values()))
+              + " ms, bounds " + " / ".join(
+                  f"{b:.4f}" for b in (k["bound_ms"],
+                                       *k["acq_bound_ms"].values()))
+              for k in turbo_forms if "acq_ms" in k) + f" ({card})")
     for k in [*kernels, demap_ul, *turbo_forms, *demap_forms]:
         if "by_shape" in k:             # the resampler: a line a shape below
             continue
@@ -4272,7 +4307,7 @@ def main() -> None:
              "f32_ops", "bound_nofma_ms", "library_bf16_ms", "variant_ms",
              "f32_same_run_ms", "bound_fma_ms", "bound_tc_ms",
              "same_run_ms", "same_run_form", "store_bytes", "ptxas",
-             "kernel_vs_f64_of_peak",
+             "acq_ms", "acq_bound_ms", "kernel_vs_f64_of_peak",
              "plain_vs_f64_of_peak")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": SOURCES[k["name"]][0],

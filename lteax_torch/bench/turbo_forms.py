@@ -14,9 +14,10 @@ checkout times the same forms:
 
     PYTHONPATH=OLD python3 lteax_torch/bench/turbo_forms.py
 
-With ``--unfused-and-unroll`` the unfused kernel (f32, bf16,
-bf16_f32store) and the bf16 kernel's renormalisation at the layout
-kernel's unroll 1 and 2 are timed in the same turns.  One JSON object on
+With ``--unfused-and-unroll`` the unfused forms (f32, bf16,
+bf16_f32store: the reference's ``fused=False`` body) and the bf16
+kernel's renormalisation at the layout kernel's unroll 1 and 2 are timed
+in the same turns.  One JSON object on
 the last line, with the card's name and power limit.
 """
 

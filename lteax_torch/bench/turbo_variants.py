@@ -113,13 +113,14 @@ def issue_model(loops: dict[str, list[list[int]]], c: int, n: int, win: int,
             "warp_instr": warp_instr}
 
 
-# the kernels' template instances: the f32 form, and the bf16 variants'
-# <kFold, kAsync, kPad, kComb> (kPad, pinned 0 or frozen 1, follows
-# --pinpad; the f32 combine)
-_KERNELS = {"f32": "17turbo_half_kernel",
-            1: "22turbo_half_bf16_kernelILb0ELb0ELi{f}ELb0EE",
-            2: "22turbo_half_bf16_kernelILb1ELb0ELi{f}ELb0EE",
-            3: "22turbo_half_bf16_kernelILb1ELb1ELi{f}ELb0EE"}
+# the kernels' template instances, mangled: the f32 form's <kFused, an even
+# half window>, and the bf16 variants' <kFold, kAsync, kPad, kComb, kSched,
+# kUnf, kOddHalf> (kPad, pinned 0 or frozen 1, follows --pinpad; the f32
+# combine, the fused kernel's renormalisation)
+_KERNELS = {"f32": "17turbo_half_kernelILi0ELb0EE",
+            1: "22turbo_half_bf16_kernelILb0ELb0ELi{f}ELb0ELb0ELi0ELb0EE",
+            2: "22turbo_half_bf16_kernelILb1ELb0ELi{f}ELb0ELb0ELi0ELb0EE",
+            3: "22turbo_half_bf16_kernelILb1ELb1ELi{f}ELb0ELb0ELi0ELb0EE"}
 
 
 def sass_report(shape, pinpad: bool, wpb: int,

@@ -142,23 +142,36 @@
 // code.  (Giving those instances their period as an argument, to run U = 2
 // with their code, slowed them by up to 8%: not done.)
 //
-// The unfused kernel (the reference's _make_kernel, fused=False) is a kernel
-// of its own, turbo_half_unfused_kernel: one thread a chain (codeblock,
-// window), its 8 alpha and 8 beta metrics in registers.  Its acquisition
-// freezes as above (acq up to win: it reads the neighbouring windows); its
-// alpha sweep keeps all win pre-step alphas in shared memory; its beta
-// sweep runs after it (the chains are independent, so the values are the
-// interleaved sweeps' ones), frozen at dead positions, and at each position
-// combines the live pre-step beta with the stored alpha and the step's
-// gammas over all 8 states of a bit, (alpha + gamma) + beta with no grouping
-// by gamma code, L = l0 - l1 in the combine's type: f32; bf16 under "bf16"
-// (bf16 stores, every sum rounded); f32 under "bf16_f32store" (its f32
-// stores promote the sums), L rounded to bf16 once.  Under a bf16 trellis
-// both sweeps renormalise every 4 steps counted over the whole window (2
-// when win is not a multiple of 4).  The NII exports are the stored alpha at
-// win - acq and the pre-step beta at acq - 1.  A block holds T chains, the
-// stores (t, state, chain), so that the T chains of a step hit T banks:
-// win * 8 * 4 bytes a chain in f32, half that in bf16.
+// The unfused body (the reference's _make_kernel, fused=False, also run for
+// acq > win/2) is an instance of each of the two kernels (kUnf), on the
+// same lanes and walk: the sweeps are independent, so alpha from the front
+// and beta from the back in lockstep compute the values of the reference's
+// sweep after sweep.  What differs, each a compile-time branch:
+//   - the combine: each of the 16 branches as (alpha + gamma) + beta, with
+//     no grouping by gamma code; a lane forms its butterfly's four (the
+//     step's own gamma is the code-c one) and its bit-0 and bit-1 maxima
+//     fold over the direction's 4 lanes (across q ^ 1, q ^ 2, q ^ 1), L =
+//     l0 - l1 in the combine's type: f32; bf16 under "bf16" (every sum and
+//     L rounded: add.rn / sub.rn / max on the packed pairs, one shuffle a
+//     fold stage); f32 under "bf16_f32store" (the sums in f32 on the
+//     widened metrics), L rounded to bf16 once;
+//   - the renormalisation of a bf16 trellis every 4 steps counted over the
+//     whole window (2 when win is not a multiple of 4): still after odd
+//     steps, so the literal parity at each call stays;
+//   - the acquisition may be as long as the window (the slab's halos are
+//     acq: it reads only the neighbouring windows), and where acq > win/2
+//     the NII exports (the pairs before step win - acq) fall in the store
+//     phase;
+//   - any even win: where win/2 is odd (win 34) the store phase ends with
+//     one step of phase 0 and the combine phase starts in phase 1
+//     (kOddHalf), the pairs of steps otherwise as the fused kernels';
+//   - frozen padding only, and kGuard slots before the slab (acq < 4).
+// At C = 3328, n = 5827, win 128, acq 16 on an H100 SXM at 700 W: f32
+// 0.427 ms, bf16 0.265, bf16_f32store 0.308, against the fused f32 0.428
+// and bf16 0.287 in turns (the unfused bf16 combine runs on the packed
+// pairs, one shuffle a fold stage); the one-thread-a-chain kernel it
+// replaced took 1.25 / 1.75 / 1.48.  What holds it is what holds the
+// fused kernels (above).
 //
 // The 8-state wiring is lteax.phy.fec.turbo._unrolled_wiring written out as
 // the two tables below (the tests parse them back and compare): a row of
@@ -169,8 +182,6 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
-#include <type_traits>
-#include <utility>
 
 #define TRELLIS_FWD {{0, 1, 0, 3}, {2, 3, 2, 1}, {4, 5, 1, 2}, {6, 7, 3, 0}, \
                      {0, 1, 3, 0}, {2, 3, 1, 2}, {4, 5, 2, 1}, {6, 7, 0, 3}}
@@ -298,13 +309,27 @@ __device__ __forceinline__ void cp_async4(unsigned dst, const float* src) {
 }
 
 // slab index of the position `rel` samples from the block's first window
-// (rel >= -acq): acq halo slots, then win + 1 slots per window
+// (rel >= -acq, acq <= win): acq halo slots, then win + 1 slots per window
 __device__ __forceinline__ int slab_index(int rel, int win, int acq) {
   return rel + acq + (rel + win) / win;
 }
 
+// What the combine phase computes: the fused kernels' combine (grouped by
+// gamma code), or the unfused body's, its sums in the metric type or, in
+// the bf16 kernel under "bf16_f32store", in f32.
+constexpr int kFused = 0, kUnfused = 1, kUnfusedF32Sum = 2;
+// The unfused body takes any 0 < acq <= win, and a beta lane of the
+// block's first window reads its inputs up to 4 positions before the
+// window in the steps past its end: with acq < 4 that is before the
+// slab, so its instances keep 4 guard slots there.
+constexpr int kGuard = 4;
+
 // The f32 trellis.  pad: what the beta main sweep does at dead positions
-// (kPadPin, kPadFreeze, kPadFree).
+// (kPadPin, kPadFreeze, kPadFree); kUnf: kFused, or kUnfused (frozen
+// padding); kOddHalf: win / 2 is odd (the unfused body's win 34, ...), so
+// the store phase ends on a step of phase 0 and the combine phase starts
+// in phase 1.
+template <int kUnf, bool kOddHalf>
 __global__ void turbo_half_kernel(const float* __restrict__ u,
                                   const float* __restrict__ v,
                                   const float* __restrict__ a_init,
@@ -315,13 +340,14 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
                                   int n, int n_w, int win, int acq, int wpb,
                                   int blocks_per_row, int pad) {
   extern __shared__ float smem[];
+  constexpr int guard = kUnf == kFused ? 0 : kGuard;
   const int half = win / 2;
   const int dir_stride = half * 8 + 8;         // one direction's store + pad
   const int chain_stride = 2 * dir_stride;
   const int slab = wpb * win + 2 * acq;        // positions staged
   const int slab_slots = slab + wpb + 1;
-  float2* uv = reinterpret_cast<float2*>(smem);   // (u, v) per position
-  float* store = smem + 2 * slab_slots;
+  float2* uv = reinterpret_cast<float2*>(smem) + guard;   // (u, v) a position
+  float* store = smem + 2 * (guard + slab_slots);
 
   const int cb = blockIdx.x / blocks_per_row;
   const int w0 = (blockIdx.x % blocks_per_row) * wpb;
@@ -453,6 +479,11 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   float2 xn = xp[xs];
   xp += 2 * xs;
 
+  // The NII exports: the pair before step t_nii (in the combine phase, or
+  // in the store phase where the unfused body's acq > win/2).
+  const int t_nii = win - acq;
+  float nii0 = 0.0f, nii1 = 0.0f;
+
   // 2. store phase: the pre-step pair of step t goes to slot t, at its
   // butterfly's place (sp0 and sp1: where this lane's pair goes in phase 0
   // and in phase 1)
@@ -461,6 +492,12 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   auto store_step = [&](const Phase& p, const Phase& p_next, float* sp,
                         int t) {
     const float2 xnn = *xp;
+    if constexpr (kUnf != kFused) {
+      if (t == t_nii) {
+        nii0 = r0;
+        nii1 = r1;
+      }
+    }
     store2(sp, r0, r1);
     const float got = __shfl_xor_sync(all, butterfly(p, g), p.swap);
     g = step_gamma(p_next, xn, pinned && t + 1 < t_pin);
@@ -468,12 +505,13 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
     xn = xnn;
     xp += xs;
   };
-  for (int t = 0; t < half; t += 2) {
+  for (int t = 0; t < half - kOddHalf; t += 2) {
     store_step(ph0, ph1, sp0, t);
     store_step(ph1, ph0, sp1, t + 1);
     sp0 += 16;
     sp1 += 16;
   }
+  if constexpr (kOddHalf) store_step(ph0, ph1, sp0, half - 1);
   __syncwarp();                                // the other direction's stores
 
   // 3. combine phase: the opposite direction's slot j = win-1-t holds the
@@ -492,16 +530,17 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
   // The loop runs two steps past the window to drain the pipeline; what
   // the stages carry before they fill, and the steps past the window, is
   // never written (their reads stay inside the block's shared memory).
-  // op0 and op1 walk down the opposite store at this lane's pair of phase 0
-  // and of phase 1; lp walks down it two slots behind, where L goes.
-  const float* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;   // step half+1
-  const float* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
+  // Step half runs in phase cpa (phase 1 where half is odd), the next in
+  // cpb.  opa and opb walk down the opposite store at this lane's pair of
+  // phase cpa and of phase cpb; lp walks down it two slots behind, where L
+  // goes.
+  const Phase cpa = kOddHalf ? ph1 : ph0, cpb = kOddHalf ? ph0 : ph1;
+  const float* opa = theirs + (half - 2) * 8 + 2 * cpa.pair;
+  const float* opb = theirs + (half - 2) * 8 + 2 * cpb.pair;   // step half+1
   float* lp = theirs + (half + 1) * 8;         // the slot of step t-2
-  float2 o = load2(op0 + 8);                   // step half
+  float2 o = load2(opa + 8);                   // step half
   float ga = gamma_of(uwin[d ? half - 1 : half], comb_vsign, comb_sign);
   float in_b = 0.0f, in_c = 0.0f;              // what stages B and C take
-  const int t_nii = win - acq;
-  float nii0 = 0.0f, nii1 = 0.0f;              // the pair before step t_nii
   auto combine_step = [&](const Phase& p, const Phase& p_next,
                           const float* op_next, int t) {
     const float2 xnn = *xp;
@@ -530,12 +569,54 @@ __global__ void turbo_half_kernel(const float* __restrict__ u,
     xp += xs;
     lp -= 8;
   };
-  for (int t = half; t < win + 2; t += 2) {
-    combine_step(ph0, ph1, op1, t);            // reads ahead for step t+1
-    combine_step(ph1, ph0, op0 - 8, t + 1);    // ... and for step t+2
-    op0 -= 16;
-    op1 -= 16;
+  // The unfused body's combine step (kUnf), pipelined alike: each of the
+  // butterfly's four branches is (alpha + its gamma) + beta, the alpha
+  // pair (x, y) this lane's own (d = 0) or the store's (d = 1), the beta
+  // pair (bp, bq) the other; the step's g is the gamma of code c (branches
+  // 2k -> k and 2k+1 -> k+4), -g that of code 3 - c.  The fold takes the
+  // bit-0 and bit-1 maxima over the direction's 4 lanes:
+  //   A (step t):   across q ^ 1, even lanes keep l0, odd lanes l1;
+  //   B (step t-1): across q ^ 2 to l0 (lanes 0, 2) or l1 (lanes 1, 3);
+  //   C (step t-2): l1 comes across q ^ 1; lane 0 writes l0 - l1.
+  auto unfused_step = [&](const Phase& p, const Phase& p_next,
+                          const float* op_next, int t) {
+    const float2 xnn = *xp;
+    const float2 o_next = load2(op_next);
+    if (t == t_nii) {
+      nii0 = r0;
+      nii1 = r1;
+    }
+    const float x = d ? o.x : r0, y = d ? o.y : r1;
+    const float bp = d ? r0 : o.x, bq = d ? r1 : o.y;
+    const float pm = fmaxf((x + g) + bp, (y + g) + bq);
+    const float qm = fmaxf((x - g) + bq, (y - g) + bp);
+    const float l0 = p.bit0_is_p ? pm : qm, l1 = p.bit0_is_p ? qm : pm;
+    const float got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+    const float got_a = __shfl_xor_sync(all, (q & 1) ? l0 : l1, 1);
+    const float got_b = __shfl_xor_sync(all, in_b, 2);
+    const float got_c = __shfl_xor_sync(all, in_c, 1);
+    g = step_gamma(p_next, xn, false);
+    if (q == 0 && t >= half + 2) *lp = in_c - got_c;
+    in_c = fmaxf(in_b, got_b);
+    in_b = fmaxf((q & 1) ? l1 : l0, got_a);
+    if (t >= skip) exchange(p, got_s);
+    xn = xnn;
+    o = o_next;
+    xp += xs;
+    lp -= 8;
+  };
+  auto comb_step = [&](const Phase& p, const Phase& p_next,
+                       const float* op_next, int t) {
+    if constexpr (kUnf == kFused) combine_step(p, p_next, op_next, t);
+    else unfused_step(p, p_next, op_next, t);
+  };
+  for (int t = half; t < win + 2 - kOddHalf; t += 2) {
+    comb_step(cpa, cpb, opb, t);               // reads ahead for step t+1
+    comb_step(cpb, cpa, opa - 8, t + 1);       // ... and for step t+2
+    opa -= 16;
+    opb -= 16;
   }
+  if constexpr (kOddHalf) comb_step(cpa, cpb, opb, win + 1);
   if (live_chain) {
     // the pair before step t_nii belongs to that step's phase, or to step
     // t_pin's while a frozen chain holds it
@@ -620,19 +701,21 @@ constexpr unsigned kSign2 = 0x80008000u;       // both halves' sign bits
 // negation is exact, and rounding to nearest is symmetric, so this is
 // +-((u +- v) rounded * 0.5) rounded), or `pin` at a pinned dead position;
 // and the combine's choice: a lane sends Q = max(x + q, y + p) across the
-// fold's first stage and keeps P, or the other way round.
+// fold's first stage and keeps P, or the other way round (the unfused
+// combine: which of P and Q is the bit-0 maximum, as Phase's).
 struct Phase2 {
   int pair;
   unsigned vmul, half, pin;
   int swap;
-  bool sends_q;
+  bool sends_q, bit0_is_p;
 };
 __device__ __forceinline__ Phase2 phase2(const Phase& p, bool keeps1) {
   const unsigned sign = p.sign ? kSign2 : 0u;
   // the f32 kernel sends keeps1 ? bit0 : bit1, bit0 being P where
   // bit0_is_p
   return {p.pair, kOne2 ^ (p.vsign ? kSign2 : 0u), kHalf2 ^ sign,
-          kHalfPin2 ^ sign, p.swap, keeps1 != (bool)p.bit0_is_p};
+          kHalfPin2 ^ sign, p.swap, keeps1 != (bool)p.bit0_is_p,
+          (bool)p.bit0_is_p};
 }
 
 // 4 bytes (src_bytes of them read, the rest zero) into shared memory
@@ -670,10 +753,14 @@ __device__ __forceinline__ int stage_plane(uint16_t* dst, int plane,
 // 2); kAsync: the slab is staged by cp.async (lever 3); kPad: what the beta
 // main sweep does at dead positions (kPadPin, kPadFreeze, kPadFree); kComb:
 // the bf16 combine; kSched: the renormalisation after the steps of the
-// layout kernel's unroll `sched` (else every `period` steps).  u, v, l_out:
-// bf16 bits.  A block owns windows w0 .. w0+wpb-1 of codeblocks 2i and
-// 2i+1.
-template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched>
+// layout kernel's unroll `sched` (else every `period` steps); kUnf:
+// kFused, or the unfused body's combine in bf16 (kUnfused, "bf16") or in
+// f32 (kUnfusedF32Sum, "bf16_f32store"), frozen padding, renormalised
+// every `period` steps counted over the whole window; kOddHalf as the f32
+// kernel's.  u, v, l_out: bf16 bits.  A block owns windows w0 .. w0+wpb-1
+// of codeblocks 2i and 2i+1.
+template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched,
+          int kUnf, bool kOddHalf>
 __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
                                        const uint16_t* __restrict__ v,
                                        const float* __restrict__ a_init,
@@ -685,14 +772,17 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
                                        int wpb, int blocks_per_row,
                                        int sched) {
   extern __shared__ uint2 smem2[];
+  constexpr int guard = kUnf == kFused ? 0 : kGuard;
   const int half = win / 2;
-  const int period = half % 4 == 0 ? 4 : 2;    // renormalisation
+  // renormalisation: every 4 steps, or 2 where 4 does not divide the half
+  // window (the unfused body: the window)
+  const int period = (kUnf == kFused ? half : win) % 4 == 0 ? 4 : 2;
   const int dir_stride = half * 8 + 8;         // one direction's store + pad
   const int chain_stride = 2 * dir_stride;
   const int slab = wpb * win + 2 * acq;        // positions staged
   const int slab_slots = slab + wpb + 1;
-  uint2* uv = smem2;                           // (u, v), both codeblocks
-  unsigned* store = reinterpret_cast<unsigned*>(smem2 + slab_slots);
+  uint2* uv = smem2 + guard;                   // (u, v), both codeblocks
+  unsigned* store = reinterpret_cast<unsigned*>(uv + slab_slots);
 
   const int pr = blockIdx.x / blocks_per_row;  // codeblocks 2pr and 2pr+1
   const bool has1 = 2 * pr + 1 < c;
@@ -873,11 +963,19 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
   uint2 xn = xp[xs];
   xp += 2 * xs;
 
+  const int t_nii = win - acq;                 // the NII exports' step
+  unsigned nii0 = 0u, nii1 = 0u;
   unsigned* sp0 = mine + 2 * ph0.pair;
   unsigned* sp1 = mine + 8 + 2 * ph1.pair;
   auto store_step = [&](const Phase2& p, const Phase2& p_next, unsigned* sp,
                         int t, bool odd) {
     const uint2 xnn = *xp;
+    if constexpr (kUnf != kFused) {
+      if (t == t_nii) {
+        nii0 = r0;
+        nii1 = r1;
+      }
+    }
     *reinterpret_cast<uint2*>(sp) = make_uint2(r0, r1);
     const unsigned got = __shfl_xor_sync(all, butterfly(p, g), p.swap);
     const bool rn = renorms(odd, t);
@@ -888,12 +986,13 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
     xn = xnn;
     xp += xs;
   };
-  for (int t = 0; t < half; t += 2) {
+  for (int t = 0; t < half - kOddHalf; t += 2) {
     store_step(ph0, ph1, sp0, t, false);
     store_step(ph1, ph0, sp1, t + 1, true);
     sp0 += 16;
     sp1 += 16;
   }
+  if constexpr (kOddHalf) store_step(ph0, ph1, sp0, half - 1, false);
   __syncwarp();
 
   // the combine, in f32 a codeblock (h = 0: low halves, 1: high halves),
@@ -903,14 +1002,14 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
         0.5f * (lo_f(x.x, comb_usign) + lo_f(x.y, comb_vsign)),
         0.5f * (hi_f(x.x, comb_usign) + hi_f(x.y, comb_vsign)));
   };
-  const unsigned* op0 = theirs + (half - 2) * 8 + 2 * ph0.pair;
-  const unsigned* op1 = theirs + (half - 2) * 8 + 2 * ph1.pair;
+  const Phase2 cpa = kOddHalf ? ph1 : ph0, cpb = kOddHalf ? ph0 : ph1;
+  const unsigned* opa = theirs + (half - 2) * 8 + 2 * cpa.pair;
+  const unsigned* opb = theirs + (half - 2) * 8 + 2 * cpb.pair;
   unsigned* lp = theirs + (half + 1) * 8;
-  uint2 o = *reinterpret_cast<const uint2*>(op0 + 8);
+  uint2 o = *reinterpret_cast<const uint2*>(opa + 8);
   float2 ga = comb_gamma(uwin[d ? half - 1 : half]);
   float in_b0 = 0.0f, in_b1 = 0.0f, in_c0 = 0.0f, in_c1 = 0.0f;
-  const int t_nii = win - acq;
-  unsigned nii0 = 0u, nii1 = 0u;
+  unsigned in_b2 = 0u, in_c2 = 0u;   // the unfused bf16 fold's, both halves
   auto combine_step = [&](const Phase2& p, const Phase2& p_next,
                           const unsigned* op_next, int t, bool odd) {
     const uint2 xnn = *xp;
@@ -967,12 +1066,80 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
     xp += xs;
     lp -= 8;
   };
-  for (int t = half; t < win + 2; t += 2) {
-    combine_step(ph0, ph1, op1, t, false);
-    combine_step(ph1, ph0, op0 - 8, t + 1, true);
-    op0 -= 16;
-    op1 -= 16;
+  // the unfused body's combine step, as the f32 kernel's, both codeblocks
+  // a lane
+  auto unfused_step = [&](const Phase2& p, const Phase2& p_next,
+                          const unsigned* op_next, int t, bool odd) {
+    const uint2 xnn = *xp;
+    const uint2 o_next = *reinterpret_cast<const uint2*>(op_next);
+    if (t == t_nii) {
+      nii0 = r0;
+      nii1 = r1;
+    }
+    const bool rn = t < win && renorms(odd, t);
+    const unsigned x = d ? o.x : r0, y = d ? o.y : r1;
+    const unsigned bp = d ? r0 : o.x, bq = d ? r1 : o.y;
+    const unsigned got_s = __shfl_xor_sync(all, butterfly(p, g), p.swap);
+    const unsigned s0 = renorm_early(rn, t);
+    if constexpr (kUnf == kUnfused) {
+      // "bf16": every sum rounds to bf16, and L = l0 - l1 too; the fold
+      // runs on the packed pairs, one shuffle a stage
+      const unsigned pm = max2(add2(add2(x, g), bp), add2(add2(y, g), bq));
+      const unsigned qm = max2(add2(sub2(x, g), bq), add2(sub2(y, g), bp));
+      const unsigned l0 = p.bit0_is_p ? pm : qm;
+      const unsigned l1 = p.bit0_is_p ? qm : pm;
+      const unsigned got_a = __shfl_xor_sync(all, (q & 1) ? l0 : l1, 1);
+      const unsigned got_b = __shfl_xor_sync(all, in_b2, 2);
+      const unsigned got_c = __shfl_xor_sync(all, in_c2, 1);
+      if (q == 0 && t >= half + 2) *lp = sub2(in_c2, got_c);
+      in_c2 = max2(in_b2, got_b);
+      in_b2 = max2((q & 1) ? l1 : l0, got_a);
+    } else {
+      // "bf16_f32store": the sums in f32 on the widened metrics and
+      // gamma, L rounded to bf16 once
+      float l00, l10, l01, l11;      // l0, l1 of codeblock 2i, of 2i+1
+      auto sums = [&](float x_, float y_, float p_, float q_, float g_,
+                      float& l0, float& l1) {
+        const float pm = fmaxf((x_ + g_) + p_, (y_ + g_) + q_);
+        const float qm = fmaxf((x_ - g_) + q_, (y_ - g_) + p_);
+        l0 = p.bit0_is_p ? pm : qm;
+        l1 = p.bit0_is_p ? qm : pm;
+      };
+      sums(lo_f(x), lo_f(y), lo_f(bp), lo_f(bq), lo_f(g), l00, l10);
+      sums(hi_f(x), hi_f(y), hi_f(bp), hi_f(bq), hi_f(g), l01, l11);
+      const float got_a0 = __shfl_xor_sync(all, (q & 1) ? l00 : l10, 1);
+      const float got_a1 = __shfl_xor_sync(all, (q & 1) ? l01 : l11, 1);
+      const float got_b0 = __shfl_xor_sync(all, in_b0, 2);
+      const float got_b1 = __shfl_xor_sync(all, in_b1, 2);
+      const float got_c0 = __shfl_xor_sync(all, in_c0, 1);
+      const float got_c1 = __shfl_xor_sync(all, in_c1, 1);
+      if (q == 0 && t >= half + 2)
+        *lp = pack2(in_c0 - got_c0, in_c1 - got_c1);
+      in_c0 = fmaxf(in_b0, got_b0);
+      in_c1 = fmaxf(in_b1, got_b1);
+      in_b0 = fmaxf((q & 1) ? l10 : l00, got_a0);
+      in_b1 = fmaxf((q & 1) ? l11 : l01, got_a1);
+    }
+    g = step_gamma(p_next, xn, false);
+    if (t >= skip) exchange(p, got_s);
+    renorm_late(rn, s0);
+    xn = xnn;
+    o = o_next;
+    xp += xs;
+    lp -= 8;
+  };
+  auto comb_step = [&](const Phase2& p, const Phase2& p_next,
+                       const unsigned* op_next, int t, bool odd) {
+    if constexpr (kUnf == kFused) combine_step(p, p_next, op_next, t, odd);
+    else unfused_step(p, p_next, op_next, t, odd);
+  };
+  for (int t = half; t < win + 2 - kOddHalf; t += 2) {
+    comb_step(cpa, cpb, opb, t, kOddHalf);
+    comb_step(cpb, cpa, opa - 8, t + 1, !kOddHalf);
+    opa -= 16;
+    opb -= 16;
   }
+  if constexpr (kOddHalf) comb_step(cpa, cpb, opb, win + 1, true);
   if (live_chain) {
     const int held = t_nii < skip ? skip : t_nii;
     const int k = (held & 1) ? ph1.pair : ph0.pair;
@@ -1001,207 +1168,16 @@ __global__ void turbo_half_bf16_kernel(const uint16_t* __restrict__ u,
   }
 }
 
-// ---- the unfused kernel: one thread a chain, whole-window stores ---------
-
-// f32 rounded to bf16, to nearest even, kept in an f32
-__device__ __forceinline__ float round_bf16(float x) {
-  unsigned short h;
-  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
-  return __uint_as_float((unsigned)h << 16);
-}
-
-// the trellis tables for device code: a row of FWD or BWD by index, always
-// evaluated where a constant is needed (a template argument)
-__host__ __device__ constexpr int fwd_at(int row, int i) {
-  constexpr int t[8][4] = TRELLIS_FWD;
-  return t[row][i];
-}
-__host__ __device__ constexpr int bwd_at(int row, int i) {
-  constexpr int t[8][4] = TRELLIS_BWD;
-  return t[row][i];
-}
-template <int V>
-struct Const {
-  static constexpr int v = V;
-};
-
-constexpr int kUnfF32 = 0, kUnfBf16 = 1, kUnfBf16F32 = 2;
-
-// One metric operation: in f32, or under a bf16 trellis the f32 operation
-// rounded to bf16 (one correctly rounded bf16 operation, as above).
-template <bool kBf16>
-__device__ __forceinline__ float mop(float x) {
-  if constexpr (kBf16) return round_bf16(x);
-  else return x;
-}
-
-// the four gammas +(u+v)/2, +(u-v)/2, -(u-v)/2, -(u+v)/2
-template <bool kBf16>
-__device__ __forceinline__ void gammas4(float u, float v, float (&g)[4]) {
-  const float pp = mop<kBf16>(0.5f * mop<kBf16>(u + v));
-  const float pm = mop<kBf16>(0.5f * mop<kBf16>(u - v));
-  g[0] = pp;
-  g[1] = pm;
-  g[2] = -pm;
-  g[3] = -pp;
-}
-
-// one ACS step of all 8 states along FWD (alpha) or BWD (beta)
-template <bool kBf16, bool kFwd, int... S>
-__device__ __forceinline__ void acs8(float (&m)[8], const float (&g)[4],
-                                     std::integer_sequence<int, S...>) {
-  float x[8];
-#define LTEAX_AT(s, i) (kFwd ? fwd_at(s, i) : bwd_at(s, i))
-  ((x[S] = fmaxf(mop<kBf16>(m[Const<LTEAX_AT(S, 0)>::v] +
-                            g[Const<LTEAX_AT(S, 2)>::v]),
-                 mop<kBf16>(m[Const<LTEAX_AT(S, 1)>::v] +
-                            g[Const<LTEAX_AT(S, 3)>::v]))),
-   ...);
-#undef LTEAX_AT
-  ((m[S] = x[S]), ...);
-}
-
-// The combine of one position over FWD's 16 branches p -> s' (code c):
-// (alpha[p] + g[c]) + beta[s'], the bit-0 branches (c < 2) into l0, the
-// bit-1 ones into l1, each sum in the combine's type (kBf16Sum: bf16).
-template <bool kBf16Sum, int... S>
-__device__ __forceinline__ float combine16(const float (&al)[8],
-                                           const float (&g)[4],
-                                           const float (&be)[8],
-                                           std::integer_sequence<int, S...>) {
-  float l0 = __int_as_float(0xff800000), l1 = l0;   // -inf
-  auto branch = [&](float t, bool bit1) {
-    if (bit1) l1 = fmaxf(l1, t);
-    else l0 = fmaxf(l0, t);
-  };
-  ((branch(mop<kBf16Sum>(mop<kBf16Sum>(al[Const<fwd_at(S, 0)>::v] +
-                                       g[Const<fwd_at(S, 2)>::v]) + be[S]),
-           Const<fwd_at(S, 2)>::v >= 2),
-    branch(mop<kBf16Sum>(mop<kBf16Sum>(al[Const<fwd_at(S, 1)>::v] +
-                                       g[Const<fwd_at(S, 3)>::v]) + be[S]),
-           Const<fwd_at(S, 3)>::v >= 2)),
-   ...);
-  return mop<kBf16Sum>(l0 - l1);
-}
-
-// kMode: kUnfF32 (f32 trellis and combine), kUnfBf16 (bf16 trellis, bf16
-// stores and combine) or kUnfBf16F32 (bf16 trellis, f32 combine).  u, v,
-// l_out: f32, or bf16 bits under a bf16 trellis.  Thread i of block b runs
-// chain b * blockDim.x + i of the (c * n_w) chains.
-template <int kMode>
-__global__ void turbo_half_unfused_kernel(const void* __restrict__ u,
-                                          const void* __restrict__ v,
-                                          const float* __restrict__ a_init,
-                                          const float* __restrict__ b_init,
-                                          void* __restrict__ l_out,
-                                          float* __restrict__ a_nii,
-                                          float* __restrict__ b_nii, int n,
-                                          int n_w, int win, int acq,
-                                          long long chains) {
-  constexpr bool kBf16 = kMode != kUnfF32;
-  using Store = std::conditional_t<kBf16, uint16_t, float>;
-  extern __shared__ float smem_unfused[];
-  const long long chain = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (chain >= chains) return;
-  const int nt = blockDim.x;
-  Store* st = reinterpret_cast<Store*>(smem_unfused) + threadIdx.x;
-  const long long row = chain / n_w * (long long)n;
-  const int base = (int)(chain % n_w) * win;
-  const auto seq8 = std::make_integer_sequence<int, 8>{};
-
-  auto in = [&](const void* x, int pos) {       // 0 outside [0, n)
-    if (pos < 0 || pos >= n) return 0.0f;
-    if constexpr (kBf16)
-      return __uint_as_float(
-          (unsigned)static_cast<const uint16_t*>(x)[row + pos] << 16);
-    else
-      return static_cast<const float*>(x)[row + pos];
-  };
-  auto put = [&](float x) -> Store {            // a store's bits
-    if constexpr (kBf16) return (uint16_t)(__float_as_uint(x) >> 16);
-    else return x;
-  };
-  auto get = [&](Store x) -> float {
-    if constexpr (kBf16) return __uint_as_float((unsigned)x << 16);
-    else return x;
-  };
-
-  float a[8], b[8], g[4];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {                  // the inits in the metric type
-    a[s] = mop<kBf16>(a_init[chain * 8 + s]);
-    b[s] = mop<kBf16>(b_init[chain * 8 + s]);
-  }
-  // acquisition: alpha over the previous window's tail, beta over the next
-  // window's head, each frozen outside [0, n)
-  for (int t = 0; t < acq; ++t) {
-    const int pa = base - acq + t;
-    if (pa >= 0 && pa < n) {
-      gammas4<kBf16>(in(u, pa), in(v, pa), g);
-      acs8<kBf16, true>(a, g, seq8);
-    }
-    const int pb = base + win + acq - 1 - t;
-    if (pb < n) {
-      gammas4<kBf16>(in(u, pb), in(v, pb), g);
-      acs8<kBf16, false>(b, g, seq8);
-    }
-  }
-  const int period = win % 4 == 0 ? 4 : 2;
-
-  // the alpha sweep, unmasked, storing each pre-step alpha at (t, s)
-  for (int t = 0; t < win; ++t) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) st[(t * 8 + s) * nt] = put(a[s]);
-    gammas4<kBf16>(in(u, base + t), in(v, base + t), g);
-    acs8<kBf16, true>(a, g, seq8);
-    if (kBf16 && (t + 1) % period == 0) {
-      const float s0 = a[0];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) a[s] = mop<kBf16>(a[s] - s0);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-    a_nii[chain * 8 + s] = get(st[((win - acq) * 8 + s) * nt]);
-
-  // the beta sweep, frozen at dead positions; the combine of position j
-  // reads the pre-step beta (beta at j + 1) and the stored alpha at j
-  for (int t = 0; t < win; ++t) {
-    const int j = win - 1 - t;
-    const int pos = base + j;
-    if (j == acq - 1) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) b_nii[chain * 8 + s] = b[s];
-    }
-    gammas4<kBf16>(in(u, pos), in(v, pos), g);
-    if (pos < n) {
-      float al[8];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) al[s] = get(st[(j * 8 + s) * nt]);
-      const float l = combine16<kMode == kUnfBf16>(al, g, b, seq8);
-      if constexpr (kBf16)
-        static_cast<uint16_t*>(l_out)[row + pos] =
-            (uint16_t)(__float_as_uint(mop<true>(l)) >> 16);
-      else
-        static_cast<float*>(l_out)[row + pos] = l;
-      acs8<kBf16, false>(b, g, seq8);
-    }
-    if (kBf16 && (t + 1) % period == 0) {
-      const float s0 = b[0];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) b[s] = mop<kBf16>(b[s] - s0);
-    }
-  }
-}
-
 }  // namespace
 
 // Shared memory of a block of wpb windows, bytes: the slab, 8 bytes a
-// position (f32 (u, v); bf16 (u, v) of two codeblocks), and the stores,
-// 4 bytes a metric (f32; a bf16 pair of two codeblocks).  The bf16
-// kernel's raw planes fit in its stores.
-static size_t turbo_smem_bytes(int win, int acq, int wpb) {
-  const size_t slab_slots = (size_t)wpb * win + 2 * acq + wpb + 1;
+// position (f32 (u, v); bf16 (u, v) of two codeblocks), with the unfused
+// instances' kGuard slots before it, and the stores, 4 bytes a metric
+// (f32; a bf16 pair of two codeblocks).  The bf16 kernel's raw planes fit
+// in its stores (acq <= win).
+static size_t turbo_smem_bytes(int win, int acq, int wpb, bool unfused) {
+  const size_t slab_slots = (size_t)wpb * win + 2 * acq + wpb + 1 +
+                            (unfused ? kGuard : 0);
   const size_t chain = 2 * ((size_t)(win / 2) * 8 + 8);
   return 8 * slab_slots + 4 * wpb * chain;
 }
@@ -1216,29 +1192,33 @@ static int prepare(Kernel kernel, size_t smem) {
       (int)cudaSharedmemCarveoutMaxShared);
 }
 
+template <int kUnf, bool kOddHalf>
 static int launch_f32(const void* u, const void* v, const float* a_init,
                       const float* b_init, void* l_out, float* a_nii,
                       float* b_nii, int c, int n, int n_w, int win, int acq,
                       int wpb, int pad, cudaStream_t stream) {
-  const size_t smem = turbo_smem_bytes(win, acq, wpb);
-  if (int e = prepare(turbo_half_kernel, smem)) return e;
+  const size_t smem = turbo_smem_bytes(win, acq, wpb, kUnf != kFused);
+  auto kernel = turbo_half_kernel<kUnf, kOddHalf>;
+  if (int e = prepare(kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)c * blocks_per_row;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  turbo_half_kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
+  kernel<<<(unsigned)blocks, wpb * kLanes, smem, stream>>>(
       static_cast<const float*>(u), static_cast<const float*>(v), a_init,
       b_init, static_cast<float*>(l_out), a_nii, b_nii, n, n_w, win, acq,
       wpb, blocks_per_row, pad);
   return (int)cudaGetLastError();
 }
 
-template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched>
+template <bool kFold, bool kAsync, int kPad, bool kComb, bool kSched,
+          int kUnf = kFused, bool kOddHalf = false>
 static int launch_bf16(const void* u, const void* v, const float* a_init,
                        const float* b_init, void* l_out, float* a_nii,
                        float* b_nii, int c, int n, int n_w, int win, int acq,
                        int wpb, int sched, cudaStream_t stream) {
-  const size_t smem = turbo_smem_bytes(win, acq, wpb);
-  auto kernel = turbo_half_bf16_kernel<kFold, kAsync, kPad, kComb, kSched>;
+  const size_t smem = turbo_smem_bytes(win, acq, wpb, kUnf != kFused);
+  auto kernel = turbo_half_bf16_kernel<kFold, kAsync, kPad, kComb, kSched,
+                                       kUnf, kOddHalf>;
   if (int e = prepare(kernel, smem)) return e;
   const int blocks_per_row = (n_w + wpb - 1) / wpb;
   const long long blocks = (long long)((c + 1) / 2) * blocks_per_row;
@@ -1263,29 +1243,23 @@ static Launch bf16_form(int pad) {
              : &launch_bf16<true, true, kPadFree, kComb, kSched>;
 }
 
-// The unfused kernel: T chains a block, T the largest power of two <= 32
-// whose stores fit in 64 KB (three blocks an SM), at least 1.
-template <int kMode>
-static int launch_unfused(const void* u, const void* v, const float* a_init,
-                          const float* b_init, void* l_out, float* a_nii,
-                          float* b_nii, int c, int n, int n_w, int win,
-                          int acq, cudaStream_t stream) {
-  const size_t chain_bytes = (size_t)win * 8 * (kMode == kUnfF32 ? 4 : 2);
-  int threads = 32;
-  while (threads > 1 && threads * chain_bytes > 64 * 1024) threads /= 2;
-  const size_t smem = threads * chain_bytes;
-  auto kernel = turbo_half_unfused_kernel<kMode>;
-  if (int e = prepare(kernel, smem)) return e;
-  const long long chains = (long long)c * n_w;
-  const long long blocks = (chains + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      u, v, a_init, b_init, l_out, a_nii, b_nii, n, n_w, win, acq, chains);
-  return (int)cudaGetLastError();
+// the unfused body's instance of a trellis (bf16: 0 f32, 1 bf16) and
+// combine (f32store: its f32 sums) at a half window of either parity
+template <bool kOddHalf>
+static Launch unfused_form(int bf16, int f32store) {
+  return !bf16 ? &launch_f32<kUnfused, kOddHalf>
+         : f32store ? &launch_bf16<true, true, kPadFreeze, false, false,
+                                   kUnfusedF32Sum, kOddHalf>
+                    : &launch_bf16<true, true, kPadFreeze, false, false,
+                                   kUnfused, kOddHalf>;
 }
 
-static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
-  return !(win % 4 != 0 || acq <= 0 || acq > win / 2 || n_w * win < n ||
+// fused: the fused kernels' win (a multiple of 4) and acq <= win/2; else
+// the unfused body's (any even win, acq <= win)
+static bool valid_args(int n, int n_w, int win, int acq, int wpb,
+                       bool fused) {
+  return !(win <= 0 || win % (fused ? 4 : 2) != 0 || acq <= 0 ||
+           acq > (fused ? win / 2 : win) || n_w * win < n ||
            (n_w - 1) * win >= n || wpb <= 0 || wpb * kLanes > 1024 ||
            (wpb * kLanes) % 32 != 0);
 }
@@ -1300,10 +1274,11 @@ static bool valid_args(int n, int n_w, int win, int acq, int wpb) {
 // unroll: 0, or the layout kernel's resolved unroll U whose steps the bf16
 // trellis renormalises after (bf16 = 1, U >= 1 dividing win/2: the kSched
 // instances).
-// fused = 0 runs the unfused kernel: pad 1 (frozen) only, no bf16 combine,
-// no unroll, any even win, 0 < acq <= win, wpb unused; f32store = 1 (bf16
-// = 1 only) gives it the f32 combine of "bf16_f32store".  Any other
-// combination is rejected.  Returns cudaGetLastError.
+// fused = 0 runs the unfused body's instances of the same kernels: pad 1
+// (frozen) only, no bf16 combine, no unroll, any even win, 0 < acq <= win;
+// f32store = 1 (bf16 = 1 only) gives it the f32 combine of
+// "bf16_f32store".  Any other combination is rejected.  Returns
+// cudaGetLastError.
 extern "C" int lteax_turbo_half(const void* u, const void* v,
                                 const float* a_init, const float* b_init,
                                 void* l_out, float* a_nii, float* b_nii,
@@ -1312,18 +1287,16 @@ extern "C" int lteax_turbo_half(const void* u, const void* v,
                                 int fused, int unroll, int f32store,
                                 cudaStream_t stream) {
   if (!fused) {
-    if (win <= 0 || win % 2 || acq <= 0 || acq > win || n_w * win < n ||
-        (n_w - 1) * win >= n || pad != kPadFreeze || combine_bf16 || unroll ||
-        (f32store && !bf16))
+    if (!valid_args(n, n_w, win, acq, wpb, false) || pad != kPadFreeze ||
+        combine_bf16 || unroll || (f32store && !bf16))
       return (int)cudaErrorInvalidValue;
     if (c <= 0) return 0;
-    const auto launch = !bf16     ? &launch_unfused<kUnfF32>
-                        : f32store ? &launch_unfused<kUnfBf16F32>
-                                   : &launch_unfused<kUnfBf16>;
+    const Launch launch = (win / 2) % 2 ? unfused_form<true>(bf16, f32store)
+                                        : unfused_form<false>(bf16, f32store);
     return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
-                  acq, stream);
+                  acq, wpb, bf16 ? 0 : pad, stream);
   }
-  if (!valid_args(n, n_w, win, acq, wpb) || pad < kPadPin ||
+  if (!valid_args(n, n_w, win, acq, wpb, true) || pad < kPadPin ||
       pad > kPadFree || (combine_bf16 && !bf16) || f32store || unroll < 0 ||
       (unroll && (!bf16 || (win / 2) % unroll)))
     return (int)cudaErrorInvalidValue;
@@ -1337,8 +1310,9 @@ extern "C" int lteax_turbo_half(const void* u, const void* v,
     return launch(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w, win,
                   acq, wpb, unroll, stream);
   }
-  return launch_f32(u, v, a_init, b_init, l_out, a_nii, b_nii, c, n, n_w,
-                    win, acq, wpb, pad, stream);
+  return launch_f32<kFused, false>(u, v, a_init, b_init, l_out, a_nii,
+                                   b_nii, c, n, n_w, win, acq, wpb, pad,
+                                   stream);
 }
 
 // The bf16 kernel's variants, for timing them against one another: after
@@ -1351,7 +1325,8 @@ extern "C" int lteax_turbo_half_bf16_variant(
     const void* u, const void* v, const float* a_init, const float* b_init,
     void* l_out, float* a_nii, float* b_nii, int c, int n, int n_w, int win,
     int acq, int wpb, int freeze, int variant, cudaStream_t stream) {
-  if (!valid_args(n, n_w, win, acq, wpb) || variant < 1 || variant > 3)
+  if (!valid_args(n, n_w, win, acq, wpb, true) || variant < 1 ||
+      variant > 3)
     return (int)cudaErrorInvalidValue;
   if (c <= 0) return 0;
   Launch launch;

@@ -12,10 +12,12 @@ a lane in bf16x2 registers), pinned, frozen or free padding (``pinpad``,
 ``nofreeze``) and, in bf16, the combine's sums and maxes in f32 or in
 bf16 (``combine_bf16``), and the layout kernel's bf16 renormalisation at the
 reference's ``blane_unroll`` (:func:`renorm_steps`).  The reference's
-unfused natural kernel (``_make_kernel``, ``fused=False``: whole-window
-alpha and beta stores, then one combine pass) is a CUDA kernel of its own,
-one thread a chain (``turbo_half_unfused_kernel``), in f32, bf16 and
-bf16_f32store, whose combines differ.
+unfused natural kernel (``_make_kernel``, ``fused=False``, and acq > win/2:
+whole-window alpha and beta stores, then one combine pass) runs as
+instances of the same two kernels on the same lanes and walk (``kUnf``:
+its ungrouped combine, its renormalisation over the whole window, acq up
+to win, any even win), in f32, bf16 and bf16_f32store, whose combines
+differ.
 :func:`half_iteration_plain` is the same arithmetic in plain torch,
 vectorised the way the Pallas body is: a Python loop over trellis steps on
 (C, n_w) tensors.  :func:`half_iteration_raw`
@@ -438,16 +440,18 @@ def half_iteration_kernel(u, v, a_init, b_init, win: int, acq: int,
     the row run on zeros and write nothing).  It needs no scratch: the
     three outputs are all it allocates.  u, v are staged in the metric
     dtype (a bf16 form reads bf16 u, v and writes bf16 l); the inits and
-    the NII exports stay f32.  ``fused`` False launches the unfused
-    kernel, one thread a chain (``wpb`` unused; any even win, acq up to
-    win); ``unroll`` as :func:`half_iteration_raw`."""
+    the NII exports stay f32.  ``fused`` False launches the kernels'
+    unfused instances (any even win, acq up to win); ``unroll`` as
+    :func:`half_iteration_raw`."""
     global LAUNCHES
     _check_acq(win, acq, fused)
     pinpad, nofreeze, combine_bf16 = resolve_form(mdtype, pinpad, nofreeze,
                                                   combine_bf16, fused)
     ru = renorm_unroll(mdtype, win, unroll) if fused else None
-    if fused and (win % 4 or wpb <= 0 or wpb % 4):
-        raise ValueError("the kernel needs win and wpb to be multiples of 4")
+    if wpb <= 0 or wpb % 4:
+        raise ValueError("the kernel needs wpb to be a multiple of 4")
+    if fused and win % 4:
+        raise ValueError("the fused kernels need win to be a multiple of 4")
     out = _launch("lteax_turbo_half", u, v, a_init, b_init, win, acq, wpb,
                   mdtype, int(_TRELLIS[mdtype] == "bf16"),
                   PADS[_pad(pinpad, nofreeze)], int(combine_bf16),

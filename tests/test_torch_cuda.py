@@ -140,10 +140,20 @@ def test_turbo_kernel_knob_forms_match_plain(dev, mdtype, pinpad, nofreeze,
     (37, 1024, 36, 16),      # win 36: renormalised every 4, over the window
     (37, 1152, 128, 96),     # acq > win/2: the unfused kernel's own range
     (37, 1024, 34, 34),      # win not a multiple of 4, acq = win
-    (1, 224, 32, 16), (3, 5824, 128, 128)])
+    (1, 224, 32, 16), (3, 5824, 128, 128),
+    (3329, 5824, 128, 16),   # an odd C: the last pair's high half dead
+    (38, 1027, 128, 16),     # the last window's dead steps: 122 ...
+    (37, 1026, 128, 16),     # ... and 123
+    (37, 1152, 128, 65),     # acq = win/2 + 1: the NII exports stored
+    (37, 1024, 36, 36),      # period 4 over the window (fused: 2), acq = win
+    (37, 100, 128, 128),     # n < win: one window, no live acquisition
+    (37, 1024, 34, 1)])      # acq < 4: the guard slots before the slab
 def test_turbo_unfused_kernel_matches_plain(dev, mdtype, c, k, win, acq):
     """The unfused kernel (the reference's fused=False) bit for bit in each
-    mdtype, counted under its own form, and its wrapper's refusals."""
+    mdtype, counted under its own form, and its wrapper's refusals: the
+    fused kernels' walk with its own combine, at the layout's edges (an odd
+    C, the last window's dead steps of either parity, the NII exports in
+    the store phase, a half window of 17, acq from 1 to win)."""
     n = k + 3
     n_w = -(-n // win)
     rng = np.random.default_rng(k + win + acq)

@@ -128,9 +128,8 @@ def test_cuda_source_wiring():
     assert table("TRELLIS_FWD") == fwd
     assert table("TRELLIS_BWD") == bwd
     # the kernels take both tables from these macros and nowhere else: the
-    # host tables, the constant-memory ones and the unfused kernel's
-    # compile-time accessors (fwd_at, bwd_at)
-    assert src.count("= TRELLIS_FWD;") == src.count("= TRELLIS_BWD;") == 3
+    # host tables and the constant-memory ones
+    assert src.count("= TRELLIS_FWD;") == src.count("= TRELLIS_BWD;") == 2
     # what the kernel derives from BWD: state s goes to n0 under g0 on bit 0
     # and to n1 under g1 on bit 1, and a branch pair's codes sum to 3
     assert tuple((r[0], r[2]) for r in bwd) == out0

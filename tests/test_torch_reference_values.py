@@ -105,10 +105,11 @@ def _port_half(u, v, a0, b0, win, acq, mdtype, **kw):
 
 # (mdtype, win, acq, K): K = 640 leaves 125 dead steps in the last window;
 # win 36 renormalises every 4 steps over the window (the fused kernel:
-# every 2 over its half); acq 96 > win/2 is the unfused kernel's alone
+# every 2 over its half); acq 96 > win/2 is the unfused kernel's alone;
+# win 34 has an odd half window (17) and acq = win
 UNFUSED_CASES = [("f32", 128, 16, 640), ("bf16", 128, 16, 640),
                  ("bf16_f32store", 128, 16, 640), ("bf16", 36, 16, 200),
-                 ("bf16_f32store", 128, 96, 640)]
+                 ("bf16_f32store", 128, 96, 640), ("f32", 34, 34, 200)]
 
 
 @pytest.mark.parametrize("mdtype,win,acq,k", UNFUSED_CASES)
