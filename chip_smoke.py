@@ -2477,9 +2477,9 @@ def run_trace(card: str) -> dict:
     kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
                       and k in e.get("name", ""))
                for k in ("turbo_half_kernel", "demap_kernel")}
-    ranges = names.count("decode_batch")
+    ranges = names.count("lteax.decode_batch")
     print(f"[trace] {Path(res['trace']).name}: {len(events)} events, "
-          f"'decode_batch' ranges {ranges}, kernels {kernels}, "
+          f"'lteax.decode_batch' ranges {ranges}, kernels {kernels}, "
           f"{Path(res['trace']).stat().st_size / 1e6:.1f} MB; launches "
           f"{counts} ({card})")
     if res["crc_ok"] != TRACE_BATCH or not ranges or \

@@ -2,7 +2,8 @@
 the card's name and power limit, the IQ staging of the device boundary,
 the decoders' numerics options, and decode times on the host's clock around synchronised calls (a decode
 syncs on device flags itself, so the host clock is what a caller waits),
-each call a ``decode_batch`` range, optionally profiled into a trace."""
+each call a ``lteax.decode_batch`` range, optionally profiled into a
+trace."""
 
 from __future__ import annotations
 
@@ -97,7 +98,7 @@ def _sync(device: torch.device) -> None:
 
 def time_decode(dec, x: torch.Tensor, reps: int) -> tuple[float, float]:
     """(median, p90) seconds of ``dec(x)`` over ``reps`` synchronised
-    calls, each a ``decode_batch`` range."""
+    calls, each a ``lteax.decode_batch`` range."""
     times = []
     for _ in range(reps):
         _sync(x.device)

@@ -28,12 +28,18 @@ runs it for CPU tensors and launches the kernel for CUDA tensors.
 pinned window boundaries, next-iteration init (NII), the half-iteration CRC
 early stop and the multi-level compacted retry.  The reference's
 ``lax.while_loop``/``lax.cond`` become host branches on one device flag
-each; :class:`TurboStats` counts those host syncs.
+each; :class:`TurboStats` counts those host syncs and the host seconds
+they block.  The batch's layout (its systematic, parity and interleaved
+streams and the zero state), the full-batch iterations, the compacted retry
+and the full-batch early-stop loop are the stages ``turbo.layout``,
+``turbo.iter``, ``turbo.compact`` and ``turbo.earlystop``
+(:class:`lteax_torch.utils.trace.stage`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from functools import lru_cache
 
 import numpy as np
@@ -43,6 +49,7 @@ from lteax_torch.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
 from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok
 from lteax_torch.phy.fec.turbo import _unrolled_wiring
 from lteax_torch.phy.tuning import MDTYPES, blane_renorm_unroll
+from lteax_torch.utils.trace import stage
 
 NEG = -1e9
 PIN = 512.0
@@ -555,20 +562,29 @@ def _pin_boundaries(a_init, b_init):
 
 @dataclasses.dataclass
 class TurboStats:
-    """What one decode did: full iterations (the reference's ``n_iter``),
-    host syncs on a device flag, and each compacted retry as
-    (full-batch iterations done, blocks failing)."""
+    """What one decode did: iterations (the reference's ``n_iter``), host
+    syncs on a device value, each compacted retry as (full-batch
+    iterations done, blocks failing), the full-batch iterations (``full``:
+    ``n_iter`` is ``full`` plus the early-stop loop's iterations) and the
+    host seconds the syncs blocked (``wait_s``)."""
     n_iter: int = 0
     syncs: int = 0
     retries: list = dataclasses.field(default_factory=list)
+    full: int = 0
+    wait_s: float = 0.0
+
+    def _read(self, to, x: torch.Tensor):
+        t0 = time.perf_counter()
+        value = to(x)
+        self.wait_s += time.perf_counter() - t0
+        self.syncs += 1
+        return value
 
     def flag(self, x: torch.Tensor) -> bool:
-        self.syncs += 1
-        return bool(x)
+        return self._read(bool, x)
 
     def count(self, x: torch.Tensor) -> int:
-        self.syncs += 1
-        return int(x)
+        return self._read(int, x)
 
 
 @lru_cache(maxsize=16)
@@ -661,8 +677,6 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     layout = layout_path(c, early_crc, retry_m, layout_glue=layout_glue,
                          fused=fused)
     presum = mdtype != "f32" and layout
-    if mdtype == "f32" or presum:
-        llr_d = llr_d.to(dt_e)
 
     def data_from(x):
         d0, d1, d2 = x[:, 0], x[:, 1], x[:, 2]
@@ -729,10 +743,13 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         """DEC1's APP LLR (the presum form carries its u beside it)."""
         return l1[0] if presum else l1
 
-    data_full = data_from(llr_d)
-    zero = torch.zeros((c, n_w, 8), dtype=torch.float32, device=dev)
-    init = (torch.zeros((c, k), dtype=dt_e, device=dev),
-            zero, zero, zero, zero)
+    with stage("turbo.layout"):
+        if mdtype == "f32" or presum:
+            llr_d = llr_d.to(dt_e)
+        data_full = data_from(llr_d)
+        zero = torch.zeros((c, n_w, 8), dtype=torch.float32, device=dev)
+        init = (torch.zeros((c, k), dtype=dt_e, device=dev),
+                zero, zero, zero, zero)
 
     def one_iteration(le21, a1, b1, a2, b2):
         dec1, dec2, ext12 = make_halves(data_full, layout)
@@ -744,8 +761,9 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     if early_crc is None:
         state = init
         for _ in range(n_iter):
-            *state, l2 = one_iteration(*state)
-        stats.n_iter = n_iter
+            with stage("turbo.iter"):
+                *state, l2 = one_iteration(*state)
+        stats.n_iter = stats.full = n_iter
         return (l2[:, inv] < 0).to(torch.int8), stats
 
     m_nat, m_perm = tab["m_nat"], tab["m_perm"]
@@ -776,7 +794,8 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         return (bits if from1 else bits[:, inv]), it
 
     if not 0 < retry_m < c:
-        bits, stats.n_iter = run_earlystop(data_full, init, n_iter)
+        with stage("turbo.earlystop"):
+            bits, stats.n_iter = run_earlystop(data_full, init, n_iter)
         return bits, stats
 
     def compact_at(kk, state_k, bits_k, okb_k, n_fail):
@@ -802,16 +821,21 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     kk = 0
     state = init
     while True:
-        *state, l2 = one_iteration(*state)
-        kk += 1
-        okb = crc_parity_ok(l2 < 0, m_perm)
-        bits = (l2 < 0).to(torch.int8)[:, inv]
-        n_fail = stats.count(torch.sum(~okb))
+        with stage("turbo.iter"):
+            *state, l2 = one_iteration(*state)
+            kk += 1
+            okb = crc_parity_ok(l2 < 0, m_perm)
+            bits = (l2 < 0).to(torch.int8)[:, inv]
+            n_fail = stats.count(torch.sum(~okb))
         if n_fail <= retry_m:
-            bits, extra = compact_at(kk, tuple(state), bits, okb, n_fail)
+            with stage("turbo.compact"):
+                bits, extra = compact_at(kk, tuple(state), bits, okb, n_fail)
             break
         if kk >= min(retry_levels, n_iter - 1):
-            bits, extra = run_earlystop(data_full, tuple(state), n_iter - kk)
+            with stage("turbo.earlystop"):
+                bits, extra = run_earlystop(data_full, tuple(state),
+                                            n_iter - kk)
             break
+    stats.full = kk
     stats.n_iter = kk + extra
     return bits, stats

@@ -55,6 +55,16 @@ raise.  Every plan (sign planes, de-match map, chest matrices, CRC matrices, QPP
 tables) is built once per decoder on its device.  The TPU layout glue of
 the reference (flipped-tile maps, lane picks, planar statics, the
 two-program split) is not ported: it existed to avoid TPU relayouts.
+
+A decoder's call is the stage ``decode`` (a profiler's range, a
+recorder's span: :class:`lteax_torch.utils.trace.stage`).  Inside it the
+DL and UL fronts are ``front``, with ``front.dft`` (the OFDM demod, or the
+UL's IDFT de-precoding), ``front.chest`` (the channel and noise estimates
+and the equaliser), ``front.demap`` (the demap's staging and the demap)
+and ``front.dematch`` (the de-match gather) in the order they run; the
+tail is ``turbo``, with the turbo decoder's stages
+(:func:`lteax_torch.kernels.turbo_mlm.turbo_decode_batch`) and
+``turbo.crc`` (CRC24B, desegmentation, CRC24A).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ from lteax_torch.phy.grid import pdsch_flat_idx
 from lteax_torch.phy.mod import demodulate_maxlog, modulate_arith
 from lteax_torch.phy.ofdm import samples_to_subframe
 from lteax_torch.phy.tuning import DecoderTuning
+from lteax_torch.utils.trace import stage
 
 
 def dl_demap_plans(cfg: PhyConfig, re_idx: np.ndarray, geom: PdschGeometry,
@@ -207,6 +218,13 @@ def _iq_to_complex(iq: torch.Tensor) -> torch.Tensor:
                          iq[..., 1].to(torch.float32))
 
 
+def _demap_inputs(x: torch.Tensor, w: torch.Tensor):
+    """Equalised symbols x (B, ...) complex and a real weight broadcast to
+    them -> xr, xi, w, each (B, n) contiguous: the demap kernel's inputs."""
+    flat = lambda t: t.reshape(x.shape[0], -1).contiguous()
+    return flat(x.real), flat(x.imag), flat(w.expand_as(x))
+
+
 class XlaDemap:
     """The reference's XLA-order demap, ``DecoderTuning.pallas_demap``
     False (``lteax/shard/pipeline.py:265-283``, ``:390``, ``:539``): the
@@ -252,6 +270,21 @@ def xla_demap(tuning: DecoderTuning, scheme: str, sgn: np.ndarray,
                     device)
 
 
+def _front(front, x: torch.Tensor, inv: torch.Tensor,
+           int8_carry: torch.dtype | None) -> torch.Tensor:
+    """A DL or UL front's call, the stage ``front``: its LLRs (the demap
+    kernel's planes, or the XLA-order demap's), then the de-match through
+    ``inv``."""
+    with stage("front"):
+        if front.xla is not None:
+            llr = front.xla_llrs(x)
+            with stage("front.dematch"):
+                return front.xla.dematch(llr)
+        planes = front.planes(x)
+        with stage("front.dematch"):
+            return _gather_dematch(planes, inv, front.d_len, int8_carry)
+
+
 class DlFront:
     """IQ of one PDSCH transmission -> de-matched LLRs (B*C, 3, K+4).
     With ``xla`` (:class:`XlaDemap`) and ``re_idx`` the PDSCH REs are
@@ -281,46 +314,49 @@ class DlFront:
         """IQ (B, n_samps, 2) -> the full grid's equalised symbols x, |h|^2
         (B, n_sym*n_sc) and the noise (B, 1)."""
         cfg = self.cfg
-        samples = _iq_to_complex(samples_iq)
-        grid = samples_to_subframe(samples, cfg, self.dft)
-        h = chest.estimate_channel(grid, cfg, self.n_cell_id, self.subframe)
-        nv = chest.estimate_noise_var(grid, cfg, self.n_cell_id,
-                                      self.subframe)[:, None]
-        bsz = samples.shape[0]
-        hf = h.reshape(bsz, -1)
-        p = hf.abs() ** 2
-        x = grid.reshape(bsz, -1) * torch.conj(hf) / (p + nv)
-        x = x / torch.clamp_min(p / (p + nv), 1e-12)
+        with stage("front.dft"):
+            grid = samples_to_subframe(_iq_to_complex(samples_iq), cfg,
+                                       self.dft)
+        with stage("front.chest"):
+            h = chest.estimate_channel(grid, cfg, self.n_cell_id,
+                                       self.subframe)
+            nv = chest.estimate_noise_var(grid, cfg, self.n_cell_id,
+                                          self.subframe)[:, None]
+            bsz = samples_iq.shape[0]
+            hf = h.reshape(bsz, -1)
+            p = hf.abs() ** 2
+            x = grid.reshape(bsz, -1) * torch.conj(hf) / (p + nv)
+            x = x / torch.clamp_min(p / (p + nv), 1e-12)
         return x, p, nv
 
     def equalize(self, samples_iq: torch.Tensor):
         """IQ (B, n_samps, 2) -> full-grid xr, xi, p/nv (B, n_sym*n_sc)."""
         x, p, nv = self._equalized(samples_iq)
-        return x.real.contiguous(), x.imag.contiguous(), (p / nv).contiguous()
+        return _demap_inputs(x, p / nv)
 
     def planes(self, samples_iq: torch.Tensor) -> torch.Tensor:
         """IQ -> the demap kernel's planar LLRs (B, qm, npad)."""
         if self.xla is not None:
             raise ValueError("the XLA-order demap has no planes")
-        xr, xi, inv_nv = (x.to(self.in_dtype)
-                          for x in self.equalize(samples_iq))
-        return demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
-                            self.llr_dtype)
+        x, p, nv = self._equalized(samples_iq)
+        with stage("front.demap"):
+            xr, xi, inv_nv = (t.to(self.in_dtype)
+                              for t in _demap_inputs(x, p / nv))
+            return demap_planar(xr, xi, inv_nv, self.sgn, self.scheme,
+                                self.llr_dtype)
 
     def xla_llrs(self, samples_iq: torch.Tensor) -> torch.Tensor:
         """IQ -> the XLA-order demap's descrambled LLRs (B, G): the
         equalised PDSCH REs and nv / |h|^2 (``chest.equalize_siso``)."""
         x, p, nv = self._equalized(samples_iq)
-        eff = nv / torch.clamp_min(p, 1e-12)
-        return self.xla.llrs(x[:, self.re_idx], eff[:, self.re_idx])
+        with stage("front.demap"):
+            eff = nv / torch.clamp_min(p, 1e-12)
+            return self.xla.llrs(x[:, self.re_idx], eff[:, self.re_idx])
 
     def __call__(self, samples_iq: torch.Tensor,
                  int8_carry: torch.dtype | None = None) -> torch.Tensor:
         """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
-        if self.xla is not None:
-            return self.xla.dematch(self.xla_llrs(samples_iq))
-        return _gather_dematch(self.planes(samples_iq), self.grid_inv,
-                               self.d_len, int8_carry)
+        return _front(self, samples_iq, self.grid_inv, int8_carry)
 
 
 class PuschFront:
@@ -359,65 +395,65 @@ class PuschFront:
     def _equalized(self, grid_iq: torch.Tensor):
         """-> time-domain symbols xt (B, 12, m_sc) and the effective noise
         of each SC-FDMA symbol (B, 12, 1)."""
-        grid = _iq_to_complex(grid_iq)
-        bsz = grid.shape[0]
-        ls0 = grid[:, pusch.DMRS_SYMS[0]] * self.ref0   # raw LS at the pilots
-        ls1 = grid[:, pusch.DMRS_SYMS[1]] * self.ref1
-        if self.noise_var is None:
-            nv = torch.clamp_min(
-                torch.mean((ls0 - ls1).abs() ** 2, dim=-1) / 2.0, 1e-6)
-        else:
-            nv = torch.full((bsz,), self.noise_var, dtype=torch.float32,
-                            device=grid.device)
-        nv = nv[:, None, None]                  # one scalar per subframe
-        h0 = pusch.chest_denoise(ls0, self.taps)[:, None]
-        h1 = pusch.chest_denoise(ls1, self.taps)[:, None]
-        h = (1 - self.w) * h0 + self.w * h1     # (B, 12, m_sc)
-        y = grid[:, self.data_syms]
-        p = h.abs() ** 2
-        xf = y * torch.conj(h) / (p + nv)
-        xf = xf / torch.clamp_min(p / (p + nv), 1e-12)
-        xt = pusch.ul_dft(xf, inverse=True, mode=self.dft)
-        # post-IDFT noise: the mean over each symbol's subcarriers
-        eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1, keepdim=True)
+        with stage("front.chest"):
+            grid = _iq_to_complex(grid_iq)
+            bsz = grid.shape[0]
+            ls0 = grid[:, pusch.DMRS_SYMS[0]] * self.ref0  # raw LS at pilots
+            ls1 = grid[:, pusch.DMRS_SYMS[1]] * self.ref1
+            if self.noise_var is None:
+                nv = torch.clamp_min(
+                    torch.mean((ls0 - ls1).abs() ** 2, dim=-1) / 2.0, 1e-6)
+            else:
+                nv = torch.full((bsz,), self.noise_var, dtype=torch.float32,
+                                device=grid.device)
+            nv = nv[:, None, None]                  # one scalar per subframe
+            h0 = pusch.chest_denoise(ls0, self.taps)[:, None]
+            h1 = pusch.chest_denoise(ls1, self.taps)[:, None]
+            h = (1 - self.w) * h0 + self.w * h1     # (B, 12, m_sc)
+            y = grid[:, self.data_syms]
+            p = h.abs() ** 2
+            xf = y * torch.conj(h) / (p + nv)
+            xf = xf / torch.clamp_min(p / (p + nv), 1e-12)
+            # post-IDFT noise: the mean over each symbol's subcarriers
+            eff = torch.mean(nv / torch.clamp_min(p, 1e-12), dim=-1,
+                             keepdim=True)
+        with stage("front.dft"):
+            xt = pusch.ul_dft(xf, inverse=True, mode=self.dft)
         return xt, eff
 
     def equalize(self, grid_iq: torch.Tensor):
         """-> time-domain xr, xi and 1/eff_nv, each (B, 12*m_sc)."""
         xt, eff = self._equalized(grid_iq)
-        bsz = xt.shape[0]
-        inv_eff = (1.0 / eff).expand_as(xt)
-        return (xt.real.reshape(bsz, -1).contiguous(),
-                xt.imag.reshape(bsz, -1).contiguous(),
-                inv_eff.reshape(bsz, -1).contiguous())
+        return _demap_inputs(xt, 1.0 / eff)
 
     def planes(self, grid_iq: torch.Tensor) -> torch.Tensor:
         """Grids -> the demap kernel's planar LLRs (B, qm, npad)."""
         if self.xla is not None:
             raise ValueError("the XLA-order demap has no planes")
-        xr, xi, inv_eff = (x.to(self.in_dtype)
-                           for x in self.equalize(grid_iq))
-        return demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
-                            self.llr_dtype)
+        xt, eff = self._equalized(grid_iq)
+        with stage("front.demap"):
+            xr, xi, inv_eff = (t.to(self.in_dtype)
+                               for t in _demap_inputs(xt, 1.0 / eff))
+            return demap_planar(xr, xi, inv_eff, self.sgn, self.scheme,
+                                self.llr_dtype)
 
     def xla_llrs(self, grid_iq: torch.Tensor) -> torch.Tensor:
         """Grids -> the XLA-order demap's LLRs (B, G), de-interleaved: the
         data-only channel interleaver is a (12, R, qm) -> (R, 12, qm)
         transpose (36.212 §5.2.2.8)."""
         xt, eff = self._equalized(grid_iq)
-        bsz = xt.shape[0]
-        llr = self.xla.llrs(xt.reshape(bsz, -1),
-                            eff.expand_as(xt).reshape(bsz, -1))
-        qm = llr.shape[1] // xt[0].numel()
-        return llr.reshape(bsz, 12, -1, qm).transpose(1, 2).reshape(bsz, -1)
+        with stage("front.demap"):
+            bsz = xt.shape[0]
+            llr = self.xla.llrs(xt.reshape(bsz, -1),
+                                eff.expand_as(xt).reshape(bsz, -1))
+            qm = llr.shape[1] // xt[0].numel()
+            return llr.reshape(bsz, 12, -1, qm).transpose(1, 2).reshape(
+                bsz, -1)
 
     def __call__(self, grid_iq: torch.Tensor,
                  int8_carry: torch.dtype | None = None) -> torch.Tensor:
         """``int8_carry``: the planes quantized (:func:`_gather_dematch`)."""
-        if self.xla is not None:
-            return self.xla.dematch(self.xla_llrs(grid_iq))
-        return _gather_dematch(self.planes(grid_iq), self.ul_inv,
-                               self.d_len, int8_carry)
+        return _front(self, grid_iq, self.ul_inv, int8_carry)
 
 
 class TurboTail:
@@ -446,24 +482,27 @@ class TurboTail:
         with the turbo decoder's raw output (the SIC re-encode reads it)."""
         t, geom = self.tuning, self.geom
         info = geom.info
-        cb_bits, stats = turbo_decode_batch(
-            llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
-            ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
-            retry_m=self.retry_m, retry_levels=t.retry_levels,
-            mdtype=t.mdtype, pinpad=t.pinpad, nofreeze=t.nofreeze,
-            combine_bf16=t.combine_bf16, fused=t.fused,
-            layout_glue=t.layout_glue, blane_unroll=t.blane_unroll)
-        self.last_stats = stats
-        bits = cb_bits.reshape(-1, info.c, geom.k)
-        if info.cb_crc:
-            payload, cb_ok = check_crc(bits, "24B", self.m24b)
-        else:
-            payload = bits
-            cb_ok = torch.ones(bits.shape[:2], dtype=torch.bool,
-                               device=bits.device)
-        tb_bits, ok = check_crc(desegment_device(payload, info), "24A",
-                                self.m24a)
-        return cb_bits, tb_bits, ok & torch.all(cb_ok, dim=-1), stats.n_iter
+        with stage("turbo"):
+            cb_bits, stats = turbo_decode_batch(
+                llr_d, geom.k, n_iter=self.n_iter, win=t.win, acq=t.acq,
+                ext_scale=t.ext_scale, early_crc=t.early_crc(info.cb_crc),
+                retry_m=self.retry_m, retry_levels=t.retry_levels,
+                mdtype=t.mdtype, pinpad=t.pinpad, nofreeze=t.nofreeze,
+                combine_bf16=t.combine_bf16, fused=t.fused,
+                layout_glue=t.layout_glue, blane_unroll=t.blane_unroll)
+            self.last_stats = stats
+            with stage("turbo.crc"):
+                bits = cb_bits.reshape(-1, info.c, geom.k)
+                if info.cb_crc:
+                    payload, cb_ok = check_crc(bits, "24B", self.m24b)
+                else:
+                    payload = bits
+                    cb_ok = torch.ones(bits.shape[:2], dtype=torch.bool,
+                                       device=bits.device)
+                tb_bits, ok = check_crc(desegment_device(payload, info),
+                                        "24A", self.m24a)
+                ok = ok & torch.all(cb_ok, dim=-1)
+        return cb_bits, tb_bits, ok, stats.n_iter
 
     def __call__(self, llr_d: torch.Tensor):
         return self.decode(llr_d)[1:]
@@ -522,7 +561,8 @@ class _Decoder:
     def __call__(self, x: torch.Tensor):
         if x.device != self.device:
             raise ValueError(f"input on {x.device}, decoder on {self.device}")
-        return self.turbo(self.front(x))
+        with stage("decode"):
+            return self.turbo(self.front(x))
 
 
 def _dl_front(cfg: PhyConfig, n_cell_id: int, subframe: int,
@@ -915,7 +955,8 @@ class MimoSicBatchDecoder(_Decoder):
     CW1 from the maximum-ratio combine of layer 1's clean column.
     Subframes whose CW0 failed its CRC keep CW1's MMSE LLRs.  Same input
     and output as :class:`MimoBatchDecoder`; ``last_stats`` merges the two
-    tails' schedules (n_iter the larger), ``tail_stats`` keeps both."""
+    tails' schedules (n_iter and full the larger, syncs and their wait
+    summed), ``tail_stats`` keeps both."""
 
     def __init__(self, mimo_front: MimoFront, tail: TurboTail,
                  scr0: np.ndarray, rm_idx: np.ndarray, device: torch.device):
@@ -931,7 +972,9 @@ class MimoSicBatchDecoder(_Decoder):
         s0, s1 = self.tail_stats
         return TurboStats(n_iter=max(s0.n_iter, s1.n_iter),
                           syncs=s0.syncs + s1.syncs,
-                          retries=s0.retries + s1.retries)
+                          retries=s0.retries + s1.retries,
+                          full=max(s0.full, s1.full),
+                          wait_s=s0.wait_s + s1.wait_s)
 
     def front(self, batch_iq: torch.Tensor) -> SicFront:
         f = self.mimo_front

@@ -3,7 +3,7 @@
 (reference capability: the debug message stream of
 ``LTE_fdd_enb_interface::send_debug_msg`` with ``LTE_FDD_ENB_DEBUG_TYPE_*``
 / ``LTE_FDD_ENB_DEBUG_LEVEL_*`` masks on debug TCP port 20001, plus the
-ctrl-socket cell reports.  Here: structured counters + rate meters + a
+ctrl-socket cell reports.  Here: structured counters and gauges + a
 JSON-lines event log with the same type/level masking, fan-out to
 subscribers (the debug TCP stream in ``apps/ctrl.py::DebugStreamServer``) —
 host-side, zero dataplane cost.)
@@ -13,9 +13,10 @@ event log).  Apps route decoded-cell reports, per-stage counters, and
 errors through ``EVENTS.emit(...)``; a file sink is attached with
 ``EVENTS.open(path)`` and live consumers with ``EVENTS.subscribe(fn)``.
 
-The port's own copy of ``lteax/utils/metrics.py``: the port
-imports nothing of the JAX package, and ``tests/test_torch_plans.py``
-holds the two equal.
+The port's own copy of ``lteax/utils/metrics.py``, less its
+``Metrics.rate`` and ``throughput_meter``, which nothing here reads: the
+port imports nothing of the JAX package, and ``tests/test_torch_plans.py``
+holds the rest of the two equal.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from collections import defaultdict
 
 
 class Metrics:
-    """Process-wide counter/gauge registry with rate computation."""
+    """Process-wide counter/gauge registry."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -43,12 +44,6 @@ class Metrics:
     def gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = value
-
-    def rate(self, name: str) -> float:
-        """Counter value per second since process start."""
-        dt = time.monotonic() - self._t0
-        with self._lock:
-            return self._counters.get(name, 0.0) / max(dt, 1e-9)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -169,9 +164,3 @@ def ctrl_debug_verbs(events: EventLog | None = None) -> dict:
                                    if ev.types else "all")
 
     return {"debug_level": _level, "debug_types": _types}
-
-
-def throughput_meter(n_bits: int, seconds: float) -> dict:
-    """Standard throughput record for bench outputs."""
-    return {"mbit_per_s": n_bits / seconds / 1e6,
-            "seconds": seconds, "bits": n_bits}
