@@ -835,6 +835,79 @@ def time_turbo_variants(args_bf16, args_f32, win: int, acq: int,
             "f32_same_run_ms": med["f32"]}
 
 
+# the glue kernel's timed shapes (C at K = 5824: the benchmark's edge and its
+# clean cells) and forms: (after, CRC parity, hard decisions) of DEC1 in a
+# full-batch iteration, DEC1 and DEC2 in the early-stop loop, DEC2 in a
+# full-batch iteration
+GLUE_CS = (6656, 13312)
+GLUE_FORMS = ((1, False, False), (1, True, False), (2, True, False),
+              (2, True, True))
+
+
+def glue_bytes(c: int, k: int, n_w: int, crc: bool, bits: bool) -> int:
+    """What the glue must move: l, u and s in and u_next out (2 bytes a
+    position), the NII exports in and the boundaries out (32 bytes a
+    window each), the flag and the bits out, and the permutation (int16)
+    and the CRC rows (uint32) once."""
+    return (c * (2 * (3 * k + k + 3) + 4 * 32 * n_w + crc + k * bits)
+            + 2 * k + 4 * k * crc)
+
+
+def check_turbo_glue(dev) -> dict:
+    """The glue kernel vs its plain version at C = 6656 and 13312, K =
+    5824, in each half's form (``GLUE_FORMS``): bit for bit, then timed in
+    turns (kernel, plain, kernel, plain), the kernel's time the mean of
+    its two turns."""
+    k, win = 5824, 128
+    n, n_w = k + 3, -(-(k + 3) // win)
+    rng = np.random.default_rng(SEED)
+    bf = torch.bfloat16
+    tab = turbo_mod._tables(k, "24B", dev)
+    out = []
+    for c in GLUE_CS:
+        t = lambda *shape, s=6.0, dt=bf: torch.as_tensor(
+            rng.standard_normal(shape).astype(np.float32) * s,
+            device=dev).to(dt)
+        llr = t(c, 3, k + 4)
+        x = {1: (t(c, n), t(c, n), llr[:, 0, :k][:, tab["pi"]]),
+             2: (t(c, n), t(c, n), llr[:, 0, :k])}
+        st, a_nii, b_nii = (t(c, 3), t(c, n_w, 8, dt=torch.float32),
+                            t(c, n_w, 8, dt=torch.float32))
+        for after, crc, bits in GLUE_FORMS:
+            args = (*x[after], st, a_nii, b_nii, tab, after, 0.75)
+            kern = lambda: turbo_mod.turbo_glue(*args, crc=crc, bits=bits)
+            plain = lambda: turbo_mod.turbo_glue_plain(*args, crc=crc,
+                                                       bits=bits)
+            for g, w in zip(kern(), plain()):
+                if not (g is None and w is None or torch.equal(g, w)):
+                    raise AssertionError(f"turbo_glue at C={c}, after "
+                                         f"DEC{after}, crc {crc}, bits "
+                                         f"{bits}: kernel != plain")
+            ms = [cuda_time_ms(f, 20) for f in (kern, plain, kern, plain)]
+            out.append({"c": c, "after": after, "crc": crc, "bits": bits,
+                        "ms": (ms[0] + ms[2]) / 2,
+                        "plain_ms": (ms[1] + ms[3]) / 2,
+                        **bound(glue_bytes(c, k, n_w, crc, bits), 0, 1.0)})
+    return {"name": "turbo_glue", "shape": [list(GLUE_CS), k],
+            "forms": out}
+
+
+def print_turbo_glue(glue: dict, launches: dict, card: str) -> None:
+    """The ``[kernel] turbo_glue`` line: each form's time beside its plain
+    version's and its bound, and the launches of one DL and one UL decode
+    under ``SHIPPED`` (``run_bf16``'s)."""
+    print(f"[kernel] turbo_glue C in {GLUE_CS}, K {glue['shape'][1]}, "
+          "bit-exact vs plain, in turns: " + "; ".join(
+              f"C={f['c']} after DEC{f['after']}"
+              + (" +crc" if f["crc"] else "") + (" +bits" if f["bits"] else "")
+              + f" {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
+              f"{f['bound_ms']:.4f} by bytes, {f['bytes'] / 1e6:.1f} MB, "
+              f"{f['bound_ms'] / f['ms'] * 100:.1f}% of it)"
+              for f in glue["forms"])
+          + "; launches per SHIPPED decode: " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()) + f" ({card})")
+
+
 def check_turbo_mimo(dev) -> dict:
     """The half-iteration kernel vs plain at the TM3 MIMO decode's shape:
     C = 2 codewords * 13 * 256 = 6656 codeblocks, K = 5824; counted as
@@ -3771,7 +3844,9 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
                          ("f32", f32),
                          *((k, dataclasses.replace(SHIPPED, **{k: True}))
                            for k in KNOBS))}
-    forms = {"shipped": (k1, k3), "shipped_fft": (k1, k3),
+    # SHIPPED's turbo tail runs the glue kernel between half-iterations
+    forms = {"shipped": (k1, k3, "turbo_glue"),
+             "shipped_fft": (k1, k3, "turbo_glue"),
              "f32": ("turbo_half_iteration", "demap"),
              **{k: (f, k3) for k, f in KNOBS.items()}}
     r = {p: decode_forms(f"DL headline {p}", d, x, tb, BATCH, forms[p])
@@ -3796,6 +3871,7 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     out["dl"] = {p: {**r[p], "ms": t[p] * 1e3, "mbit_per_s": mb(t[p]),
                      "front_ms": front[p]} for p in decs}
     sh = r["shipped"]
+    out["glue_launches"] = {f"DL B={BATCH}": sh["launches"]["turbo_glue"]}
     launches = {k1: sh["launches"][k1], k3: sh["launches"][k3],
                 **{f: r[k]["launches"][f] for k, f in KNOBS.items()
                    if f != k1}}
@@ -3843,7 +3919,7 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
     # (name, factory, args, keywords, IQ, sent rows, forms, CRC passes
     # required: all but at HARQ's 15 dB, where rv 0 + 2 is near threshold)
     cases = [("UL", make_pusch_batch_decoder, ul_cell.decoder_args(), {},
-              torch.from_numpy(iq), tb, (k1, k3), len(tb))]
+              torch.from_numpy(iq), tb, (k1, k3, "turbo_glue"), len(tb))]
     iq, tb, cells = harq_transmissions(cell, HARQ_SUBFRAMES, HARQ_RVS,
                                        BF16_B, HARQ_SNR_DB, seed=SEED)
     cases.append((f"HARQ {HARQ_SNR_DB} dB", make_batch_harq_decoder,
@@ -3882,6 +3958,7 @@ def run_bf16(cell: DlCell, ul_cell: UlCell, dev, card: str) -> dict:
             launches["demap_bf16_out"] = r_s["launches"]["demap_bf16_out"]
         if name == "UL":
             launches["demap_bf16 (UL shape)"] = r_s["launches"][k3]
+            out["glue_launches"]["UL B=64"] = r_s["launches"]["turbo_glue"]
     print(f"[bf16] B={BF16_B} under SHIPPED (f32), CRC ok: " + ", ".join(
         f"{k} {v['shipped']} ({v['f32']})" for k, v in out["b64"].items())
         + f" ({card})")
@@ -4104,6 +4181,7 @@ def main() -> None:
     turbo_si = timed("check_turbo", check_turbo_si, dev)
     turbo_attach = timed("check_turbo", check_turbo_attach, dev)
     turbo_forms = timed("check_turbo", check_turbo_forms, cell, dev)
+    glue = timed("check_turbo_glue", check_turbo_glue, dev)
     # SIC's front (f32 in, bf16 out) at TM4's shape, with codeword 0's
     # scrambling signs (pad columns emit 0: the de-match's zero slot)
     g4 = MIMO_TM4.geom
@@ -4241,6 +4319,7 @@ def main() -> None:
     multihost = timed("multihost", run_multihost, dev, card, chans4,
                       scan_out["caps"][SHARD_CHANS])
     bf16 = timed("bf16", run_bf16, cell, ul_cell, dev, card)
+    print_turbo_glue(glue, bf16["glue_launches"], card)
     launches.update(bf16["launches"])
     dft = timed("dft", run_dft, dev, card)
     print("[phases] seconds: " + ", ".join(

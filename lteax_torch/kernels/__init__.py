@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU Pallas kernel
 (demap, turbo half-iteration, PSS correlator and detect, polyphase
-resampler, ACS op-mix probe), each beside its plain torch version and a
-launch counter.
+resampler, ACS op-mix probe), and the turbo decoder's glue between
+half-iterations, which the reference leaves to XLA; each beside its plain
+torch version and a launch counter.
 
 A wrapper runs the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.  The kernels are built with nvcc
@@ -21,6 +22,7 @@ def launch_counts() -> dict:
             "turbo_half_iteration": turbo_mlm.LAUNCHES,
             **{f"turbo_half_iteration_{f}": c
                for f, c in turbo_mlm.FORM_LAUNCHES.items()},
+            "turbo_glue": turbo_mlm.GLUE_LAUNCHES,
             "pss_corr_mag": pss.CORR_LAUNCHES,
             "pss_corr_mag_bf16": pss.CORR_BF16_LAUNCHES,
             "pss_detect": pss.DETECT_LAUNCHES,
@@ -34,6 +36,7 @@ def reset_launch_counts() -> None:
     from lteax_torch.kernels import (acs_probe, demap, polyphase, pss,
                                      turbo_mlm)
     demap.LAUNCHES = turbo_mlm.LAUNCHES = polyphase.LAUNCHES = 0
+    turbo_mlm.GLUE_LAUNCHES = 0
     acs_probe.LAUNCHES = 0
     pss.CORR_LAUNCHES = pss.CORR_BF16_LAUNCHES = 0
     pss.DETECT_LAUNCHES = pss.DETECT_BF16_LAUNCHES = 0

@@ -37,12 +37,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "lteax_demap": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     "lteax_turbo_half": [_P, _P, _P, _P, _P, _P, _P, *[_I] * 12, _P],
     "lteax_turbo_half_bf16_variant": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lteax_turbo_glue": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _F,
+                         _I, _I, _I, *[_P] * 8],
     "lteax_pss_corr": [_P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_detect": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lteax_pss_corr_bf16": [_P, _P, _P, _I, _I, _I, _P],

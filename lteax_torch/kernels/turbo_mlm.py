@@ -26,7 +26,11 @@ runs it for CPU tensors and launches the kernel for CUDA tensors.
 :func:`turbo_decode_batch` is the natural-path half of
 ``turbo_decode_batch_pallas``: DEC1/DEC2 halves with the QPP gathers,
 pinned window boundaries, next-iteration init (NII), the half-iteration CRC
-early stop and the multi-level compacted retry.  The reference's
+early stop and the multi-level compacted retry.  On the reference's layout
+path in bf16 the glue after each half (the extrinsic, the QPP gather into
+the next half's input, the NII hand-over and the CRC parity) is one kernel,
+``csrc/turbo_glue.cu`` (:func:`turbo_glue`; its plain version
+:func:`turbo_glue_plain`).  The reference's
 ``lax.while_loop``/``lax.cond`` become host branches on one device flag
 each; :class:`TurboStats` counts those host syncs and the host seconds
 they block.  The batch's layout (its systematic, parity and interleaved
@@ -46,7 +50,7 @@ import numpy as np
 import torch
 
 from lteax_torch.phy.tables.turbo_qpp import qpp_deinterleaver, qpp_interleaver
-from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok
+from lteax_torch.phy.fec.crc import crc_matrix, crc_parity_ok, pack_rows
 from lteax_torch.phy.fec.turbo import _unrolled_wiring
 from lteax_torch.phy.tuning import MDTYPES, blane_renorm_unroll
 from lteax_torch.utils.trace import stage
@@ -83,6 +87,13 @@ gets its key at its first launch), and the unfused kernel by mdtype
 
 _TRELLIS = {"f32": "f32", "bf16": "bf16", "bf16_f32store": "bf16"}
 """The kernel's trellis of each ``mdtype``."""
+
+GLUE_LAUNCHES = 0
+"""Launches of the glue kernel (:func:`turbo_glue`) since the last reset."""
+
+GLUE_TABLES = {1: ("pi", "m_nat"), 2: ("inv", "m_perm")}
+"""The permutation and the CRC matrix (:func:`_tables`' keys) of the glue
+after DEC1 (1) and after DEC2 (2)."""
 
 
 def _gammas(uu, vv):
@@ -538,14 +549,19 @@ def _nii_post(a_nii, b_nii):
 def half_iteration(u, v, a_init, b_init, win: int, acq: int,
                    mdtype: str = "f32", pinpad: bool = True,
                    nofreeze: bool = False, combine_bf16: bool = False,
-                   *, fused: bool = True, unroll: int | None = None):
+                   *, fused: bool = True, unroll: int | None = None,
+                   raw: bool = False):
     """u, v (C, n); a_init/b_init (C, n_w, 8) -> (L (C, n), a_next, b_next)
-    with the reference's NII convention (``half_iteration_pallas``)."""
+    with the reference's NII convention (``half_iteration_pallas``);
+    ``raw``: the NII exports as the kernel wrote them
+    (:func:`half_iteration_raw`), which the glue hands over
+    (:func:`turbo_glue`).  Every half-iteration of a decode goes through
+    this function, so a test can watch what each receives."""
     l, a_nii, b_nii = half_iteration_raw(u, v, a_init, b_init, win, acq,
                                          mdtype, pinpad, nofreeze,
                                          combine_bf16, fused=fused,
                                          unroll=unroll)
-    return (l, *_nii_post(a_nii, b_nii))
+    return (l, a_nii, b_nii) if raw else (l, *_nii_post(a_nii, b_nii))
 
 
 def _pin_boundaries(a_init, b_init):
@@ -560,18 +576,97 @@ def _pin_boundaries(a_init, b_init):
     return a, b
 
 
+def turbo_glue_plain(l, u, s, st, a_nii, b_nii, tab: dict, after: int,
+                     ext_scale: float, *, crc: bool = False,
+                     bits: bool = False):
+    """Plain torch version of the glue kernel: what the presum form (the
+    reference's layout path in bf16) does between two half-iterations.
+
+    The half after which it runs (``after`` 1: DEC1, 2: DEC2) read u and
+    wrote l (C, K+3) and the raw NII exports a_nii, b_nii (C, n_w, 8).  The
+    extrinsic is ext_scale * (l - u) over the first K positions, taken
+    through the permutation that ``tab`` (:func:`_tables`) holds for that
+    half (:data:`GLUE_TABLES`: pi after DEC1, its inverse after DEC2) and
+    added to the other half's static LLRs s (C, K); its 3 tail values st
+    (C, 3) follow.  Returns (u_next (C, K+3), a_next, b_next (C, n_w, 8)
+    pinned, ok, bits): ok (``crc``) each row's CRC parity of l < 0 against
+    the half's matrix, bits (``bits``, with ``crc`` only) the hard
+    decisions l < 0 through the permutation, int8 (natural order after
+    DEC2); None where not asked for.  l is read in u's dtype, the
+    extrinsic carry's."""
+    p_key, m_key = GLUE_TABLES[after]
+    perm = tab[p_key]
+    k = perm.shape[0]
+    lk = l[:, :k].to(u.dtype)
+    u_next = torch.cat([s + (ext_scale * (lk - u[:, :k]))[:, perm], st],
+                       dim=1)
+    a_next, b_next = _pin_boundaries(*_nii_post(a_nii, b_nii))
+    ok = crc_parity_ok(lk < 0, tab[m_key]) if crc else None
+    hard = (lk < 0).to(torch.int8)[:, perm] if bits else None
+    return u_next, a_next, b_next, ok, hard
+
+
+def turbo_glue(l, u, s, st, a_nii, b_nii, tab: dict, after: int,
+               ext_scale: float, *, crc: bool = False, bits: bool = False):
+    """:func:`turbo_glue_plain` in bf16 (l, u, s and st bf16, rows of unit
+    stride): CPU tensors take the plain version, CUDA tensors launch the
+    kernel (``csrc/turbo_glue.cu``, one block a row), which reads the
+    permutation in int16 and the CRC matrix as rows packed into 32 bits
+    (:func:`_tables`)."""
+    global GLUE_LAUNCHES
+    if not l.is_cuda:
+        return turbo_glue_plain(l, u, s, st, a_nii, b_nii, tab, after,
+                                ext_scale, crc=crc, bits=bits)
+    from lteax_torch.kernels._build import check_cuda, library, stream_handle
+    p_key, m_key = GLUE_TABLES[after]
+    perm = tab[p_key + "16"]
+    c, k = u.shape[0], perm.shape[0]
+    n_w = a_nii.shape[1]
+    for x in (l, u, s, st):
+        if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 2
+                and x.shape[0] == c and x.stride(1) == 1):
+            raise ValueError("turbo_glue: needs bf16 CUDA rows of unit "
+                             f"stride, got {x.dtype} {tuple(x.shape)}")
+    if min(l.shape[1], u.shape[1]) < k or s.shape[1] != k or st.shape[1] != 3:
+        raise ValueError(f"turbo_glue: K = {k} needs l, u (C, >= K), s "
+                         "(C, K) and st (C, 3)")
+    check_cuda("turbo_glue", a_nii, b_nii)
+    if a_nii.shape != (c, n_w, 8) or b_nii.shape != a_nii.shape:
+        raise ValueError(f"turbo_glue: the NII exports must be {(c, n_w, 8)}")
+    dev = u.device
+    u_next = torch.empty((c, k + 3), dtype=torch.bfloat16, device=dev)
+    a_next = torch.empty_like(a_nii)
+    b_next = torch.empty_like(b_nii)
+    ok = torch.empty(c, dtype=torch.bool, device=dev) if crc else None
+    hard = (torch.empty((c, k), dtype=torch.int8, device=dev) if bits
+            else None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    library().call("lteax_turbo_glue", l.data_ptr(), l.stride(0),
+                   u.data_ptr(), u.stride(0), s.data_ptr(), s.stride(0),
+                   st.data_ptr(), st.stride(0), perm.data_ptr(),
+                   ptr(tab[m_key + "32"] if crc else None), ext_scale, c, k,
+                   n_w,
+                   a_nii.data_ptr(), b_nii.data_ptr(), u_next.data_ptr(),
+                   a_next.data_ptr(), b_next.data_ptr(), ptr(ok), ptr(hard),
+                   stream_handle(u))
+    GLUE_LAUNCHES += 1
+    return u_next, a_next, b_next, ok, hard
+
+
 @dataclasses.dataclass
 class TurboStats:
     """What one decode did: iterations (the reference's ``n_iter``), host
     syncs on a device value, each compacted retry as (full-batch
     iterations done, blocks failing), the full-batch iterations (``full``:
-    ``n_iter`` is ``full`` plus the early-stop loop's iterations) and the
-    host seconds the syncs blocked (``wait_s``)."""
+    ``n_iter`` is ``full`` plus the early-stop loop's iterations), the
+    host seconds the syncs blocked (``wait_s``) and the half-iterations
+    whose glue ran in the glue kernel (``glue_fused``)."""
     n_iter: int = 0
     syncs: int = 0
     retries: list = dataclasses.field(default_factory=list)
     full: int = 0
     wait_s: float = 0.0
+    glue_fused: int = 0
 
     def _read(self, to, x: torch.Tensor):
         t0 = time.perf_counter()
@@ -590,15 +685,21 @@ class TurboStats:
 @lru_cache(maxsize=16)
 def _tables(k: int, early_crc: str | None, device: torch.device):
     """QPP permutations and the early-stop CRC matrices (natural order for
-    DEC1, interleaved rows for DEC2) on ``device``."""
+    DEC1, interleaved rows for DEC2) on ``device``; for the glue kernel
+    (:func:`turbo_glue`) the permutations also in int16 (``pi16``,
+    ``inv16``) and the matrices' rows packed into int32 (``m_nat32``,
+    ``m_perm32``, :func:`~lteax_torch.phy.fec.crc.pack_rows`)."""
     pi = np.asarray(qpp_interleaver(k)).astype(np.int64)
     inv = np.asarray(qpp_deinterleaver(k)).astype(np.int64)
     t = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=device)
-    out = {"pi": t(pi), "inv": t(inv)}
+    out = {"pi": t(pi), "inv": t(inv), "pi16": t(pi, torch.int16),
+           "inv16": t(inv, torch.int16)}
     if early_crc is not None:
         m = crc_matrix(k, early_crc)
         out["m_nat"] = t(m, torch.float32)
         out["m_perm"] = t(m[pi], torch.float32)
+        out["m_nat32"] = t(pack_rows(m), torch.int32)
+        out["m_perm32"] = t(pack_rows(m[pi]), torch.int32)
     return out
 
 
@@ -677,6 +778,11 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     layout = layout_path(c, early_crc, retry_m, layout_glue=layout_glue,
                          fused=fused)
     presum = mdtype != "f32" and layout
+    # the presum form's glue between halves: the glue kernel for a bf16
+    # carry (plain torch on the CPU); "bf16_f32store" carries f32 and keeps
+    # the plain version everywhere
+    glue = turbo_glue if dt_e == torch.bfloat16 else turbo_glue_plain
+    fuse = presum and dt_e == torch.bfloat16 and llr_d.is_cuda
 
     def data_from(x):
         d0, d1, d2 = x[:, 0], x[:, 1], x[:, 2]
@@ -690,104 +796,115 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
         return (ls, ls[:, pi], v1, v2, sys_t1, sys_t2)
 
     def make_halves(data, full: bool = False):
-        """DEC1/DEC2 over a (sub)batch; ``full``: the layout path's
-        full-batch iterations, with the bf16 combine and the unroll."""
+        """DEC1 and DEC2 over a (sub)batch on the carried state (carry, a1,
+        b1, a2, b2): ``dec1(state, crc)`` -> (state, mid, l1, ok) and
+        ``dec2(state, mid, crc, bits)`` -> (state, l2, ok, bits), where
+        ``mid`` is what DEC1 hands DEC2, l1 and l2 (C', K) the APP LLRs (l2
+        in DEC2's interleaved order), ok each block's CRC parity
+        (``crc``) and bits the hard decisions in natural order (``bits``),
+        else None.  ``full``: the layout path's full-batch iterations, with
+        the bf16 combine and the unroll."""
         ls_, lsi_, v1_, v2_, st1_, st2_ = data
         comb = combine_bf16 and full
         unroll = blane_unroll if full else None
 
-        def half(u, v, a, b):
-            return half_iteration(u, v, *_pin_boundaries(a, b), win, acq,
-                                  mdtype, pinpad, nofreeze, comb,
-                                  fused=fused, unroll=unroll)
+        def half(u, v, a, b, raw=False):
+            return half_iteration(u, v, a, b, win, acq, mdtype, pinpad,
+                                  nofreeze, comb, fused=fused, unroll=unroll,
+                                  raw=raw)
 
         if presum:
-            # the reference's layout path: u = static + extrinsic, and the
-            # extrinsic comes back as ext_scale * (l - u)
-            def dec1(le21, a1, b1):
-                u1 = torch.cat([ls_ + le21, st1_], dim=1)
-                l1, a1n, b1n = half(u1, v1_, a1, b1)
-                return (l1[:, :k].to(dt_e), u1[:, :k]), a1n, b1n
+            # the reference's layout path: the carry is DEC1's input u1 =
+            # static + extrinsic, tails included; the boundaries are
+            # carried pinned; after each half the glue gives the other
+            # half's input, ext_scale * (l - u) through the QPP permutation
+            # plus its static LLRs, the NII hand-over and the CRC parity
+            def dec1(state, crc=False):
+                u1, a1, b1, a2, b2 = state
+                l1, an, bn = half(u1, v1_, a1, b1, raw=True)
+                u2, a1, b1, ok, _ = glue(l1, u1, lsi_, st2_, an, bn, tab, 1,
+                                         ext_scale, crc=crc)
+                stats.glue_fused += fuse
+                return (u1, a1, b1, a2, b2), u2, l1[:, :k], ok
 
-            def ext12(l1, le21):
-                l1, u1 = l1
-                return ext_scale * (l1 - u1)
+            def dec2(state, u2, crc=False, bits=False):
+                _, a1, b1, a2, b2 = state
+                l2, an, bn = half(u2, v2_, a2, b2, raw=True)
+                u1, a2, b2, ok, hard = glue(l2, u2, ls_, st1_, an, bn, tab,
+                                            2, ext_scale, crc=crc, bits=bits)
+                stats.glue_fused += fuse
+                return (u1, a1, b1, a2, b2), l2[:, :k], ok, hard
 
-            def dec2(le12, a2, b2):
-                u2 = torch.cat([lsi_ + le12[:, pi], st2_], dim=1)
-                l2, a2n, b2n = half(u2, v2_, a2, b2)
-                l2 = l2[:, :k].to(dt_e)
-                return l2, (ext_scale * (l2 - u2[:, :k]))[:, inv], a2n, b2n
+            return dec1, dec2
 
-            return dec1, dec2, ext12
-
-        def dec1(le21, a1, b1):
+        def dec1(state, crc=False):
+            le21, a1, b1, a2, b2 = state
             u1 = torch.cat([(ls_ + le21).to(dt_e), st1_.to(dt_e)], dim=1)
-            l1, a1n, b1n = half(u1, v1_, a1, b1)
-            return l1[:, :k].to(dt_e), a1n, b1n
+            l1, a1, b1 = half(u1, v1_, *_pin_boundaries(a1, b1))
+            l1 = l1[:, :k].to(dt_e)
+            ok = crc_parity_ok(l1 < 0, tab["m_nat"]) if crc else None
+            return (le21, a1, b1, a2, b2), l1, l1, ok
 
-        def ext12(l1, le21):
-            return (ext_scale * (l1 - ls_ - le21)).to(dt_e)
-
-        def dec2(le12, a2, b2):
-            la2 = le12[:, pi]
+        def dec2(state, l1, crc=False, bits=False):
+            le21, a1, b1, a2, b2 = state
+            la2 = (ext_scale * (l1 - ls_ - le21)).to(dt_e)[:, pi]
             u2 = torch.cat([(lsi_ + la2).to(dt_e), st2_.to(dt_e)], dim=1)
-            l2, a2n, b2n = half(u2, v2_, a2, b2)
+            l2, a2, b2 = half(u2, v2_, *_pin_boundaries(a2, b2))
             l2 = l2[:, :k].to(dt_e)
-            le21n = (ext_scale * (l2 - lsi_ - la2)).to(dt_e)[:, inv]
-            return l2, le21n, a2n, b2n
+            le21 = (ext_scale * (l2 - lsi_ - la2)).to(dt_e)[:, inv]
+            ok = crc_parity_ok(l2 < 0, tab["m_perm"]) if crc else None
+            hard = (l2 < 0).to(torch.int8)[:, inv] if bits else None
+            return (le21, a1, b1, a2, b2), l2, ok, hard
 
-        return dec1, dec2, ext12
-
-    def l_of(l1):
-        """DEC1's APP LLR (the presum form carries its u beside it)."""
-        return l1[0] if presum else l1
+        return dec1, dec2
 
     with stage("turbo.layout"):
         if mdtype == "f32" or presum:
             llr_d = llr_d.to(dt_e)
         data_full = data_from(llr_d)
         zero = torch.zeros((c, n_w, 8), dtype=torch.float32, device=dev)
-        init = (torch.zeros((c, k), dtype=dt_e, device=dev),
-                zero, zero, zero, zero)
+        le21 = torch.zeros((c, k), dtype=dt_e, device=dev)
+        if presum:
+            ls, _, _, _, st1, _ = data_full
+            init = (torch.cat([ls + le21, st1], dim=1),
+                    *_pin_boundaries(zero, zero) * 2)
+        else:
+            init = (le21, zero, zero, zero, zero)
 
-    def one_iteration(le21, a1, b1, a2, b2):
-        dec1, dec2, ext12 = make_halves(data_full, layout)
-        l1, a1n, b1n = dec1(le21, a1, b1)
-        # l2 stays in DEC2's interleaved domain (CRC rows are permuted)
-        l2, le21n, a2n, b2n = dec2(ext12(l1, le21), a2, b2)
-        return le21n, a1n, b1n, a2n, b2n, l2
+    def one_iteration(state, crc=False):
+        """A full-batch iteration -> (state, l2, ok, bits), with DEC2's CRC
+        parity and hard decisions where ``crc``."""
+        dec1, dec2 = make_halves(data_full, layout)
+        state, mid, _, _ = dec1(state)
+        return dec2(state, mid, crc=crc, bits=crc)
 
     if early_crc is None:
         state = init
         for _ in range(n_iter):
             with stage("turbo.iter"):
-                *state, l2 = one_iteration(*state)
+                state, l2, _, _ = one_iteration(state)
         stats.n_iter = stats.full = n_iter
         return (l2[:, inv] < 0).to(torch.int8), stats
-
-    m_nat, m_perm = tab["m_nat"], tab["m_perm"]
 
     def run_earlystop(data, state, iters_left: int, ignore=None):
         """Early-stopping decode of a (sub)batch from a carried state.
         ``ignore`` marks blocks whose CRC must not delay the stop.
         Returns (bits (c', K) int8 natural order, full iterations used)."""
-        dec1, dec2, ext12 = make_halves(data)
+        dec1, dec2 = make_halves(data)
 
         def allok(par):
             return torch.all(par if ignore is None else par | ignore)
 
-        le21, a1, b1, a2, b2 = state
         llast = torch.zeros((data[0].shape[0], k), dtype=dt_e, device=dev)
         it, from1 = 0, False
         while it < iters_left:
-            l1, a1, b1 = dec1(le21, a1, b1)
+            state, mid, l1, ok = dec1(state, crc=True)
             it += 1
-            if stats.flag(allok(crc_parity_ok(l_of(l1) < 0, m_nat))):
-                llast, from1 = l_of(l1), True    # skip DEC2
+            if stats.flag(allok(ok)):
+                llast, from1 = l1, True          # skip DEC2
                 break
-            llast, le21, a2, b2 = dec2(ext12(l1, le21), a2, b2)
-            if stats.flag(allok(crc_parity_ok(llast < 0, m_perm))):
+            state, llast, ok, _ = dec2(state, mid, crc=True)
+            if stats.flag(allok(ok)):
                 break
         bits = (llast < 0).to(torch.int8)
         # llast is natural-order after a DEC1 stop, interleaved otherwise
@@ -822,19 +939,16 @@ def turbo_decode_batch(llr_d: torch.Tensor, k: int, n_iter: int = 6,
     state = init
     while True:
         with stage("turbo.iter"):
-            *state, l2 = one_iteration(*state)
+            state, _, okb, bits = one_iteration(state, crc=True)
             kk += 1
-            okb = crc_parity_ok(l2 < 0, m_perm)
-            bits = (l2 < 0).to(torch.int8)[:, inv]
             n_fail = stats.count(torch.sum(~okb))
         if n_fail <= retry_m:
             with stage("turbo.compact"):
-                bits, extra = compact_at(kk, tuple(state), bits, okb, n_fail)
+                bits, extra = compact_at(kk, state, bits, okb, n_fail)
             break
         if kk >= min(retry_levels, n_iter - 1):
             with stage("turbo.earlystop"):
-                bits, extra = run_earlystop(data_full, tuple(state),
-                                            n_iter - kk)
+                bits, extra = run_earlystop(data_full, state, n_iter - kk)
             break
     stats.full = kk
     stats.n_iter = kk + extra

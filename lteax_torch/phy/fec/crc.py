@@ -43,6 +43,15 @@ def crc_matrix(n_bits: int, kind: str) -> np.ndarray:
     return rems
 
 
+def pack_rows(m: np.ndarray) -> np.ndarray:
+    """(N, L) 0/1 matrix -> (N,) int64 whose bit j is column j, L < 32.  The
+    parity of N bits over ``m`` is then the XOR of the rows where a bit is
+    1: its bit j is (bits @ m)[j] mod 2, a zero XOR a zero syndrome."""
+    if m.shape[1] >= 32:
+        raise ValueError("rows of 32 or more bits do not pack into 32")
+    return (m.astype(np.int64) << np.arange(m.shape[1])).sum(axis=1)
+
+
 def attach_crc_np(bits: np.ndarray, kind: str, mask_bits=None) -> np.ndarray:
     """Host CRC attach: (..., N) -> (..., N + L) int64.  ``mask_bits``
     (L,) XORs the parity (the PBCH antenna mask, 36.212 §5.3.1.1)."""

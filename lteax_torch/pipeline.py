@@ -974,7 +974,8 @@ class MimoSicBatchDecoder(_Decoder):
                           syncs=s0.syncs + s1.syncs,
                           retries=s0.retries + s1.retries,
                           full=max(s0.full, s1.full),
-                          wait_s=s0.wait_s + s1.wait_s)
+                          wait_s=s0.wait_s + s1.wait_s,
+                          glue_fused=s0.glue_fused + s1.glue_fused)
 
     def front(self, batch_iq: torch.Tensor) -> SicFront:
         f = self.mimo_front
