@@ -4,12 +4,13 @@ against the plain reference (``benchmark/reference.py``) on the same IQ.
 Numbers compared, each against its limit in ``limits/<cell>.json``:
 
 - ``llr_sign_gap``: of the de-matched LLRs that the front produced for a
-  sample of the checked batch's subframes (drawn from the seed), the share
-  of the sent positions (those where the reference's LLR is not 0) whose
-  sign differs from the reference's; an LLR of 0 counts as differing.
-- ``tb_lost``: of the same sample, the share of transport blocks that the
-  reference decodes (every CRC passes, the bits are those sent) and the
-  program does not.
+  sample of the checked batch's subframes (drawn from the seed), every
+  codeword of each, the share of the sent positions (those where the
+  reference's LLR is not 0) whose sign differs from the reference's; an
+  LLR of 0 counts as differing.
+- ``tb_lost``: of the same sample's transport blocks (``codewords`` a
+  subframe, ``benchmark/systems``), the share that the reference decodes
+  (every CRC passes, the bits are those sent) and the program does not.
 - ``crc_false_pass``: over every batch of the window, the transport blocks
   whose CRCs passed and whose bits are not those sent (exact: limit 0).
   A block whose CRC fails while its payload is right is no fault: its
@@ -26,7 +27,8 @@ from benchmark.traffic import seeds
 
 
 def sample(seed: int, traffic: dict) -> tuple[int, np.ndarray]:
-    """(the checked batch's number in the window, the sampled rows)."""
+    """(the checked batch's number in the window, the sampled subframe
+    rows: ``check_tbs`` of them)."""
     rng = np.random.default_rng(seeds(seed, 3)[2])
     batch = int(rng.integers(traffic["noise_batches"]))
     rows = np.sort(rng.choice(traffic["batch"], traffic["check_tbs"],
@@ -34,18 +36,22 @@ def sample(seed: int, traffic: dict) -> tuple[int, np.ndarray]:
     return batch, rows
 
 
-def program_side(record, inputs, rows: np.ndarray, c: int) -> dict:
+def program_side(record, inputs, rows: np.ndarray, c: int,
+                 codewords: int) -> dict:
     """What the reference is judged against, brought to the host before
-    the program's state is freed: the sampled rows' IQ, the front's LLRs
-    and the outputs."""
+    the program's state is freed: the sampled subframe rows' IQ, the
+    front's LLRs and the outputs of their transport blocks (``c``
+    codeblocks each, ``codewords`` a row, b-major in (subframe,
+    codeword))."""
     x = inputs.batches[record.kept["batch"] % len(inputs.batches)]
     llr = record.kept["llr"]
-    llr = llr.reshape(x.shape[0], c, *llr.shape[1:])[
+    llr = llr.reshape(x.shape[0], codewords * c, *llr.shape[1:])[
         torch.as_tensor(rows, device=llr.device)]
+    tbs = (rows[:, None] * codewords + np.arange(codewords)).ravel()
     return {"iq": x[torch.as_tensor(rows, device=x.device)].cpu().numpy(),
             "llr": llr.float().cpu().numpy().reshape(-1, *llr.shape[2:]),
-            "bits": record.kept["bits"][rows], "ok": record.kept["ok"][rows],
-            "sent": inputs.sent_host[rows],
+            "bits": record.kept["bits"][tbs], "ok": record.kept["ok"][tbs],
+            "sent": inputs.sent_host[tbs],
             "crc_false_pass": record.crc_false_pass}
 
 

@@ -5,7 +5,9 @@ false.  A cell on one card has no exchange between chips to leave out.
 - ``state_unchanged``: every turbo half-iteration returns its input as its
   output (the a priori LLRs as L, the window boundaries as they came).
 - ``half_left_out``: the tail decodes the first half of the batch only;
-  the other half comes back as failed blocks of zeros.
+  the other half comes back as failed blocks of zeros.  The halves are of
+  transport block rows (``llr`` rows over ``c``), so with two codewords a
+  subframe they take both codewords' blocks alike.
 - ``half_from_rest``: the same, the other half's bits and flags copied
   from the half that was decoded.
 - ``answer_altered``: the first bit of every transport block flipped

@@ -7,8 +7,8 @@ Copied from the port's numpy plan code (``lteax_torch/phy/config.py``,
 change to the program cannot move the yardstick: the transmitters
 (``benchmark/tx.py``) and the plain receivers (``benchmark/reference.py``)
 use these and nothing of the program.  Only the pieces the benchmark's
-configurations reach are kept: normal cyclic prefix, CRS port 0,
-uniform codeblock segmentation.
+configurations reach are kept: normal cyclic prefix, CRS ports 0 and 1,
+PDSCH codewords 0 and 1, uniform codeblock segmentation.
 """
 
 from __future__ import annotations
@@ -104,9 +104,10 @@ def gold(c_init: int, n: int) -> np.ndarray:
     return ((cbits @ basis.astype(np.int64)) + x1) % 2
 
 
-def pdsch_c_init(rnti: int, subframe: int, n_cell_id: int) -> int:
-    """PDSCH scrambler init, codeword 0 (36.211 §6.3.1)."""
-    return rnti * 2 ** 14 + subframe * 512 + n_cell_id
+def pdsch_c_init(rnti: int, subframe: int, n_cell_id: int, q: int = 0) -> int:
+    """PDSCH scrambler init of codeword ``q`` (36.211 §6.3.1):
+    n_RNTI 2^14 + q 2^13 + floor(n_s / 2) 2^9 + N_ID^cell."""
+    return rnti * 2 ** 14 + q * 2 ** 13 + subframe * 512 + n_cell_id
 
 
 def pusch_c_init(rnti: int, subframe: int, n_cell_id: int) -> int:
@@ -115,12 +116,15 @@ def pusch_c_init(rnti: int, subframe: int, n_cell_id: int) -> int:
 
 
 CRS_SYMS = (0, 4, 7, 11)
-"""Port 0's CRS symbols of a normal-CP subframe."""
+"""Ports 0 and 1's CRS symbols of a normal-CP subframe."""
 
 
-def crs_shift(sym: int, n_cell_id: int) -> int:
-    """Port 0's CRS comb offset in subframe symbol ``sym``."""
-    return ((0 if sym % N_SYM_SLOT == 0 else 3) + n_cell_id % 6) % 6
+def crs_shift(sym: int, n_cell_id: int, port: int = 0) -> int:
+    """CRS comb offset of ``port`` (0 or 1) in subframe symbol ``sym``:
+    v = 0 in symbol 0 of a slot and 3 in symbol 4 for port 0, the other
+    way round for port 1 (§6.10.1.2)."""
+    return ((0 if sym % N_SYM_SLOT == 0 else 3) + 3 * port
+            + n_cell_id % 6) % 6
 
 
 def crs_values(n_cell_id: int, ns: int, l: int, n_rb: int) -> np.ndarray:
@@ -133,12 +137,15 @@ def crs_values(n_cell_id: int, ns: int, l: int, n_rb: int) -> np.ndarray:
     return r[N_RB_MAX - n_rb:N_RB_MAX + n_rb].astype(np.complex64)
 
 
-def crs_grid(num: Numerology, n_cell_id: int, subframe: int):
-    """-> (flat indices (4, 2 n_rb), values (4, 2 n_rb)) of port 0's CRS
-    in a (14 * n_sc) grid."""
+def crs_grid(num: Numerology, n_cell_id: int, subframe: int, port: int = 0):
+    """-> (flat indices (4, 2 n_rb), values (4, 2 n_rb)) of the CRS of
+    ``port`` (0 or 1) in a (14 * n_sc) grid; both ports send the same
+    values."""
+    if port not in (0, 1):
+        raise ValueError(f"CRS port {port}: only ports 0 and 1 are kept")
     idx, val = [], []
     for sym in CRS_SYMS:
-        k = 6 * np.arange(2 * num.n_rb) + crs_shift(sym, n_cell_id)
+        k = 6 * np.arange(2 * num.n_rb) + crs_shift(sym, n_cell_id, port)
         idx.append(sym * num.n_sc + k)
         val.append(crs_values(n_cell_id, 2 * subframe + sym // N_SYM_SLOT,
                               sym % N_SYM_SLOT, num.n_rb))
@@ -146,12 +153,15 @@ def crs_grid(num: Numerology, n_cell_id: int, subframe: int):
 
 
 def pdsch_re_idx(num: Numerology, n_cell_id: int, cfi: int,
-                 subframe: int) -> np.ndarray:
-    """Flat indices of a full-band PDSCH allocation's REs (one CRS port),
-    frequency first, symbols cfi..13, skipping CRS, and PSS / SSS / PBCH
-    in subframes 0 and 5 (36.211 §6.3.5, §6.4)."""
+                 subframe: int, crs_ports: int = 1) -> np.ndarray:
+    """Flat indices of a full-band PDSCH allocation's REs in a cell of
+    ``crs_ports`` (1 or 2) CRS ports, frequency first, symbols cfi..13,
+    skipping every port's CRS, and PSS / SSS / PBCH in subframes 0 and 5
+    (36.211 §6.3.5, §6.4)."""
     reserved = np.zeros((N_SYM_SUBFRAME, num.n_sc), bool)
-    reserved.reshape(-1)[crs_grid(num, n_cell_id, subframe)[0].ravel()] = True
+    for port in range(crs_ports):
+        reserved.reshape(-1)[
+            crs_grid(num, n_cell_id, subframe, port)[0].ravel()] = True
     c72 = num.n_sc // 2 - 36 + np.arange(72)
     if subframe in (0, 5):
         reserved[N_SYM_SLOT - 1, c72] = reserved[N_SYM_SLOT - 2, c72] = True

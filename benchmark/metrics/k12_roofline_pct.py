@@ -2,9 +2,11 @@
 its launches' bounds (``benchmark/counts.py``) over the sum of their device
 times in the traced batches, in percent.  A launch's codeblocks follow
 from its grid against the largest grid of the same kernel, which is a
-full-batch launch (B x C codeblocks): every decode starts with one."""
+full-batch launch (B x codewords x C codeblocks: every transport block of
+the batch's subframe rows): every decode starts with one."""
 
 from benchmark.counts import bound_s, turbo_half_work
+from benchmark.spec import codewords
 
 
 def read(run):
@@ -13,7 +15,7 @@ def read(run):
     if not launches:
         return None
     geom = run.system.geometry(run.cfg)
-    full = run.traffic["batch"] * geom.c
+    full = run.traffic["batch"] * codewords(run.system) * geom.c
     widest = {}
     for name, grid, _ in launches:
         widest[name] = max(widest.get(name, 0), grid[0])

@@ -1,7 +1,10 @@
 """K3, the demap kernel (``csrc/demap.cu``): the sum of its launches'
 bounds (``benchmark/counts.py``, one launch a batch of B subframes, its
 input and output dtypes from the kernel's template arguments) over the sum
-of their device times in the traced batches, in percent."""
+of their device times in the traced batches, in percent.  Every launch is
+counted at B subframes whatever the system's ``codewords``: the MIMO front
+(``pipeline.MimoFront``) launches K3 once per codeword over the B
+subframes, which is one such launch each."""
 
 from benchmark.counts import bound_s, demap_work
 

@@ -32,7 +32,8 @@ def reading(system, cfg, traffic, dec, seed, seconds, device) -> dict:
         loop.batch(i)
     keep, rows = check.sample(seed, traffic)
     rec = loop.window(seconds, keep, spans=False)
-    side = check.program_side(rec, inputs, rows, system.geometry(cfg).c)
+    side = check.program_side(rec, inputs, rows, system.geometry(cfg).c,
+                              spec.codewords(system))
     del loop, inputs, rec
     return check.compare(system, cfg, side)
 

@@ -137,7 +137,8 @@ def main(argv=None) -> int:
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    side = check.program_side(record, inputs, rows, system.geometry(cfg).c)
+    side = check.program_side(record, inputs, rows, system.geometry(cfg).c,
+                              spec.codewords(system))
     # An operation is one transport block's decode.  It fails where the
     # program's answer is wrong: its CRCs pass and its bits are not those
     # sent.  A block whose CRC fails is reported as lost, the answer a

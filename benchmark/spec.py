@@ -4,7 +4,9 @@ the checkout, and under ``benchmark/`` a configuration
 mix (``traffic/<name>.json``), a cell's limits (``limits/<cell>.json``)
 and a metric's reader (``metrics/<name>.py``, a ``read(run)`` that returns
 the value or None where it finds nothing to read).  Adding one of these
-is adding a file and an entry in ``BENCHMARK.json``."""
+is adding a file and an entry in ``BENCHMARK.json``.  What a system
+module gives the harness, and the shapes of a row that carries more than
+one transport block (``codewords``), are in ``benchmark/systems``."""
 
 from __future__ import annotations
 
@@ -57,6 +59,11 @@ def limits(cell: str) -> dict:
 def system(cfg: dict):
     return importlib.import_module(
         f"benchmark.systems.{_checked(cfg['system'])}")
+
+
+def codewords(system) -> int:
+    """The transport blocks a subframe row of ``system`` carries."""
+    return getattr(system, "codewords", 1)
 
 
 def reader(metric: str):

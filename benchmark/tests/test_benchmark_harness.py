@@ -186,6 +186,28 @@ def test_each_planted_fault_is_not_correct(fault):
     assert not check.correct(_judged("dl20_mcs28.clean", fault=fault))
 
 
+@pytest.mark.parametrize("fault", faults.FAULTS)
+def test_each_planted_fault_is_not_correct_at_the_ul_edge(fault):
+    """The UL tail at its threshold SNR, where it iterates up to 6
+    times."""
+    assert not check.correct(_judged("ul20_64qam.edge", fault=fault))
+
+
+def test_the_sweep_counts_crc_failures(capsys):
+    """``benchmark/sweep.py`` at the dry run's sizes: one line a seed and
+    SNR; far below the UL threshold blocks fail, at 25 dB none does."""
+    from benchmark import sweep
+    assert sweep.main(["--config", "ul20_64qam", "--traffic",
+                       "closed_b1024_snr25", "--snrs", "14,25", "--seeds",
+                       "2147483663", "--cpu-dry-run"]) == 0
+    low, high = (json.loads(ln) for ln in
+                 capsys.readouterr().out.strip().splitlines())
+    assert low["blocks"] == high["blocks"] == 2 * run.DRY_RUN["batch"]
+    assert low["crc_failed"] > 0 and low["turbo_iters"] == 6
+    assert high["crc_failed"] == 0 and high["bler"] == 0
+    assert low["crc_false_pass"] == high["crc_false_pass"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_on_the_card(cell):

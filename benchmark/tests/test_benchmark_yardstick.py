@@ -1,7 +1,8 @@
 """The frozen yardstick: its counts give PERF.md's bounds at the headline
 shapes, its transmitters send what the port's generators sent when they
-were copied, and its plain reference fronts and decoder compute what the
-port's exact (f32) decode computes."""
+were copied, its plain reference fronts and decoder compute what the
+port's exact (f32) decode computes, and its primitives of a 2-port,
+two-codeword DL cell equal the port's."""
 
 import numpy as np
 import pytest
@@ -83,3 +84,63 @@ def test_frozen_chain_against_the_port(config):
     bits, ok = reference.decode(d_ref, system.geometry(cfg), cfg["n_iter"],
                                 cfg["tuning"]["ext_scale"])
     assert ok.all() and np.array_equal(bits, tb)
+
+
+# (cell, subframe, cfi) -> sha256 of crs_grid's indices and values and of
+# pdsch_re_idx, and pdsch_c_init at RNTI 4660, at their defaults (codeword
+# 0, CRS port 0, one CRS port), as they were before codeword 1 and port 1
+# were added
+ONE_PORT = {
+    (214, 1, 1): (
+        "167da9590389b91bc1f44b51c31fecab449ef41a9c5a9c617dbd47703ec13cf4",
+        "0f84b42db14d56eff9291a626bf408f82dd06771ee009d8ac11e33a50b4d4178",
+        "418c68bf8ee845f34d9e6c5650421d3edb18eddb57bf63b51d7ccf892ec84a20",
+        76350166),
+    (150, 0, 2): (
+        "044f57f94e3e9f3b207eb030f96f1a11b1510324cfc80679a601b2a2919a6bb1",
+        "273994f5e300f86e06107e77ab6b19798406824135051a5d397ea90a5388b533",
+        "74b97be9a2e9722a8d0f2e3366f12f05c8c06eca697bf826873c68ff3b2a0548",
+        76349590),
+    (7, 5, 3): (
+        "424bfc4463d8794af635440377f0753c67991bef7a6b6eccb163c09714a28877",
+        "bfd93349b3954cf7dbfc01856f261c792732905f067df1fc2641a3609146c3fa",
+        "eb999cdf8be7999e3a951d0d34f6e69954660afb9555371c3c8b6bb39542541d",
+        76352007),
+}
+
+
+@pytest.mark.parametrize("cell, sf, cfi", sorted(ONE_PORT))
+def test_two_port_primitives_against_the_port(cell, sf, cfi):
+    """Codeword 1's scrambler, port 1's CRS and a 2-port cell's PDSCH REs
+    equal the port's; the defaults give the one-port arrays unchanged."""
+    import hashlib
+
+    from lteax_torch.phy import seq
+    from lteax_torch.phy.config import PhyConfig
+    from lteax_torch.phy.grid import crs_flat_idx, pdsch_flat_idx
+    from lteax_torch.sim.dl_gen import crs_grid_values
+
+    from benchmark import lte
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                      ).hexdigest()
+    num = lte.Numerology(100)
+    idx, val = lte.crs_grid(num, cell, sf)
+    assert (digest(idx), digest(val), digest(lte.pdsch_re_idx(
+        num, cell, cfi, sf)), lte.pdsch_c_init(4660, sf, cell)) == \
+        ONE_PORT[(cell, sf, cfi)]
+    for q in (0, 1):
+        assert lte.pdsch_c_init(4660, sf, cell, q) == seq.pdsch_c_init(
+            4660, sf, cell, codeword=q)
+    for ports in (1, 2):
+        cfg = PhyConfig(n_rb_dl=100, n_ant=ports)
+        for port in range(ports):
+            idx, val = lte.crs_grid(num, cell, sf, port)
+            assert np.array_equal(idx.ravel(),
+                                  crs_flat_idx(cfg, cell, port))
+            assert np.array_equal(val.ravel(),
+                                  crs_grid_values(cfg, cell, sf, port))
+        assert np.array_equal(
+            lte.pdsch_re_idx(num, cell, cfi, sf, crs_ports=ports),
+            pdsch_flat_idx(cfg, cell, cfi, tuple(range(100)), sf))
+    assert len(lte.pdsch_re_idx(num, cell, cfi, sf, crs_ports=2)) < len(
+        lte.pdsch_re_idx(num, cell, cfi, sf))
